@@ -1,0 +1,18 @@
+"""repro_torch — the PyTorch/CUDA port of ``repro`` for one NVIDIA H100.
+
+The package mirrors ``src/repro/`` module for module
+(``repro_torch/engine/plan.py`` is the twin of ``repro/engine/plan.py``)
+and imports nothing of the reference package or its framework.  This
+slice ports the paper's main path on the single-host ``vmap`` backend:
+
+    make_problem -> compile_problem (Z, counts, U, box, L, K = Z diag(a) Z^T)
+                 -> Plan.run (eqs. 6-9, pluggable dual QP engine) -> risks
+
+through ``repro_torch.api.DTSVM`` / ``DSVM``.  The three TPU kernels on
+that path (the weighted Gram build and the two fused QP solves) are CUDA
+C++ kernels for ``sm_90a`` under ``repro_torch/kernels/csrc/``, built at
+first use.  A kernel or its plain PyTorch version is chosen by the
+device of the tensors, and the caller chooses the device: entry points
+take ``device=None``, which means ``"cuda"``; pass ``device="cpu"`` to
+run the plain versions on the CPU.
+"""

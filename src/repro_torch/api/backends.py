@@ -1,0 +1,81 @@
+"""Execution backends behind ``Solver.fit`` (twin of
+``repro/api/backends.py``).
+
+A backend is a callable
+
+    run(prob, iters, *, qp_iters, qp_solver, qp_precision, state, eval_fn,
+        **options) -> (DTSVMState, history | None)
+
+This slice ports the single-host ``"vmap"`` backend: one compiled plan,
+one loop.  The reference's other backends are still to be ported:
+``"async"`` with the fabric (ROADMAP.md, "Modules to port", item 8),
+``"shard_map"`` and ``"sample_shard"`` (item 12).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+from repro_torch.core import dtsvm as core
+from repro_torch.engine import plan as engine_plan
+
+_REGISTRY: Dict[str, Callable] = {}
+
+_NOT_PORTED = {
+    "async": "ROADMAP.md, 'Modules to port', item 8 (the fabric)",
+    "shard_map": "ROADMAP.md, 'Modules to port', item 12",
+    "sample_shard": "ROADMAP.md, 'Modules to port', item 12",
+}
+
+
+def register(name: str):
+    """Register a backend runner under ``name`` (decorator)."""
+    def deco(fn: Callable) -> Callable:
+        _REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+def get(name: str) -> Callable:
+    """The registered backend runner for ``name``."""
+    if name in _NOT_PORTED:
+        raise NotImplementedError(f"backend {name!r} is not ported yet: "
+                                  f"{_NOT_PORTED[name]}")
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown backend {name!r}; available: {sorted(_REGISTRY)}"
+        ) from None
+
+
+def names():
+    """Sorted names of every registered fit backend."""
+    return sorted(_REGISTRY)
+
+
+@register("vmap")
+def _run_vmap(prob: core.DTSVMProblem, iters: int, *, qp_iters: int = 200,
+              qp_solver: str = "fista", qp_precision: str = "f32",
+              qp_operator: str = "materialized",
+              state: Optional[core.DTSVMState] = None, eval_fn=None,
+              budget=None, **_ignored):
+    """Single-host backend: one compiled plan, one loop of ADMM steps.
+    Options of the other backends (e.g. ``topology``) are ignored, as in
+    the reference."""
+    plan = engine_plan.compile_problem(prob, qp_iters=qp_iters,
+                                       qp_solver=qp_solver,
+                                       qp_precision=qp_precision,
+                                       qp_operator=qp_operator,
+                                       budget=budget)
+    return plan.run(state=state, iters=iters, eval_fn=eval_fn)
+
+
+def run(prob: core.DTSVMProblem, iters: int, *, backend: str = "vmap",
+        qp_iters: int = 200, qp_solver: str = "fista",
+        qp_precision: str = "f32", qp_operator: str = "materialized",
+        state=None, eval_fn=None, **options):
+    """Dispatch one fit through the named backend.  Returns
+    ``(state, history | None)``."""
+    return get(backend)(prob, iters, qp_iters=qp_iters, qp_solver=qp_solver,
+                        qp_precision=qp_precision, qp_operator=qp_operator,
+                        state=state, eval_fn=eval_fn, **options)

@@ -1,0 +1,222 @@
+"""One fit/predict surface over the paper's consensus solvers (twin of
+``repro/api/solvers.py``).
+
+    cfg = SolverConfig(C=0.01, eps2=1.0, iters=60)
+    DTSVM(cfg).fit(X, y, mask=mask, adj=adj).risks(X_test, y_test)
+    DSVM(cfg).fit(X, y, mask=mask, adj=adj).risks(X_test, y_test)
+
+``SolverConfig`` keeps the reference's fields and names, so a
+``to_dict()`` dict means the same thing in both packages.  The device is
+not part of the config: it goes to the solver's constructor or to
+``fit`` (``None`` means ``"cuda"``; ``repro_torch.device``).  Options
+this slice does not port raise ``NotImplementedError`` naming the
+ROADMAP.md item that brings them.  ``CSVM`` comes with the next slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.api import backends, evaluate
+from repro_torch.core import dsvm as dsvm_lib
+from repro_torch.core import dtsvm as core
+from repro_torch.engine.invariants import PlanBudget
+
+_NOT_PORTED_NET = ("SolverConfig.net (the communication fabric) is not "
+                   "ported yet: ROADMAP.md, 'Modules to port', item 8")
+
+
+@dataclass(frozen=True)
+class SolverConfig:
+    """Hyper-parameters + execution strategy (the reference's fields).
+
+    C, eps1, eps2, eta1, eta2: Prop. 1's penalty, regularization and
+    consensus weights.  iters: ADMM iterations per ``fit()``.  qp_iters:
+    inner box-QP iterations per ADMM step.  qp_solver: ``"fista" | "pg"
+    | "pallas_fused" | "pallas_fused_multi"`` (``engine.qp_engines``).
+    qp_precision: ``"f32"`` or ``"bf16"`` (``pallas_fused_multi`` only).
+    box_scale: the paper's multiplier on C (auto: V*T).  backend:
+    ``"vmap"`` (the only backend ported so far).  ``qp_operator=
+    "factored"``, ``net``, ``budget`` and ``telemetry`` keep their
+    reference meaning and are not ported yet.
+    """
+    C: float = 0.01
+    eps1: float = 1.0
+    eps2: float = 1.0
+    eta1: float = 1.0
+    eta2: float = 1.0
+    iters: int = 60
+    qp_iters: int = 200
+    qp_solver: str = "fista"
+    qp_precision: str = "f32"
+    qp_operator: str = "materialized"
+    box_scale: Optional[float] = None
+    backend: str = "vmap"
+    backend_options: Dict[str, Any] = field(default_factory=dict)
+    net: Optional[Any] = None
+    budget: Optional[PlanBudget] = None
+    telemetry: bool = False
+
+    def replace(self, **kw) -> "SolverConfig":
+        """A copy with the given fields replaced (frozen dataclass)."""
+        return dataclasses.replace(self, **kw)
+
+    def to_dict(self) -> dict:
+        """Plain-python form, key for key the reference's."""
+        if self.net is not None:
+            raise NotImplementedError(_NOT_PORTED_NET)
+        for k, v in self.backend_options.items():
+            if not isinstance(v, (int, float, str, bool, type(None))):
+                raise TypeError(
+                    f"SolverConfig.to_dict: backend_options[{k!r}] is a "
+                    f"{type(v).__name__}, which has no serializable form")
+        return {
+            "C": float(self.C), "eps1": float(self.eps1),
+            "eps2": float(self.eps2), "eta1": float(self.eta1),
+            "eta2": float(self.eta2), "iters": int(self.iters),
+            "qp_iters": int(self.qp_iters), "qp_solver": self.qp_solver,
+            "qp_precision": self.qp_precision,
+            "qp_operator": self.qp_operator,
+            "box_scale": None if self.box_scale is None
+            else float(self.box_scale),
+            "backend": self.backend,
+            "backend_options": dict(self.backend_options),
+            "net": None,
+            "budget": None if self.budget is None else
+            {"max_elems": None if self.budget.max_elems is None
+             else int(self.budget.max_elems),
+             "tile": None if self.budget.tile is None
+             else [int(t) for t in self.budget.tile]},
+            "telemetry": bool(self.telemetry),
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "SolverConfig":
+        """Rebuild a SolverConfig from ``to_dict``'s plain form."""
+        d = dict(d)
+        if d.get("net") is not None:
+            raise NotImplementedError(_NOT_PORTED_NET)
+        if d.get("budget") is not None:
+            b = d["budget"]
+            d["budget"] = PlanBudget(
+                max_elems=b["max_elems"],
+                tile=None if b["tile"] is None else tuple(b["tile"]))
+        return cls(**d)
+
+
+def _check_ported(cfg: SolverConfig) -> None:
+    """Raise on the options this slice does not port (``budget`` and
+    ``qp_operator="factored"`` raise in ``engine.compile_problem``)."""
+    if cfg.net is not None:
+        raise NotImplementedError(_NOT_PORTED_NET)
+    if cfg.telemetry:
+        raise NotImplementedError(
+            "SolverConfig.telemetry is not ported yet: ROADMAP.md, "
+            "'Modules to port', item 11 (observability)")
+    backends.get(cfg.backend)      # raises on the backends still to port
+
+
+class _ConsensusSolver:
+    """Shared machinery for the two decentralized solvers."""
+
+    def __init__(self, config: Optional[SolverConfig] = None, *,
+                 device=None, **overrides):
+        cfg = config if config is not None else SolverConfig()
+        self.config = cfg.replace(**overrides) if overrides else cfg
+        self.device = device
+        self.problem_: Optional[core.DTSVMProblem] = None
+        self.state_: Optional[core.DTSVMState] = None
+        self.history_ = None
+
+    # -- problem construction (the one subclass hook) ----------------------
+    def make_problem(self, X, y, mask=None, adj=None, *, active=None,
+                     couple=None, device=None) -> core.DTSVMProblem:
+        raise NotImplementedError
+
+    def fit(self, X, y, mask=None, adj=None, *, active=None, couple=None,
+            iters: Optional[int] = None,
+            state: Optional[core.DTSVMState] = None, eval_fn=None,
+            X_test=None, y_test=None, device=None):
+        """Run ADMM on (X, y) on ``device`` (default: the constructor's,
+        else ``"cuda"``).  Returns self; the state and history are on
+        ``state_`` / ``history_``.  ``state`` warm-starts; ``X_test`` /
+        ``y_test`` record a per-iteration risk curve."""
+        cfg = self.config
+        _check_ported(cfg)
+        dev = device_lib.resolve(device if device is not None
+                                 else self.device)
+        prob = self.make_problem(X, y, mask, adj, active=active,
+                                 couple=couple, device=dev)
+        if eval_fn is None and X_test is not None:
+            eval_fn = evaluate.risk_eval_fn(prob.X.shape[0], X_test, y_test,
+                                            dev)
+        self.state_, self.history_ = backends.run(
+            prob, iters if iters is not None else cfg.iters,
+            backend=cfg.backend, qp_iters=cfg.qp_iters,
+            qp_solver=cfg.qp_solver, qp_precision=cfg.qp_precision,
+            qp_operator=cfg.qp_operator, state=state, eval_fn=eval_fn,
+            budget=cfg.budget, **cfg.backend_options)
+        self.problem_ = prob
+        return self
+
+    # -- inference ---------------------------------------------------------
+    def _require_fit(self) -> core.DTSVMState:
+        if self.state_ is None:
+            raise RuntimeError("call fit() first")
+        return self.state_
+
+    def decision(self, X) -> torch.Tensor:
+        """Decision values g_vt(x).  X: (T, n, p) shared, or (V, T, n, p)."""
+        st = self._require_fit()
+        X = torch.as_tensor(X, dtype=torch.float32, device=st.r.device)
+        if X.ndim == 3:
+            X = X[None].expand((st.r.shape[0],) + X.shape)
+        return core.decision_values(st.r, X)
+
+    def predict(self, X) -> torch.Tensor:
+        """Predicted labels in {-1, +1}, shape (V, T, n)."""
+        return torch.sign(self.decision(X))
+
+    def risks(self, X_test, y_test) -> torch.Tensor:
+        """(V, T) per-node test risks on the shared test set."""
+        return evaluate.risks_of_state(self._require_fit(), X_test, y_test)
+
+    def global_risks(self, X_test, y_test) -> np.ndarray:
+        """(T,) network-average risks (what the figures plot)."""
+        return evaluate.global_risks(self.risks(X_test, y_test))
+
+    def residuals(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(task, node) consensus residuals of the fitted state."""
+        return core.consensus_residuals(self._require_fit(), self.problem_)
+
+
+class DTSVM(_ConsensusSolver):
+    """Prop. 1: decentralized multi-task transfer SVM."""
+
+    def make_problem(self, X, y, mask=None, adj=None, *, active=None,
+                     couple=None, device=None) -> core.DTSVMProblem:
+        """The Prop.-1 problem from user arrays; hyper-parameters from
+        ``self.config``."""
+        cfg = self.config
+        return core.make_problem(
+            X, y, mask, adj, C=cfg.C, eps1=cfg.eps1, eps2=cfg.eps2,
+            eta1=cfg.eta1, eta2=cfg.eta2, box_scale=cfg.box_scale,
+            active=active, couple=couple, device=device)
+
+
+class DSVM(_ConsensusSolver):
+    """Forero et al. single-task consensus SVM, the paper's baseline [7].
+    ``couple`` is forced to 0; ``eps1``/``eta1`` of the config are
+    ignored by construction."""
+
+    def make_problem(self, X, y, mask=None, adj=None, *, active=None,
+                     couple=None, device=None) -> core.DTSVMProblem:
+        cfg = self.config
+        return dsvm_lib.make_dsvm_problem(
+            X, y, mask, adj, C=cfg.C, eps2=cfg.eps2, eta2=cfg.eta2,
+            active=active, device=device)

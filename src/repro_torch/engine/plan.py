@@ -1,0 +1,161 @@
+"""Plan/execute: compile a DTSVM problem once, iterate it many times (twin
+of ``repro/engine/plan.py``).
+
+``compile_problem`` precomputes the problem's invariants (``invariants``:
+Z, K, u, a, counts, box, L) into a ``Plan``; ``Plan.step`` / ``Plan.run``
+execute the state-dependent part of eqs. 6-9: the linear term q, the
+dual solve with the chosen engine (``qp_engines``), zl = Z^T lam and the
+primal/multiplier updates.  The reference's ``lax.scan`` is a Python
+loop here.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core import dtsvm as core
+from repro_torch.engine import invariants as inv_lib
+from repro_torch.engine import qp_engines
+
+DEFAULT_QP_SOLVER = "fista"
+
+
+def consensus_update(prob: core.DTSVMProblem, state: core.DTSVMState,
+                     u, ntp, nbr, f, zl, nbr_reduce: Callable):
+    """Eqs. (7)-(9): the post-dual-solve primal/multiplier updates.
+    Returns ``(r_new, alpha, beta)``."""
+    p = prob.X.shape[-1]
+    rhs = torch.cat([zl, zl], -1) - f                          # [I,I]^T(..)-f
+    r_new = rhs / u                                            # eq. (7)
+    act = prob.active[..., None]
+    r_new = r_new * act + state.r * (1.0 - act)                # freeze
+
+    # eq. (8): alpha update on the (w0, b0) block, coupled nodes only
+    r_act = r_new * act
+    task_sum = r_act.sum(1, keepdim=True) - r_act
+    d_alpha = ntp[..., None] * r_new - task_sum * prob.couple[:, None, None]
+    alpha = state.alpha + 0.5 * prob.eta1 * d_alpha[..., : p + 1] * act
+
+    # eq. (9): beta update over active neighbors
+    d_beta = nbr[..., None] * r_new - nbr_reduce(r_act)
+    beta = state.beta + 0.5 * prob.eta2 * d_beta * act
+    return r_new, alpha, beta
+
+
+def plan_step(prob: core.DTSVMProblem, inv: inv_lib.PlanInvariants,
+              state: core.DTSVMState, *, qp_iters: int = 200,
+              qp_solver: str = DEFAULT_QP_SOLVER,
+              qp_precision: str = "f32") -> core.DTSVMState:
+    """One Prop.-1 iteration (eqs. 6-9) on precomputed invariants.  An
+    engine with the ``supports_fold`` capability returns zl from the
+    same launch as the dual solve."""
+    p = prob.X.shape[-1]
+    nbr_reduce = core._default_nbr_reduce(prob)
+    ntp, nbr, u, Z = inv.ntp, inv.nbr, inv.u, inv.Z
+
+    f = core._f_vec(prob, state, ntp, nbr, nbr_reduce)
+    g = f[..., : p + 1] / u[..., : p + 1] + f[..., p + 1:] / u[..., p + 1:]
+    q = prob.mask + (Z * g[..., None, :]).sum(-1)
+
+    engine = qp_engines.get(qp_solver)
+    if getattr(engine, "supports_fold", False):
+        lam, zl = engine(inv.K, q, inv.hi, state.lam, iters=qp_iters,
+                         L=inv.L, precision=qp_precision, Z=Z)  # eq. (6)
+    else:
+        lam = engine(inv.K, q, inv.hi, state.lam,
+                     iters=qp_iters, L=inv.L)                  # eq. (6)
+        zl = torch.einsum("vtn,vtnd->vtd", lam, Z)             # X^T Y lam
+    r_new, alpha, beta = consensus_update(prob, state, u, ntp, nbr, f, zl,
+                                          nbr_reduce)
+    return core.DTSVMState(r=r_new, alpha=alpha, beta=beta, lam=lam)
+
+
+class Plan:
+    """A compiled DTSVM problem: invariants + the per-iteration body."""
+
+    def __init__(self, prob: core.DTSVMProblem,
+                 inv: inv_lib.PlanInvariants, *, qp_iters: int = 200,
+                 qp_solver: str = DEFAULT_QP_SOLVER,
+                 qp_precision: str = "f32"):
+        self.prob = prob
+        self.inv = inv
+        self.qp_iters = qp_iters
+        self.qp_solver = qp_solver
+        self.qp_precision = qp_precision
+
+    def init_state(self) -> core.DTSVMState:
+        return core.init_state(self.prob)
+
+    def step(self, state: core.DTSVMState) -> core.DTSVMState:
+        """One ADMM iteration on the precomputed invariants."""
+        return plan_step(self.prob, self.inv, state, qp_iters=self.qp_iters,
+                         qp_solver=self.qp_solver,
+                         qp_precision=self.qp_precision)
+
+    def run(self, state: Optional[core.DTSVMState] = None, iters: int = 1,
+            eval_fn: Optional[Callable] = None):
+        """Run ``iters`` iterations.  Returns (state, history), where
+        history stacks ``eval_fn(state)`` after every iteration (or is
+        None)."""
+        if state is None:
+            state = self.init_state()
+        hist = []
+        for _ in range(iters):
+            state = self.step(state)
+            if eval_fn is not None:
+                hist.append(eval_fn(state))
+        if eval_fn is None:
+            return state, None
+        return state, (torch.stack(hist) if hist else None)
+
+
+def compile_problem(prob: core.DTSVMProblem, cfg=None, *,
+                    qp_iters: Optional[int] = None,
+                    qp_solver: Optional[str] = None,
+                    qp_precision: Optional[str] = None,
+                    qp_operator: Optional[str] = None,
+                    budget: Optional[inv_lib.PlanBudget] = None) -> Plan:
+    """Precompute every loop-invariant of Prop. 1 into a ``Plan``.
+
+    ``cfg`` is any object with ``qp_iters`` / ``qp_solver`` /
+    ``qp_precision`` / ``qp_operator`` / ``budget`` attributes (e.g. a
+    ``SolverConfig``); explicit keywords override it.  ``"bf16"``
+    precision needs an engine with the ``supports_precision`` capability
+    (``"pallas_fused_multi"``).  ``qp_operator="factored"`` and
+    ``budget`` are not ported yet and raise ``NotImplementedError``.
+    """
+    if qp_iters is None:
+        qp_iters = getattr(cfg, "qp_iters", 200)
+    if qp_solver is None:
+        qp_solver = getattr(cfg, "qp_solver", DEFAULT_QP_SOLVER)
+    if qp_precision is None:
+        qp_precision = getattr(cfg, "qp_precision", "f32")
+    if qp_operator is None:
+        qp_operator = getattr(cfg, "qp_operator", "materialized")
+    if budget is None:
+        budget = getattr(cfg, "budget", None)
+    engine = qp_engines.get(qp_solver)   # fail fast on unknown engines
+    if qp_precision not in ("f32", "bf16"):
+        raise ValueError(f"unknown qp_precision {qp_precision!r}; "
+                         f"expected 'f32' or 'bf16'")
+    if qp_operator not in ("materialized", "factored"):
+        raise ValueError(f"unknown qp_operator {qp_operator!r}; "
+                         f"expected 'materialized' or 'factored'")
+    if qp_precision != "f32" and not getattr(engine, "supports_precision",
+                                             False):
+        raise ValueError(
+            f"qp_precision={qp_precision!r} needs a mixed-precision "
+            f"engine (qp_solver='pallas_fused_multi'); got {qp_solver!r}")
+    if qp_operator == "factored":
+        raise NotImplementedError(
+            "qp_operator='factored' is not ported yet: its Gershgorin pass "
+            "needs the tiled Gram kernel (ROADMAP.md, 'TPU kernels to "
+            "port', item 1)")
+    if budget is not None:
+        raise NotImplementedError(
+            "the streamed PlanBudget build is not ported yet: it needs the "
+            "tiled Gram kernel (ROADMAP.md, 'TPU kernels to port', item 1)")
+    inv = inv_lib.compute_invariants(prob)
+    return Plan(prob, inv, qp_iters=qp_iters, qp_solver=qp_solver,
+                qp_precision=qp_precision)

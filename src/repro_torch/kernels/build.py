@@ -1,0 +1,43 @@
+"""Build and load the hand kernels.
+
+One ``torch.utils.cpp_extension.load`` of every source under ``csrc/``,
+for ``sm_90a``, at first use, into ``build/repro_torch_kernels/`` at the
+root of the repository (``/build/`` is git-ignored).  The ``.cu`` files
+hold the kernels behind plain C launchers and include no PyTorch header;
+``bindings.cpp`` is the one source that includes ``torch/extension.h``.
+Nothing here runs at import: a machine without ``nvcc`` imports the
+package and runs the plain versions on the CPU.
+"""
+from __future__ import annotations
+
+import pathlib
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+SOURCES = ("bindings.cpp", "gram.cu", "qp_step.cu", "qp_multi.cu")
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch_kernels"
+CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
+
+_EXT = None
+#: seconds the last build (or cache check) took, for chip_smoke.py
+build_seconds = None
+
+
+def extension():
+    """The loaded extension module, built on the first call."""
+    global _EXT, build_seconds
+    if _EXT is None:
+        from torch.utils import cpp_extension
+
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        _EXT = cpp_extension.load(
+            name="repro_torch_kernels",
+            sources=[str(CSRC / s) for s in SOURCES],
+            build_directory=str(BUILD_DIR),
+            extra_cflags=["-O2"],
+            extra_cuda_cflags=list(CUDA_FLAGS),
+            verbose=False)
+        build_seconds = time.perf_counter() - t0
+    return _EXT

@@ -1,0 +1,192 @@
+// PyTorch bindings of the hand kernels.  The only source that includes
+// PyTorch's headers: the .cu files expose plain C launchers, so nvcc never
+// compiles torch/extension.h.  Each binding checks device, type, shape and
+// contiguity, allocates the outputs and any scratch with torch, launches
+// on PyTorch's current stream and checks the launch.
+#include <torch/extension.h>
+
+#include <pybind11/stl.h>
+
+#include <c10/cuda/CUDAException.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <c10/cuda/CUDAStream.h>
+#include <cuda_runtime_api.h>
+
+#include <limits>
+#include <optional>
+#include <string>
+#include <tuple>
+#include <vector>
+
+cudaError_t repro_gram_launch(const float* Z, const float* a, float* K, int B,
+                              int N, int D, cudaStream_t stream);
+cudaError_t repro_gram_attributes(int which, cudaFuncAttributes* attr,
+                                  const char** name);
+cudaError_t repro_qp_step_launch(const float* K, const float* lam,
+                                 const float* q, const float* hi,
+                                 const float* gamma, float* out, int B, int N,
+                                 cudaStream_t stream);
+cudaError_t repro_qp_step_attributes(int which, cudaFuncAttributes* attr,
+                                     const char** name);
+cudaError_t repro_qp_multi_grid(int k_bf16, int fold, int B, int N,
+                                int* blocks);
+cudaError_t repro_qp_multi_launch(int k_bf16, int fold, const void* K,
+                                  const float* lam0, const float* q,
+                                  const float* hi, const float* gamma,
+                                  const float* Z, float* lam_out, float* zl,
+                                  float* buf, float* partial, int B, int N,
+                                  int D, int iters, int grid_blocks,
+                                  cudaStream_t stream);
+cudaError_t repro_qp_multi_attributes(int which, cudaFuncAttributes* attr,
+                                      const char** name);
+
+namespace {
+
+void check(const torch::Tensor& t, const char* name, at::ScalarType dtype,
+           int64_t dim) {
+  TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
+  TORCH_CHECK(t.scalar_type() == dtype, name, " must be ", dtype, ", got ",
+              t.scalar_type());
+  TORCH_CHECK(t.dim() == dim, name, " must have ", dim, " dims, got ",
+              t.dim());
+  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+}
+
+int as_int(int64_t v, const char* what) {
+  TORCH_CHECK(v >= 0 && v <= std::numeric_limits<int>::max(), what,
+              " out of range: ", v);
+  return static_cast<int>(v);
+}
+
+// Z (B, N, D), a (B, D) -> K (B, N, N)
+torch::Tensor weighted_gram(torch::Tensor Z, torch::Tensor a) {
+  check(Z, "Z", at::kFloat, 3);
+  check(a, "a", at::kFloat, 2);
+  const int64_t B = Z.size(0), N = Z.size(1), D = Z.size(2);
+  TORCH_CHECK(a.size(0) == B && a.size(1) == D, "a must be (B, D)");
+  TORCH_CHECK(B <= 65535, "batch of ", B, " problems exceeds the grid");
+  const c10::cuda::CUDAGuard guard(Z.device());
+  auto K = torch::empty({B, N, N}, Z.options());
+  C10_CUDA_CHECK(repro_gram_launch(
+      Z.data_ptr<float>(), a.data_ptr<float>(), K.data_ptr<float>(),
+      as_int(B, "B"), as_int(N, "N"), as_int(D, "D"),
+      c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return K;
+}
+
+// lam, q, hi (B, N), K (B, N, N), gamma (B,) -> lam (B, N)
+torch::Tensor qp_pg_step(torch::Tensor lam, torch::Tensor K, torch::Tensor q,
+                         torch::Tensor hi, torch::Tensor gamma) {
+  check(lam, "lam", at::kFloat, 2);
+  check(K, "K", at::kFloat, 3);
+  check(q, "q", at::kFloat, 2);
+  check(hi, "hi", at::kFloat, 2);
+  check(gamma, "gamma", at::kFloat, 1);
+  const int64_t B = lam.size(0), N = lam.size(1);
+  TORCH_CHECK(K.size(0) == B && K.size(1) == N && K.size(2) == N,
+              "K must be (B, N, N)");
+  TORCH_CHECK(q.sizes() == lam.sizes() && hi.sizes() == lam.sizes(),
+              "q and hi must be (B, N)");
+  TORCH_CHECK(gamma.size(0) == B, "gamma must be (B,)");
+  TORCH_CHECK(B <= 65535, "batch of ", B, " problems exceeds the grid");
+  const c10::cuda::CUDAGuard guard(lam.device());
+  auto out = torch::empty_like(lam);
+  C10_CUDA_CHECK(repro_qp_step_launch(
+      K.data_ptr<float>(), lam.data_ptr<float>(), q.data_ptr<float>(),
+      hi.data_ptr<float>(), gamma.data_ptr<float>(), out.data_ptr<float>(),
+      as_int(B, "B"), as_int(N, "N"), c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
+// lam0, q, hi (B, N), K (B, N, N) fp32 or bf16, gamma (B,), optional
+// Z (B, N, D) -> [lam (B, N)] or [lam, zl (B, D)]
+std::vector<torch::Tensor> qp_pg_multi(torch::Tensor lam0, torch::Tensor K,
+                                       torch::Tensor q, torch::Tensor hi,
+                                       torch::Tensor gamma,
+                                       std::optional<torch::Tensor> Z,
+                                       int64_t iters) {
+  check(lam0, "lam0", at::kFloat, 2);
+  TORCH_CHECK(K.scalar_type() == at::kFloat ||
+                  K.scalar_type() == at::kBFloat16,
+              "K must be float32 or bfloat16");
+  check(K, "K", K.scalar_type(), 3);
+  check(q, "q", at::kFloat, 2);
+  check(hi, "hi", at::kFloat, 2);
+  check(gamma, "gamma", at::kFloat, 1);
+  const int64_t B = lam0.size(0), N = lam0.size(1);
+  TORCH_CHECK(K.size(0) == B && K.size(1) == N && K.size(2) == N,
+              "K must be (B, N, N)");
+  TORCH_CHECK(q.sizes() == lam0.sizes() && hi.sizes() == lam0.sizes(),
+              "q and hi must be (B, N)");
+  TORCH_CHECK(gamma.size(0) == B, "gamma must be (B,)");
+  const bool fold = Z.has_value();
+  int64_t D = 0;
+  if (fold) {
+    check(*Z, "Z", at::kFloat, 3);
+    TORCH_CHECK(Z->size(0) == B && Z->size(1) == N, "Z must be (B, N, D)");
+    D = Z->size(2);
+  }
+  const int k_bf16 = K.scalar_type() == at::kBFloat16;
+  const c10::cuda::CUDAGuard guard(lam0.device());
+  int blocks = 0;
+  C10_CUDA_CHECK(repro_qp_multi_grid(k_bf16, fold, as_int(B, "B"),
+                                     as_int(N, "N"), &blocks));
+  auto lam = torch::empty_like(lam0);
+  auto zl = torch::empty({fold ? B : 0, D}, lam0.options());
+  auto buf = torch::empty({blocks ? 2 * B * N : 0}, lam0.options());
+  auto partial = torch::empty({fold && blocks ? B * blocks * D : 0},
+                              lam0.options());
+  C10_CUDA_CHECK(repro_qp_multi_launch(
+      k_bf16, fold, K.data_ptr(), lam0.data_ptr<float>(), q.data_ptr<float>(),
+      hi.data_ptr<float>(), gamma.data_ptr<float>(),
+      fold ? Z->data_ptr<float>() : nullptr, lam.data_ptr<float>(),
+      fold ? zl.data_ptr<float>() : nullptr, buf.data_ptr<float>(),
+      partial.data_ptr<float>(), as_int(B, "B"), as_int(N, "N"),
+      as_int(D, "D"), as_int(iters, "iters"), blocks,
+      c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  if (fold) return {lam, zl};
+  return {lam};
+}
+
+// Registers, shared and local (spill) memory of every kernel instance, as
+// the compiler left them.
+std::vector<std::tuple<std::string, int, int64_t, int64_t, int>>
+kernel_info() {
+  using Query = cudaError_t (*)(int, cudaFuncAttributes*, const char**);
+  const Query queries[] = {repro_gram_attributes, repro_qp_step_attributes,
+                           repro_qp_multi_attributes};
+  std::vector<std::tuple<std::string, int, int64_t, int64_t, int>> out;
+  for (Query query : queries) {
+    for (int which = 0;; ++which) {
+      cudaFuncAttributes attr;
+      const char* name = nullptr;
+      const cudaError_t err = query(which, &attr, &name);
+      if (err == cudaErrorInvalidValue && name == nullptr) {
+        cudaGetLastError();  // the end of this source's list
+        break;
+      }
+      C10_CUDA_CHECK(err);
+      out.emplace_back(name, attr.numRegs,
+                       static_cast<int64_t>(attr.sharedSizeBytes),
+                       static_cast<int64_t>(attr.localSizeBytes),
+                       attr.maxThreadsPerBlock);
+    }
+  }
+  return out;
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("weighted_gram", &weighted_gram, "K = Z diag(a) Z^T, batched");
+  m.def("qp_pg_step", &qp_pg_step, "one fused PG step, batched");
+  m.def("qp_pg_multi", &qp_pg_multi, "the fused multi-iteration PG solve",
+        pybind11::arg("lam0"), pybind11::arg("K"), pybind11::arg("q"),
+        pybind11::arg("hi"), pybind11::arg("gamma"), pybind11::arg("Z"),
+        pybind11::arg("iters"));
+  m.def("kernel_info", &kernel_info,
+        "(name, registers, static shared bytes, local bytes, max threads)");
+}

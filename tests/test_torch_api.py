@@ -1,0 +1,163 @@
+"""The port's API against the reference, its device rule, and its
+independence from JAX.
+
+The whole quickstart through ``repro_torch.quickstart.main(device="cpu")``
+must give the JAX run's target and source risks of DTSVM and DSVM within
+the golden ``ATOL = 0.015`` (tests/test_golden_figures.py); the observed
+gap is printed (on this tree it is below 1e-6).
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro.api import solvers as jsolvers
+from repro.core import graph as jgraph
+from repro.data import synthetic as jsynthetic
+from repro.engine.invariants import PlanBudget as JPlanBudget
+from repro_torch import quickstart
+from repro_torch.api import DSVM, DTSVM, PlanBudget, SolverConfig
+
+ATOL = 0.015
+_SRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "src")
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The suite runs in several worker processes at once, and these tests
+    make many tiny torch ops: intra-op threads would only oversubscribe
+    the cores (a quickstart fit took 190 s under the full suite with the
+    default thread count, ~1 s alone with one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _reference_quickstart():
+    """examples/quickstart.py's experiment through the JAX package."""
+    V, T = 10, 2
+    n_train = np.zeros((V, T), int)
+    n_train[:, 0] = jsynthetic.split_counts(40, V)
+    n_train[:, 1] = jsynthetic.split_counts(600, V)
+    data = jsynthetic.make_multitask_data(
+        V=V, T=T, p=10, n_train=n_train, n_test=1800,
+        relatedness=0.92, noise=1.0, seed=0)
+    adj = jgraph.make_graph("random", V, degree=0.8, seed=0)
+    cfg = jsolvers.SolverConfig(C=0.01, eps1=1.0, eps2=1.0, iters=60,
+                                qp_iters=100)
+    dtsvm = jsolvers.DTSVM(cfg).fit(data["X"], data["y"], mask=data["mask"],
+                                    adj=adj)
+    dsvm = jsolvers.DSVM(cfg).fit(data["X"], data["y"], mask=data["mask"],
+                                  adj=adj)
+    return {"dtsvm": dtsvm.global_risks(data["X_test"], data["y_test"]),
+            "dsvm": dsvm.global_risks(data["X_test"], data["y_test"])}
+
+
+def test_quickstart_risks_match_the_jax_run(monkeypatch):
+    monkeypatch.setenv("REPRO_USE_PALLAS", "0")
+    want = _reference_quickstart()
+    got = quickstart.main(device="cpu")
+    gap = max(float(np.abs(np.asarray(got[k]) - want[k]).max())
+              for k in ("dtsvm", "dsvm"))
+    print(f"quickstart risk gap port vs JAX: {gap:.3e}")
+    for k in ("dtsvm", "dsvm"):
+        np.testing.assert_allclose(got[k], want[k], atol=ATOL, err_msg=k)
+    assert got["dtsvm"][0] < got["dsvm"][0]          # the transfer gain
+    assert all(np.isfinite(got["residuals"]))
+
+
+def test_solver_config_dicts_mean_the_same():
+    assert [f.name for f in SolverConfig.__dataclass_fields__.values()] == \
+        [f.name for f in jsolvers.SolverConfig.__dataclass_fields__.values()]
+    for kw in ({}, dict(C=0.1, iters=7, qp_solver="pallas_fused_multi",
+                        qp_precision="bf16", box_scale=3.0,
+                        backend_options={"topology": "ring"})):
+        assert SolverConfig(**kw).to_dict() == \
+            jsolvers.SolverConfig(**kw).to_dict()
+    d = jsolvers.SolverConfig(
+        budget=JPlanBudget(max_elems=4096, tile=(8, 128))).to_dict()
+    cfg = SolverConfig.from_dict(d)
+    assert cfg.budget == PlanBudget(max_elems=4096, tile=(8, 128))
+    assert cfg.to_dict() == d
+    assert SolverConfig.from_dict(cfg.to_dict()) == cfg
+
+
+@pytest.mark.parametrize("field", [
+    dict(budget=PlanBudget(max_elems=4096)), dict(telemetry=True),
+    dict(qp_solver="pallas_fused_multi", qp_operator="factored"),
+    dict(backend="shard_map"), dict(backend="async"),
+    dict(backend="sample_shard"), dict(net=object()),
+])
+def test_options_not_ported_raise_naming_the_roadmap(field):
+    data = _tiny_data()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        DTSVM(SolverConfig(iters=1, **field), device="cpu").fit(
+            data["X"], data["y"])
+
+
+def test_net_dicts_raise_naming_the_roadmap():
+    d = SolverConfig().to_dict()
+    d["net"] = {"links": "lossy"}
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        SolverConfig.from_dict(d)
+
+
+def _tiny_data():
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(2, 1, 6, 3)).astype(np.float32)
+    y = np.where(X[..., 0] > 0, 1.0, -1.0).astype(np.float32)
+    return {"X": X, "y": y}
+
+
+def test_fit_without_a_device_needs_cuda(monkeypatch):
+    """device=None means "cuda": where no card is present the fit raises
+    instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = _tiny_data()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DTSVM(SolverConfig(iters=1)).fit(data["X"], data["y"])
+    with pytest.raises(RuntimeError):
+        DSVM(SolverConfig(iters=1)).fit(data["X"], data["y"])
+    with pytest.raises(RuntimeError):
+        quickstart.main()
+
+
+def test_fit_device_argument_overrides_the_constructor():
+    data = _tiny_data()
+    fit = DSVM(SolverConfig(iters=2, qp_iters=5), device="meta")
+    with pytest.raises(ValueError):
+        fit.fit(data["X"], data["y"])
+    fit.fit(data["X"], data["y"], device="cpu")
+    assert fit.state_.r.device.type == "cpu"
+    assert tuple(fit.predict(data["X"][0]).shape) == (2, 1, 6)
+    assert set(np.unique(fit.predict(data["X"][0]).numpy())) <= {-1.0, 0.0,
+                                                                1.0}
+
+
+def test_predict_and_risks_need_a_fit():
+    with pytest.raises(RuntimeError):
+        DTSVM(SolverConfig()).risks(np.zeros((1, 2, 3)), np.zeros((1, 2)))
+
+
+def test_port_imports_neither_jax_nor_repro():
+    """Every module of the port imports with no JAX and nothing of the
+    reference package in the process."""
+    code = (
+        "import pkgutil, sys, repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for m in mods: __import__(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or"
+        " k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "assert len(mods) >= 20, mods\n"
+        "print(len(mods))\n")
+    env = dict(os.environ, PYTHONPATH=_SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
