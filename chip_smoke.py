@@ -12,24 +12,34 @@ any failure raises and exits non-zero:
 2. the kernel build: its seconds, and registers / shared / local memory
    of every kernel as the compiler left them;
 3. each kernel against its plain PyTorch version on the card, in the
-   paper regime (B=20 problems, N=60, D=11: the quickstart's shapes) and
-   the large regime (B=2, N=20000, D=257: benchmarks/bench_scale.py's
-   large_fit), with the error, the kernel's ms, the plain version's ms,
-   the bound's ms and one library call's ms where there is one (the
-   error at most 3e-5 (f32) or 1e-2 (bf16) of the plain result's largest
-   magnitude, and for the QP kernels less than the plain solve moves lam
-   from its warm start);
+   paper regime (B=20 problems, N=60, D=11: the quickstart's shapes; the
+   tiled Gram kernel on a 24-row panel) and the large regime (B=2,
+   N=20000, D=257: benchmarks/bench_scale.py's large_fit; the tiled Gram
+   kernel on one 3352-row streamed panel), with the error, the kernel's
+   ms, the plain version's ms, the bound's ms and one library call's ms
+   where there is one (the error at most 3e-5 (f32) or 1e-2 (bf16) of
+   the plain result's largest magnitude, and for the QP kernels less than
+   the plain solve moves lam from its warm start); a tiled panel must
+   also equal the same rows of the square kernel's K bitwise;
 4. the main path: the quickstart (DTSVM and DSVM, V=10, T=2, N=60,
    p=10, 60 ADMM iterations of 100 QP iterations) through
    ``repro_torch.quickstart.main(device="cuda")`` for every QP engine,
-   each against the same on the CPU (risk gap <= 1e-3), with the kernel
-   launch counts set to 0 just before each engine's fits and read just
-   after: each must equal what the engine's config implies;
+   and for pallas_fused_multi under two budgets (8-row streamed panels;
+   a non-binding tile, so one tiled launch), each against the same on
+   the CPU (risk gap <= 1e-3), the budgeted ones also within 1e-3 of
+   the dense card run's risks (K is bitwise the dense K, L only within
+   rounding; whether the risks came out equal is reported), with the
+   kernel launch counts set to 0 just before each run's fits and read
+   just after: each must equal what the config implies;
 5. the large fit (V=2, T=1, N=20000, p=256, 2 ADMM iterations of 10 QP
    iterations, pallas_fused_multi in f32 and bf16) against the same fit
-   on the CPU, its launch counts kept the same way;
-6. a torch.profiler trace of each quickstart engine: device busy share
-   and kernel launches;
+   on the CPU; then the same f32 fit streamed under
+   ``PlanBudget(max_elems=2**27)`` (K bitwise the dense K, state within
+   the f32 tolerance of the dense card fit, a lower peak of device
+   memory) and with ``qp_operator="factored"`` (no K, state within the
+   same tolerance, peak under 1.5 GB), launch counts kept the same way;
+6. a torch.profiler trace of each quickstart engine and of one budgeted
+   run: device busy share and kernel launches;
 7. the ``kernels`` line, the card line, and the result line.
 
 Without a CUDA device, or without the rest of the repository beside it,
@@ -58,6 +68,8 @@ FP32_FLOP_S = 67e12
 KERNELS = {
     "weighted_gram": ("src/repro_torch/kernels/csrc/gram.cu",
                       "src/repro/kernels/gram.py:77"),
+    "weighted_gram_tiled": ("src/repro_torch/kernels/csrc/gram.cu",
+                            "src/repro/kernels/gram.py:121"),
     "qp_pg_step": ("src/repro_torch/kernels/csrc/qp_step.cu",
                    "src/repro/kernels/qp_step.py:76"),
     "qp_pg_multi": ("src/repro_torch/kernels/csrc/qp_multi.cu",
@@ -72,9 +84,20 @@ ENGINE_RUNS = [
     ("pallas_fused_multi/bf16", {"qp_solver": "pallas_fused_multi",
                                  "qp_precision": "bf16"}),
 ]
+# the quickstart's budgeted runs: (label, PlanBudget(tile=...), Gram panels
+# per fit at N=60: 8-row panels, the last clamped; a tile that does not
+# bind builds the square K in one tiled launch)
+BUDGET_RUNS = [("pallas_fused_multi/f32/tile(8,128)", (8, 128), 8),
+               ("pallas_fused_multi/f32/tile(64,128)", (64, 128), 1)]
 LARGE_FIT = dict(V=2, T=1, N=20000, p=256, iters=2, qp_iters=10)
-REGIMES = {"paper": dict(B=20, N=60, D=11, iters=100, reps=200),
-           "large": dict(B=2, N=20000, D=257, iters=10, reps=5)}
+LARGE_BUDGET = 2 ** 27      # bench_scale's max_elems: 3352-row panels
+FACTORED_PEAK_BYTES = 1.5e9
+# panel: the tiled Gram kernel's rows [start, start + M): the paper's
+# 24-row panel of N=60, and the large fit's last (clamped) streamed panel
+REGIMES = {"paper": dict(B=20, N=60, D=11, iters=100, reps=200,
+                         panel=(36, 24)),
+           "large": dict(B=2, N=20000, D=257, iters=10, reps=5,
+                         panel=(16648, 3352))}
 # a kernel's largest error against its plain version, relative to the
 # plain result's largest magnitude (no floor: lam lies in [0, 0.02] in the
 # large regime, and an absolute limit there would pass a kernel that
@@ -194,6 +217,33 @@ def check_kernels(dev) -> dict:
             raise AssertionError(f"weighted_gram disagrees: {rec}")
         cases["weighted_gram"].append(rec)
 
+        # the tiled Gram kernel: one row panel into a preallocated buffer
+        start, M = r["panel"]
+        Zm = Z[:, start:start + M].contiguous()
+        panel = torch.empty((B, M, N), device=dev)
+        ops.weighted_gram_rows(Zm, a, Z, out=panel)
+        panel_plain = ref.weighted_gram_rows(Zm, a, Z)
+        torch.cuda.synchronize()
+        err, scale, ok = max_err(panel, panel_plain, RTOL["f32"])
+        same_rows = torch.equal(panel, K[:, start:start + M])
+        b_ms, b_by = bound(4 * (B * M * D + B * N * D + B * D + B * M * N),
+                           2 * B * M * N * D + B * M * D)
+        rec = dict(shape, M=M, row_start=start, max_abs_err=err,
+                   max_abs_plain=scale, rtol=RTOL["f32"],
+                   bitwise_square_rows=same_rows,
+                   ms=cuda_ms(lambda: ops.weighted_gram_rows(
+                       Zm, a, Z, out=panel), reps),
+                   plain_ms=cuda_ms(
+                       lambda: ref.weighted_gram_rows(Zm, a, Z), reps),
+                   library_ms=cuda_ms(lambda: torch.einsum(
+                       "bnd,bd,bmd->bnm", Zm, a, Z), reps),
+                   bound_ms=b_ms, bound_by=b_by)
+        del panel, panel_plain
+        emit({"kernel_check": "weighted_gram_tiled", **rec})
+        if not (ok and same_rows):
+            raise AssertionError(f"weighted_gram_tiled disagrees: {rec}")
+        cases["weighted_gram_tiled"].append(rec)
+
         gamma = 1.0 / qp.gershgorin_lipschitz(K)
 
         # one fused PG step
@@ -269,16 +319,20 @@ def risk_gap(a: dict, b: dict) -> float:
 
 
 def expected_launches(qp_solver: str, fits: int, iters: int,
-                      qp_iters: int) -> dict:
-    """The launches of each kernel that ``fits`` fits must make: the Gram
-    once per fit, the step kernel qp_iters times per ADMM iteration with
-    ``pallas_fused``, the multi kernel once per ADMM iteration with
-    ``pallas_fused_multi`` (every problem of a fit in one launch)."""
-    return {"weighted_gram": fits,
+                      qp_iters: int, panels=None,
+                      factored: bool = False) -> dict:
+    """The launches of each kernel that ``fits`` fits must make: the
+    square Gram once per fit, or with a budget the tiled Gram ``panels``
+    times per fit (every problem of a fit in each launch); the step
+    kernel qp_iters times per ADMM iteration with ``pallas_fused``; the
+    multi kernel once per ADMM iteration with ``pallas_fused_multi``,
+    unless the factored operator replaces it."""
+    return {"weighted_gram": fits if panels is None else 0,
+            "weighted_gram_tiled": 0 if panels is None else fits * panels,
             "qp_pg_step": (fits * iters * qp_iters
                            if qp_solver == "pallas_fused" else 0),
-            "qp_pg_multi": (fits * iters
-                            if qp_solver == "pallas_fused_multi" else 0)}
+            "qp_pg_multi": (fits * iters if qp_solver == "pallas_fused_multi"
+                            and not factored else 0)}
 
 
 def check_launches(path: str, launches: dict, want: dict) -> None:
@@ -289,38 +343,86 @@ def check_launches(path: str, launches: dict, want: dict) -> None:
 
 
 def main_path(by_path: dict) -> None:
-    """The quickstart per engine; each engine's launches are counted from
-    0 just before its fits on the card and read just after."""
+    """The quickstart per engine, then under each budget; each run's
+    launches are counted from 0 just before its fits on the card and read
+    just after."""
     from repro_torch import quickstart
+    from repro_torch.engine.invariants import PlanBudget
     from repro_torch.kernels import ops
 
-    for label, kw in ENGINE_RUNS:
+    runs = [(label, kw, None, None) for label, kw in ENGINE_RUNS]
+    runs += [(label, {"qp_solver": "pallas_fused_multi",
+                      "budget": PlanBudget(tile=tile)}, panels,
+              "pallas_fused_multi/f32") for label, tile, panels in BUDGET_RUNS]
+    risks = {}
+    for label, kw, panels, dense_label in runs:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         gpu = quickstart.main(device="cuda", **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         by_path[f"quickstart/{label}"] = launches = ops.launch_counts()
+        risks[label] = gpu
         cpu = quickstart.main(device="cpu", **kw)
         gap = risk_gap(gpu, cpu)
-        emit({"quickstart": label, "wall_s": wall, "risks_cuda": gpu,
-              "risks_cpu": cpu, "risk_gap": gap})
+        rec = {"quickstart": label, "wall_s": wall, "risks_cuda": gpu,
+               "risks_cpu": cpu, "risk_gap": gap}
+        if dense_label is not None:
+            # K is bitwise the dense K; L only within rounding (the panels'
+            # row sums may reduce in another order), so the risks are held
+            # to the CPU gap and their equality is reported
+            dense = risks[dense_label]
+            rec["risks_equal_dense_cuda"] = (gpu["dtsvm"] == dense["dtsvm"]
+                                             and gpu["dsvm"] == dense["dsvm"])
+            rec["risk_gap_dense_cuda"] = dense_gap = risk_gap(gpu, dense)
+        emit(rec)
         # DTSVM and DSVM: two fits of quickstart.main's config
         check_launches(f"quickstart/{label}", launches, expected_launches(
-            kw["qp_solver"], fits=2, iters=60, qp_iters=100))
+            kw["qp_solver"], fits=2, iters=60, qp_iters=100, panels=panels))
         if not gap <= 1e-3:
             raise AssertionError(f"{label}: risks on the card differ from "
                                  f"the CPU by {gap}")
+        if dense_label is not None and not dense_gap <= 1e-3:
+            raise AssertionError(f"{label}: risks differ from the dense "
+                                 f"run's on the card by {dense_gap}: {gpu} "
+                                 f"vs {risks[dense_label]}")
         if not gpu["dtsvm"][0] < gpu["dsvm"][0]:
             raise AssertionError(f"{label}: no transfer gain {gpu}")
 
 
-def large_fit(by_path: dict) -> None:
-    """The large fit per precision (the only path that takes the multi
-    kernel's cooperative grid), its launches counted like main_path's."""
-    from repro_torch.api import DTSVM, SolverConfig
-    from repro_torch.core import graph
+def _fit_on_card(cfg, X, y, adj, by_path, path):
+    """One DTSVM fit through the API on the card, its launches counted
+    from 0 just before and read just after.  Returns (state, wall s, peak
+    device bytes)."""
+    from repro_torch.api import DTSVM
     from repro_torch.kernels import ops
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    st = DTSVM(cfg, device="cuda").fit(X, y, adj=adj).state_
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    by_path[path] = ops.launch_counts()
+    return st, fit_s, torch.cuda.max_memory_allocated()
+
+
+def _state_errs(got, want, rtol):
+    """Per leaf: (largest error, largest magnitude of ``want``, within)."""
+    return {name: max_err(g.cpu(), w.cpu(), rtol)
+            for name, g, w in zip(want._fields, got, want)}
+
+
+def large_fit(by_path: dict) -> None:
+    """The large fit: dense per precision against the CPU (the only path
+    that takes the multi kernel's cooperative grid), then the streamed and
+    the factored f32 fits against the dense card fit."""
+    from repro_torch.api import DTSVM, SolverConfig
+    from repro_torch.core import dtsvm, graph
+    from repro_torch.engine import invariants, plan
+    from repro_torch.engine.invariants import PlanBudget
 
     V, T, N, p = (LARGE_FIT[k] for k in ("V", "T", "N", "p"))
     rng = np.random.default_rng(0)
@@ -328,54 +430,116 @@ def large_fit(by_path: dict) -> None:
     y = np.sign(rng.normal(size=(V, T, N))).astype(np.float32)
     y = np.where(y == 0, 1.0, y).astype(np.float32)
     adj = graph.make_graph("ring", V, seed=0)
+    base = SolverConfig(C=0.01, iters=LARGE_FIT["iters"],
+                        qp_iters=LARGE_FIT["qp_iters"],
+                        qp_solver="pallas_fused_multi")
+    expect = dict(fits=1, iters=LARGE_FIT["iters"],
+                  qp_iters=LARGE_FIT["qp_iters"])
+    dense = {}
     for precision in ("f32", "bf16"):
-        cfg = SolverConfig(C=0.01, iters=LARGE_FIT["iters"],
-                           qp_iters=LARGE_FIT["qp_iters"],
-                           qp_solver="pallas_fused_multi",
-                           qp_precision=precision)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        fit = DTSVM(cfg, device="cuda").fit(X, y, adj=adj)
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-        by_path[f"large_fit/{precision}"] = launches = ops.launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        st = fit.state_
+        cfg = base.replace(qp_precision=precision)
+        path = f"large_fit/{precision}"
+        st, fit_s, peak = _fit_on_card(cfg, X, y, adj, by_path, path)
+        dense[precision] = (st, peak)
         finite = all(bool(torch.isfinite(t).all()) for t in st)
         cpu = DTSVM(cfg, device="cpu").fit(X, y, adj=adj).state_
-        errs = {}
-        for name, g, c in zip(st._fields, st, cpu):
-            errs[name] = max_err(g.cpu(), c, RTOL_FIT[precision])
+        errs = _state_errs(st, cpu, RTOL_FIT[precision])
         emit({"large_fit": precision, **LARGE_FIT, "fit_s": fit_s,
               "peak_mem_bytes": peak, "finite": finite,
               "vs_cpu_max_abs_err": {k: e[0] for k, e in errs.items()},
               "cpu_max_abs": {k: e[1] for k, e in errs.items()},
               "rtol": RTOL_FIT[precision]})
-        check_launches(f"large_fit/{precision}", launches, expected_launches(
-            "pallas_fused_multi", fits=1, iters=LARGE_FIT["iters"],
-            qp_iters=LARGE_FIT["qp_iters"]))
+        check_launches(path, by_path[path], expected_launches(
+            "pallas_fused_multi", **expect))
         if not finite:
             raise AssertionError("the large fit's state is not finite")
         if not all(e[2] for e in errs.values()):
             raise AssertionError(f"large fit on the card differs from the "
                                  f"CPU: {errs}")
-        del fit, st, cpu
+        del cpu
+
+    # the large-n path: streamed and factored, against the dense card fit
+    budget = PlanBudget(max_elems=LARGE_BUDGET)
+    chunk = budget.row_chunk(V * T, N)
+    panels = len(invariants._row_starts(N, chunk))
+    st_dense, peak_dense = dense["f32"]
+    init = dtsvm.init_state(DTSVM(base).make_problem(X, y, adj=adj,
+                                                     device="cpu"))
+    for label, kw in (("budget", {"budget": budget}),
+                      ("factored", {"budget": budget,
+                                    "qp_operator": "factored"})):
+        path = f"large_fit/f32/{label}"
+        st, fit_s, peak = _fit_on_card(base.replace(**kw), X, y, adj,
+                                       by_path, path)
+        errs = _state_errs(st, st_dense, RTOL_FIT["f32"])
+        # the tolerance must be below how far the dense fit moved the
+        # leaves it moves (alpha stays 0 at T=1: no task coupling)
+        moved_by = {name: float((w.cpu() - i).abs().max())
+                    for name, w, i in zip(st_dense._fields, st_dense, init)}
+        discriminates = all(RTOL_FIT["f32"] * errs[k][1] < moved_by[k]
+                            for k in ("r", "lam"))
+        limit = peak_dense if label == "budget" else FACTORED_PEAK_BYTES
+        emit({"large_fit": f"f32/{label}", **LARGE_FIT,
+              "max_elems": LARGE_BUDGET, "row_chunk": chunk,
+              "panels": panels, "fit_s": fit_s, "peak_mem_bytes": peak,
+              "peak_limit_bytes": limit,
+              "dense_peak_mem_bytes": peak_dense,
+              "vs_dense_cuda_max_abs_err": {k: e[0] for k, e in
+                                            errs.items()},
+              "dense_cuda_max_abs": {k: e[1] for k, e in errs.items()},
+              "dense_moved_from_init": moved_by, "rtol": RTOL_FIT["f32"]})
+        check_launches(path, by_path[path], expected_launches(
+            "pallas_fused_multi", panels=panels,
+            factored=label == "factored", **expect))
+        if not (all(e[2] for e in errs.values()) and discriminates):
+            raise AssertionError(f"large {label} fit differs from the dense "
+                                 f"card fit: {errs}")
+        if not peak < limit:
+            raise AssertionError(f"large {label} fit peaked at {peak} bytes "
+                                 f"of device memory, limit {limit}")
+        del st
+    del dense, st_dense
+
+    # the invariants themselves, outside the counted fits: the streamed K
+    # is the dense K bitwise; the factored plan holds no K
+    prob = DTSVM(base).make_problem(X, y, adj=adj, device="cuda")
+    inv_dense = invariants.compute_invariants(prob)
+    inv_streamed = invariants.compute_invariants(prob, budget=budget)
+    same_k = torch.equal(inv_streamed.K, inv_dense.K)
+    L_dense = inv_dense.L
+    l_err = max_err(inv_streamed.L, L_dense, RTOL_FIT["f32"])
+    del inv_dense, inv_streamed
+    torch.cuda.empty_cache()
+    factored = plan.compile_problem(prob, base, budget=budget,
+                                    qp_operator="factored")
+    lf_err = max_err(factored.inv.L, L_dense, RTOL_FIT["f32"])
+    emit({"large_invariants": "f32", "streamed_K_equal_dense": same_k,
+          "streamed_L_max_abs_err": l_err[0],
+          "factored_L_max_abs_err": lf_err[0], "L_max_abs": l_err[1],
+          "factored_K_is_None": factored.inv.K is None})
+    if not (same_k and l_err[2] and lf_err[2]
+            and factored.inv.K is None):
+        raise AssertionError("the streamed or factored invariants differ "
+                             "from the dense ones")
+    del factored, prob
     torch.cuda.empty_cache()
 
 
 def profile_engines() -> dict:
-    """Trace each quickstart engine; returns the launches of each hand
-    kernel the profiler saw over all of them."""
+    """Trace each quickstart engine and the 8-row budgeted run; returns
+    the launches of each hand kernel the profiler saw over all of them."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import quickstart
+    from repro_torch.engine.invariants import PlanBudget
 
-    ours = {"weighted_gram": "gram_kernel", "qp_pg_step": "qp_step_kernel",
-            "qp_pg_multi": "qp_multi_"}
+    ours = {"weighted_gram": "gram_kernel",
+            "weighted_gram_tiled": "gram_tiled_kernel",
+            "qp_pg_step": "qp_step_kernel", "qp_pg_multi": "qp_multi_"}
     seen = {k: 0 for k in ours}
-    for label, kw in ENGINE_RUNS:
+    label, tile, _ = BUDGET_RUNS[0]
+    runs = ENGINE_RUNS + [(label, {"qp_solver": "pallas_fused_multi",
+                                   "budget": PlanBudget(tile=tile)})]
+    for label, kw in runs:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:

@@ -3,13 +3,14 @@
 
 A backend is a callable
 
-    run(prob, iters, *, qp_iters, qp_solver, qp_precision, state, eval_fn,
-        **options) -> (DTSVMState, history | None)
+    run(prob, iters, *, qp_iters, qp_solver, qp_precision, qp_operator,
+        state, eval_fn, **options) -> (DTSVMState, history | None)
 
-This slice ports the single-host ``"vmap"`` backend: one compiled plan,
-one loop.  The reference's other backends are still to be ported:
-``"async"`` with the fabric (ROADMAP.md, "Modules to port", item 8),
-``"shard_map"`` and ``"sample_shard"`` (item 12).
+The port has the single-host ``"vmap"`` backend: one compiled plan (under
+``budget``, the streamed large-n build), one loop.  The reference's other
+backends are still to be ported: ``"async"`` with the fabric (ROADMAP.md,
+"Modules to port", item 8), ``"shard_map"`` and ``"sample_shard"``
+(item 12).
 """
 from __future__ import annotations
 
@@ -60,6 +61,7 @@ def _run_vmap(prob: core.DTSVMProblem, iters: int, *, qp_iters: int = 200,
               state: Optional[core.DTSVMState] = None, eval_fn=None,
               budget=None, **_ignored):
     """Single-host backend: one compiled plan, one loop of ADMM steps.
+    ``budget`` streams the plan's K build through bounded row panels.
     Options of the other backends (e.g. ``topology``) are ignored, as in
     the reference."""
     plan = engine_plan.compile_problem(prob, qp_iters=qp_iters,

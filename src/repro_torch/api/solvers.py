@@ -9,8 +9,8 @@
 ``to_dict()`` dict means the same thing in both packages.  The device is
 not part of the config: it goes to the solver's constructor or to
 ``fit`` (``None`` means ``"cuda"``; ``repro_torch.device``).  Options
-this slice does not port raise ``NotImplementedError`` naming the
-ROADMAP.md item that brings them.  ``CSVM`` comes with the next slice.
+the port does not have yet raise ``NotImplementedError`` naming the
+ROADMAP.md item that brings them.  ``CSVM`` comes with a later slice.
 """
 from __future__ import annotations
 
@@ -40,10 +40,13 @@ class SolverConfig:
     inner box-QP iterations per ADMM step.  qp_solver: ``"fista" | "pg"
     | "pallas_fused" | "pallas_fused_multi"`` (``engine.qp_engines``).
     qp_precision: ``"f32"`` or ``"bf16"`` (``pallas_fused_multi`` only).
-    box_scale: the paper's multiplier on C (auto: V*T).  backend:
-    ``"vmap"`` (the only backend ported so far).  ``qp_operator=
-    "factored"``, ``net``, ``budget`` and ``telemetry`` keep their
-    reference meaning and are not ported yet.
+    qp_operator: ``"materialized"`` or ``"factored"`` (no K: the QP
+    applies it as Z (a (Z^T lam)); ``pallas_fused_multi`` and f32 only).
+    budget: a ``PlanBudget`` that streams the K build through bounded row
+    panels (the large-n path).  box_scale: the paper's multiplier on C
+    (auto: V*T).  backend: ``"vmap"`` (the only backend ported so far).
+    ``net`` and ``telemetry`` keep their reference meaning and are not
+    ported yet.
     """
     C: float = 0.01
     eps1: float = 1.0
@@ -110,8 +113,8 @@ class SolverConfig:
 
 
 def _check_ported(cfg: SolverConfig) -> None:
-    """Raise on the options this slice does not port (``budget`` and
-    ``qp_operator="factored"`` raise in ``engine.compile_problem``)."""
+    """Raise on the options the port does not have yet: ``net``,
+    ``telemetry`` and the backends other than ``"vmap"``."""
     if cfg.net is not None:
         raise NotImplementedError(_NOT_PORTED_NET)
     if cfg.telemetry:

@@ -6,7 +6,8 @@ Z, K, u, a, counts, box, L) into a ``Plan``; ``Plan.step`` / ``Plan.run``
 execute the state-dependent part of eqs. 6-9: the linear term q, the
 dual solve with the chosen engine (``qp_engines``), zl = Z^T lam and the
 primal/multiplier updates.  The reference's ``lax.scan`` is a Python
-loop here.
+loop here.  ``Plan.replan`` is the incremental path for membership
+changes: it rebuilds only the invariants they touch.
 """
 from __future__ import annotations
 
@@ -46,10 +47,12 @@ def consensus_update(prob: core.DTSVMProblem, state: core.DTSVMState,
 def plan_step(prob: core.DTSVMProblem, inv: inv_lib.PlanInvariants,
               state: core.DTSVMState, *, qp_iters: int = 200,
               qp_solver: str = DEFAULT_QP_SOLVER,
-              qp_precision: str = "f32") -> core.DTSVMState:
+              qp_precision: str = "f32",
+              qp_operator: str = "materialized") -> core.DTSVMState:
     """One Prop.-1 iteration (eqs. 6-9) on precomputed invariants.  An
     engine with the ``supports_fold`` capability returns zl from the
-    same launch as the dual solve."""
+    same launch as the dual solve; ``qp_operator="factored"`` solves with
+    K applied as Z (a (Z^T lam)) (``qp_engines.solve_factored_multi``)."""
     p = prob.X.shape[-1]
     nbr_reduce = core._default_nbr_reduce(prob)
     ntp, nbr, u, Z = inv.ntp, inv.nbr, inv.u, inv.Z
@@ -59,7 +62,11 @@ def plan_step(prob: core.DTSVMProblem, inv: inv_lib.PlanInvariants,
     q = prob.mask + (Z * g[..., None, :]).sum(-1)
 
     engine = qp_engines.get(qp_solver)
-    if getattr(engine, "supports_fold", False):
+    if qp_operator == "factored":
+        lam, zl = qp_engines.solve_factored_multi(
+            Z, inv.a, q, inv.hi, state.lam, iters=qp_iters,
+            L=inv.L)                                           # eq. (6)
+    elif getattr(engine, "supports_fold", False):
         lam, zl = engine(inv.K, q, inv.hi, state.lam, iters=qp_iters,
                          L=inv.L, precision=qp_precision, Z=Z)  # eq. (6)
     else:
@@ -72,17 +79,33 @@ def plan_step(prob: core.DTSVMProblem, inv: inv_lib.PlanInvariants,
 
 
 class Plan:
-    """A compiled DTSVM problem: invariants + the per-iteration body."""
+    """A compiled DTSVM problem: invariants + the per-iteration body.
+
+    ``stats`` counts the invariant economy over the plan's lineage:
+    ``gram_slices_computed`` / ``gram_slices_reused`` (v,t) Gram blocks
+    built vs carried over by ``replan``, and ``replans``.
+    """
 
     def __init__(self, prob: core.DTSVMProblem,
                  inv: inv_lib.PlanInvariants, *, qp_iters: int = 200,
                  qp_solver: str = DEFAULT_QP_SOLVER,
-                 qp_precision: str = "f32"):
+                 qp_precision: str = "f32",
+                 qp_operator: str = "materialized",
+                 budget: Optional[inv_lib.PlanBudget] = None,
+                 stats: Optional[dict] = None):
         self.prob = prob
         self.inv = inv
         self.qp_iters = qp_iters
         self.qp_solver = qp_solver
         self.qp_precision = qp_precision
+        self.qp_operator = qp_operator
+        self.budget = budget
+        V, T = prob.X.shape[:2]
+        self.stats = stats if stats is not None else {
+            "gram_slices_computed": V * T,
+            "gram_slices_reused": 0,
+            "replans": 0,
+        }
 
     def init_state(self) -> core.DTSVMState:
         return core.init_state(self.prob)
@@ -91,7 +114,8 @@ class Plan:
         """One ADMM iteration on the precomputed invariants."""
         return plan_step(self.prob, self.inv, state, qp_iters=self.qp_iters,
                          qp_solver=self.qp_solver,
-                         qp_precision=self.qp_precision)
+                         qp_precision=self.qp_precision,
+                         qp_operator=self.qp_operator)
 
     def run(self, state: Optional[core.DTSVMState] = None, iters: int = 1,
             eval_fn: Optional[Callable] = None):
@@ -109,6 +133,25 @@ class Plan:
             return state, None
         return state, (torch.stack(hist) if hist else None)
 
+    def replan(self, *, active=None, couple=None) -> "Plan":
+        """A new Plan for changed membership masks, reusing every
+        invariant the change does not touch
+        (``invariants.update_invariants``).  The budget carries over, so
+        rebuilt K slices stream through the same row panels."""
+        prob, inv, n = inv_lib.update_invariants(
+            self.prob, self.inv, active=active, couple=couple,
+            budget=self.budget)
+        V, T = prob.X.shape[:2]
+        stats = dict(self.stats)
+        stats["replans"] += 1
+        stats["gram_slices_computed"] += n
+        stats["gram_slices_reused"] += V * T - n
+        return Plan(prob, inv, qp_iters=self.qp_iters,
+                    qp_solver=self.qp_solver,
+                    qp_precision=self.qp_precision,
+                    qp_operator=self.qp_operator,
+                    budget=self.budget, stats=stats)
+
 
 def compile_problem(prob: core.DTSVMProblem, cfg=None, *,
                     qp_iters: Optional[int] = None,
@@ -122,8 +165,10 @@ def compile_problem(prob: core.DTSVMProblem, cfg=None, *,
     ``qp_precision`` / ``qp_operator`` / ``budget`` attributes (e.g. a
     ``SolverConfig``); explicit keywords override it.  ``"bf16"``
     precision needs an engine with the ``supports_precision`` capability
-    (``"pallas_fused_multi"``).  ``qp_operator="factored"`` and
-    ``budget`` are not ported yet and raise ``NotImplementedError``.
+    (``"pallas_fused_multi"``).  ``qp_operator="factored"`` builds no K
+    (``K=None``; L streams through discarded row panels) and needs
+    ``qp_solver="pallas_fused_multi"`` and f32.  ``budget`` streams the
+    K build through bounded row panels (the large-n path).
     """
     if qp_iters is None:
         qp_iters = getattr(cfg, "qp_iters", 200)
@@ -148,14 +193,17 @@ def compile_problem(prob: core.DTSVMProblem, cfg=None, *,
             f"qp_precision={qp_precision!r} needs a mixed-precision "
             f"engine (qp_solver='pallas_fused_multi'); got {qp_solver!r}")
     if qp_operator == "factored":
-        raise NotImplementedError(
-            "qp_operator='factored' is not ported yet: its Gershgorin pass "
-            "needs the tiled Gram kernel (ROADMAP.md, 'TPU kernels to "
-            "port', item 1)")
-    if budget is not None:
-        raise NotImplementedError(
-            "the streamed PlanBudget build is not ported yet: it needs the "
-            "tiled Gram kernel (ROADMAP.md, 'TPU kernels to port', item 1)")
-    inv = inv_lib.compute_invariants(prob)
+        if not getattr(engine, "supports_fold", False):
+            raise ValueError(
+                f"qp_operator='factored' is validated only with the "
+                f"fused multi engine (qp_solver='pallas_fused_multi'); "
+                f"got {qp_solver!r}")
+        if qp_precision != "f32":
+            raise ValueError("qp_operator='factored' is f32-only "
+                             "(the low-rank matvec never streams K "
+                             "tiles, so bf16 K has nothing to apply to)")
+    inv = inv_lib.compute_invariants(
+        prob, budget=budget, materialize_k=(qp_operator != "factored"))
     return Plan(prob, inv, qp_iters=qp_iters, qp_solver=qp_solver,
-                qp_precision=qp_precision)
+                qp_precision=qp_precision, qp_operator=qp_operator,
+                budget=budget)

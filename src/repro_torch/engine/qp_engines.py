@@ -20,7 +20,9 @@ iteration count and an optional precomputed Lipschitz bound ``L`` (...):
 
 The ``pallas_*`` names are the reference's, so that a config dict means
 the same thing in both packages.  The step of the fused engines is
-gamma = 1/L per problem.
+gamma = 1/L per problem.  ``solve_factored_multi``, outside the registry,
+is ``qp_operator="factored"``'s solve: the same PG iteration with K
+applied as Z (a (Z^T lam)), so no K exists.
 """
 from __future__ import annotations
 
@@ -108,3 +110,23 @@ def solve_pallas_fused_multi(K, q, hi, lam0=None, *, iters: int,
 #: ``precision=`` and can fold the zl contraction via ``Z=``.
 solve_pallas_fused_multi.supports_precision = True
 solve_pallas_fused_multi.supports_fold = True
+
+
+def solve_factored_multi(Z, a, q, hi, lam0=None, *, iters: int, L):
+    """The low-rank PG solve: K = Z diag(a) Z^T has rank <= D << N, so
+    each matvec is ``Z (a * (Z^T lam))``, two matrix products of O(N D)
+    (Z: (..., N, D), a: (..., D)); K is never built.  ``L`` is mandatory:
+    the invariant build streams it without keeping K.  Returns
+    ``(lam, zl)``, zl = Z^T lam of the final iterate.  Not bitwise the
+    materialized solve: the sums run in another order."""
+    if lam0 is None:
+        lam0 = torch.zeros_like(q)
+    gamma = (1.0 / L)[..., None]                     # (..., 1) per problem
+    lam = torch.minimum(torch.clamp_min(lam0, 0.0), hi)
+    for _ in range(iters):
+        zt = torch.matmul(lam[..., None, :], Z)                 # (..., 1, D)
+        Klam = torch.matmul(Z, (a[..., None, :] * zt).transpose(-1, -2))
+        lam = torch.minimum(torch.clamp_min(lam + gamma * (q - Klam[..., 0]),
+                                            0.0), hi)
+    zl = torch.matmul(lam[..., None, :], Z)[..., 0, :]
+    return lam, zl

@@ -20,6 +20,12 @@
 
 cudaError_t repro_gram_launch(const float* Z, const float* a, float* K, int B,
                               int N, int D, cudaStream_t stream);
+cudaError_t repro_gram_tiled_launch(const float* Zm, const float* a,
+                                    const float* Zn, float* out,
+                                    size_t out_batch_stride, size_t ldo,
+                                    int B, int M, int N, int D,
+                                    cudaStream_t stream);
+int repro_gram_tiled_max_rows();
 cudaError_t repro_gram_attributes(int which, cudaFuncAttributes* attr,
                                   const char** name);
 cudaError_t repro_qp_step_launch(const float* K, const float* lam,
@@ -73,6 +79,41 @@ torch::Tensor weighted_gram(torch::Tensor Z, torch::Tensor a) {
       c10::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return K;
+}
+
+// Zm (B, M, D), a (B, D), Zn (B, N, D) -> written into out (B, M, N), a
+// view whose rows may be strided (e.g. rows [s, s+M) of a (B, N', N) K)
+void weighted_gram_tiled(torch::Tensor Zm, torch::Tensor a, torch::Tensor Zn,
+                         torch::Tensor out) {
+  check(Zm, "Zm", at::kFloat, 3);
+  check(a, "a", at::kFloat, 2);
+  check(Zn, "Zn", at::kFloat, 3);
+  const int64_t B = Zm.size(0), M = Zm.size(1), D = Zm.size(2);
+  const int64_t N = Zn.size(1);
+  TORCH_CHECK(a.size(0) == B && a.size(1) == D, "a must be (B, D)");
+  TORCH_CHECK(Zn.size(0) == B && Zn.size(2) == D, "Zn must be (B, N, D)");
+  TORCH_CHECK(out.is_cuda() && out.scalar_type() == at::kFloat &&
+                  out.dim() == 3,
+              "out must be a float32 CUDA tensor of 3 dims");
+  TORCH_CHECK(out.size(0) == B && out.size(1) == M && out.size(2) == N,
+              "out must be (B, M, N)");
+  TORCH_CHECK(out.stride(2) == 1 && out.stride(1) >= N &&
+                  (B == 1 || out.stride(0) >= M * out.stride(1)),
+              "out must have unit column stride and rows that do not "
+              "overlap");
+  TORCH_CHECK(B <= 65535, "batch of ", B, " problems exceeds the grid");
+  TORCH_CHECK(M <= repro_gram_tiled_max_rows(), "panel of ", M,
+              " rows exceeds the grid");
+  TORCH_CHECK(out.device() == Zm.device() && Zn.device() == Zm.device() &&
+                  a.device() == Zm.device(),
+              "operands must be on one device");
+  const c10::cuda::CUDAGuard guard(Zm.device());
+  C10_CUDA_CHECK(repro_gram_tiled_launch(
+      Zm.data_ptr<float>(), a.data_ptr<float>(), Zn.data_ptr<float>(),
+      out.data_ptr<float>(), static_cast<size_t>(out.stride(0)),
+      static_cast<size_t>(out.stride(1)), as_int(B, "B"), as_int(M, "M"),
+      as_int(N, "N"), as_int(D, "D"), c10::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 // lam, q, hi (B, N), K (B, N, N), gamma (B,) -> lam (B, N)
@@ -182,6 +223,8 @@ kernel_info() {
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("weighted_gram", &weighted_gram, "K = Z diag(a) Z^T, batched");
+  m.def("weighted_gram_tiled", &weighted_gram_tiled,
+        "a row panel Zm diag(a) Zn^T, batched, into a given output view");
   m.def("qp_pg_step", &qp_pg_step, "one fused PG step, batched");
   m.def("qp_pg_multi", &qp_pg_multi, "the fused multi-iteration PG solve",
         pybind11::arg("lam0"), pybind11::arg("K"), pybind11::arg("q"),

@@ -39,14 +39,52 @@ def reset_launch_counts() -> None:
             counts[name] = 0
 
 
-def weighted_gram(Z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """K = Z diag(a) Z^T over arbitrary leading batch dims (the same on
-    Z (..., N, D) and a (..., D))."""
+def broadcast_z(Z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Z expanded to ``a``'s extra leading batch dims (the sweep's
+    shared-Z case: one (..., N, D) Z re-weighted by a stack of ``a``)."""
+    extra = (a.ndim - 1) - (Z.ndim - 2)
+    if extra > 0:
+        Z = Z.expand(a.shape[:-1] + Z.shape[-2:])
+    return Z
+
+
+def weighted_gram(Z: torch.Tensor, a: torch.Tensor, *,
+                  tile=None) -> torch.Tensor:
+    """K = Z diag(a) Z^T over arbitrary leading batch dims (Z (..., N, D),
+    a (..., D); ``a`` may carry more leading dims than Z, which is
+    broadcast up).  With ``tile`` (a ``PlanBudget.tile``) the card runs
+    the tiled kernel over the whole square, as the reference runs its
+    tiled Pallas kernel; the result is bitwise the same."""
+    Z = broadcast_z(Z, a)
     if not _on_card(Z, a):
         return ref.weighted_gram(Z, a)
     batch, (N, D) = Z.shape[:-2], Z.shape[-2:]
-    K = gram_kernel.weighted_gram(Z.reshape(-1, N, D), a.reshape(-1, D))
+    Zf, af = Z.reshape(-1, N, D), a.reshape(-1, D)
+    if tile is None:
+        K = gram_kernel.weighted_gram(Zf, af)
+    else:
+        K = gram_kernel.weighted_gram_tiled(Zf, af, Zf)
     return K.reshape(batch + (N, N))
+
+
+def weighted_gram_rows(Zm: torch.Tensor, a: torch.Tensor, Zn: torch.Tensor,
+                       *, out: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The rectangular block K = Zm diag(a) Zn^T over leading batch dims:
+    Zm (..., M, D), Zn (..., N, D), a (..., D) -> (..., M, N).  One
+    streamed row panel of the large-n build.  ``out``, a (B, M, N) view
+    with the batch dims flattened (e.g. rows of a preallocated K), takes
+    the result in place and is returned."""
+    if not _on_card(Zm, a, Zn, out):
+        K = ref.weighted_gram_rows(Zm, a, Zn)
+        if out is None:
+            return K
+        return out.copy_(K.reshape(out.shape))
+    batch, (M, D), N = Zm.shape[:-2], Zm.shape[-2:], Zn.shape[-2]
+    K = gram_kernel.weighted_gram_tiled(
+        Zm.reshape(-1, M, D), a.reshape(-1, D), Zn.reshape(-1, N, D),
+        out=out)
+    return K if out is not None else K.reshape(batch + (M, N))
 
 
 def _per_problem(gamma, batch, like: torch.Tensor) -> torch.Tensor:

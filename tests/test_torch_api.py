@@ -88,15 +88,52 @@ def test_solver_config_dicts_mean_the_same():
 
 
 @pytest.mark.parametrize("field", [
-    dict(budget=PlanBudget(max_elems=4096)), dict(telemetry=True),
-    dict(qp_solver="pallas_fused_multi", qp_operator="factored"),
-    dict(backend="shard_map"), dict(backend="async"),
+    dict(telemetry=True), dict(backend="shard_map"), dict(backend="async"),
     dict(backend="sample_shard"), dict(net=object()),
 ])
 def test_options_not_ported_raise_naming_the_roadmap(field):
     data = _tiny_data()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         DTSVM(SolverConfig(iters=1, **field), device="cpu").fit(
+            data["X"], data["y"])
+
+
+@pytest.mark.parametrize("field", [
+    dict(budget=PlanBudget(max_elems=2 * 1 * 8 * 20)),
+    dict(qp_operator="factored"),
+    dict(qp_operator="factored", budget=PlanBudget(tile=(8, 128))),
+])
+def test_budget_and_factored_options_fit(field):
+    """The large-n options fit through the API: a budget (8-row panels of
+    N=20) leaves the dense fit's state exactly as it is, the factored
+    operator comes within rtol 1e-4 / atol 1e-6 of it."""
+    data = _tiny_data(N=20)
+    cfg = SolverConfig(iters=3, qp_iters=10, qp_solver="pallas_fused_multi")
+    dense = DTSVM(cfg, device="cpu").fit(data["X"], data["y"]).state_
+    got = DTSVM(cfg.replace(**field), device="cpu").fit(
+        data["X"], data["y"]).state_
+    for name, g, d in zip(dense._fields, got, dense):
+        if "qp_operator" in field:
+            torch.testing.assert_close(g, d, rtol=1e-4, atol=1e-6,
+                                       msg=name)
+        else:
+            assert torch.equal(g, d), name
+
+
+@pytest.mark.parametrize("field", [
+    dict(qp_solver="fista", qp_operator="factored"),
+    dict(qp_solver="pallas_fused_multi", qp_precision="bf16",
+         qp_operator="factored"),
+])
+def test_factored_validation_matches_reference(field):
+    """The reference's rule: the factored operator needs the fused multi
+    engine and f32; both packages refuse the rest with ValueError."""
+    data = _tiny_data()
+    with pytest.raises(ValueError, match="factored"):
+        DTSVM(SolverConfig(iters=1, **field), device="cpu").fit(
+            data["X"], data["y"])
+    with pytest.raises(ValueError, match="factored"):
+        jsolvers.DTSVM(jsolvers.SolverConfig(iters=1, **field)).fit(
             data["X"], data["y"])
 
 
@@ -107,9 +144,9 @@ def test_net_dicts_raise_naming_the_roadmap():
         SolverConfig.from_dict(d)
 
 
-def _tiny_data():
+def _tiny_data(N=6):
     rng = np.random.default_rng(0)
-    X = rng.normal(size=(2, 1, 6, 3)).astype(np.float32)
+    X = rng.normal(size=(2, 1, N, 3)).astype(np.float32)
     y = np.where(X[..., 0] > 0, 1.0, -1.0).astype(np.float32)
     return {"X": X, "y": y}
 

@@ -162,9 +162,19 @@ def test_compile_problem_validation():
         plan.compile_problem(tprob, qp_solver="fista", qp_precision="bf16")
     with pytest.raises(ValueError):
         plan.compile_problem(tprob, qp_precision="fp8")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        plan.compile_problem(tprob, qp_solver="pallas_fused_multi",
+    with pytest.raises(ValueError, match="qp_operator"):
+        plan.compile_problem(tprob, qp_operator="lowrank")
+    # the factored operator: the fused multi engine and f32 only
+    with pytest.raises(ValueError, match="factored"):
+        plan.compile_problem(tprob, qp_solver="fista",
                              qp_operator="factored")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        plan.compile_problem(tprob,
-                             budget=invariants.PlanBudget(max_elems=1024))
+    with pytest.raises(ValueError, match="factored"):
+        plan.compile_problem(tprob, qp_solver="pallas_fused_multi",
+                             qp_precision="bf16", qp_operator="factored")
+    factored = plan.compile_problem(tprob, qp_solver="pallas_fused_multi",
+                                    qp_operator="factored")
+    assert factored.inv.K is None and factored.qp_operator == "factored"
+    budget = invariants.PlanBudget(max_elems=1024)
+    budgeted = plan.compile_problem(tprob, budget=budget)
+    assert budgeted.budget == budget
+    assert budget.row_chunk(8, tprob.X.shape[2]) is not None   # it binds

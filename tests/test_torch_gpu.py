@@ -11,7 +11,9 @@ JAX.)  Tolerance: the largest error at most 3e-5 (f32) or 1e-2 (bf16)
 times the largest magnitude of the plain result.  The shapes
 cover the one-problem edge, the paper regime (20 problems of 60 x 11),
 odd sizes that exercise the masked edges, and N > 1024, where the
-multi-iteration kernel takes its cooperative grid path.
+multi-iteration kernel takes its cooperative grid path.  The tiled Gram
+kernel is also held bitwise to the square kernel's rows (the two share
+one FMA loop), and a budgeted fit to the dense fit.
 """
 import numpy as np
 import pytest
@@ -120,3 +122,112 @@ def test_fit_on_the_card_matches_the_cpu(cuda):
             data["X"], data["y"], mask=data["mask"], adj=adj).global_risks(
                 data["X_test"], data["y_test"]) for dev in ("cuda", "cpu")]
         np.testing.assert_allclose(risks[0], risks[1], atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,M,N,d,start", [
+    (1, 1, 1, 1, 0), (20, 24, 60, 11, 36), (2, 67, 131, 257, 5),
+    (3, 130, 62, 1, 1), (2, 64, 256, 33, 64)])
+def test_tiled_gram_kernel_matches_plain_into_an_offset_view(cuda, B, M, N,
+                                                            d, start):
+    """Rows [start, start + M) of a NaN-filled buffer take the panel; M and
+    N not multiples of 64 or 4 exercise the masked edges, and an odd row
+    stride or offset the scalar stores."""
+    rng = np.random.default_rng(M * N + d)
+    Zm, a = _gram_inputs(rng, (B,), M, d)
+    Zn, _ = _gram_inputs(rng, (B,), N, d)
+    Zm, a, Zn = _on(cuda, Zm, a, Zn)
+    big = torch.full((B, start + M + 3, N), float("nan"), device=cuda)
+    before = ops.launch_counts()["weighted_gram_tiled"]
+    got = ops.weighted_gram_rows(Zm, a, Zn, out=big[:, start:start + M])
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["weighted_gram_tiled"] == before + 1
+    assert got.data_ptr() == big[:, start:].data_ptr()
+    _close(big[:, start:start + M], ref.weighted_gram_rows(Zm, a, Zn),
+           REL["f32"])
+    assert torch.isnan(big[:, :start]).all()
+    assert torch.isnan(big[:, start + M:]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,n,d,chunk", [((20,), 60, 11, 8),
+                                             ((2,), 300, 257, 72),
+                                             ((3, 2), 129, 1, 24)])
+def test_tiled_panels_are_the_square_kernels_rows(cuda, batch, n, d, chunk):
+    from repro_torch.engine import invariants
+
+    Z, a = _on(cuda, *_gram_inputs(np.random.default_rng(n), batch, n, d))
+    K = ops.weighted_gram(Z, a)
+    streamed, rs = invariants.streamed_gram_panel(Z, a, Z, chunk)
+    assert torch.equal(streamed, K)
+    torch.testing.assert_close(rs, K.abs().sum(-1), rtol=1e-6, atol=0)
+    assert torch.equal(ops.weighted_gram(Z, a, tile=(8, 128)), K)
+
+
+@pytest.mark.gpu
+def test_tiled_wrapper_refuses_cpu_tensors(cuda):
+    from repro_torch.kernels import gram as gram_kernel
+
+    Z = torch.ones(1, 8, 3, device=cuda)
+    a = torch.ones(1, 3, device=cuda)
+    with pytest.raises(ValueError):
+        gram_kernel.weighted_gram_tiled(Z.cpu(), a.cpu(), Z.cpu())
+    with pytest.raises(ValueError):
+        gram_kernel.weighted_gram_tiled(Z, a, Z, out=torch.empty(1, 8, 8))
+    with pytest.raises(ValueError):
+        ops.weighted_gram_rows(Z, a, Z.cpu())
+
+
+@pytest.mark.gpu
+def test_budgeted_fit_on_the_card_equals_the_dense_fit(cuda):
+    """The quickstart's problem under an 8-row budget and under the
+    factored operator, on the card: the budgeted K is the dense K
+    bitwise, L and the states agree to rounding."""
+    from repro_torch import quickstart
+    from repro_torch.api import DTSVM, PlanBudget, SolverConfig
+    from repro_torch.engine import plan
+
+    data, adj = quickstart.data_and_graph()
+    cfg = SolverConfig(iters=5, qp_iters=20, qp_solver="pallas_fused_multi")
+    prob = DTSVM(cfg).make_problem(data["X"], data["y"], data["mask"], adj,
+                                   device=cuda)
+    dense = plan.compile_problem(prob, cfg)
+    budgeted = plan.compile_problem(prob, cfg,
+                                    budget=PlanBudget(tile=(8, 128)))
+    factored = plan.compile_problem(prob, cfg, qp_operator="factored")
+    assert torch.equal(budgeted.inv.K, dense.inv.K)
+    assert factored.inv.K is None
+    for p in (budgeted, factored):
+        torch.testing.assert_close(p.inv.L, dense.inv.L, rtol=1e-6, atol=0)
+    want, _ = dense.run(iters=5)
+    for p in (budgeted, factored):
+        got, _ = p.run(iters=5)
+        for name, g, w in zip(want._fields, got, want):
+            _close(g, w, 1e-4)
+
+
+@pytest.mark.gpu
+def test_budgeted_replan_on_the_card_rebuilds_the_changed_slices(cuda):
+    """A membership change under a budget rebuilds only the K slices whose
+    ``a`` row changed, with the tiled kernel; the result is a fresh
+    build's K, bitwise."""
+    from repro_torch import quickstart
+    from repro_torch.api import DTSVM, PlanBudget, SolverConfig
+    from repro_torch.engine import invariants, plan
+
+    data, adj = quickstart.data_and_graph()
+    cfg = SolverConfig(qp_solver="pallas_fused_multi",
+                       budget=PlanBudget(tile=(8, 128)))
+    prob = DTSVM(cfg).make_problem(data["X"], data["y"], data["mask"], adj,
+                                   device=cuda)
+    compiled = plan.compile_problem(prob, cfg)
+    active = torch.ones_like(prob.active)
+    active[0, 1] = 0.0
+    before = ops.launch_counts()["weighted_gram_tiled"]
+    replanned = compiled.replan(active=active)
+    torch.cuda.synchronize()
+    n = replanned.stats["gram_slices_computed"] - prob.active.numel()
+    assert 0 < n < prob.active.numel()
+    assert ops.launch_counts()["weighted_gram_tiled"] > before
+    fresh = invariants.compute_invariants(replanned.prob)
+    assert torch.equal(replanned.inv.K, fresh.K)

@@ -180,6 +180,8 @@ def test_kernel_wrappers_take_only_cuda_tensors():
     Z, a = torch.zeros(1, 4, 3), torch.ones(1, 3)
     with pytest.raises(ValueError):
         gram_kernel.weighted_gram(Z, a)
+    with pytest.raises(ValueError):
+        gram_kernel.weighted_gram_tiled(Z, a, Z)
     lam, K, q, hi, g = (torch.zeros(1, 4), torch.zeros(1, 4, 4),
                         torch.zeros(1, 4), torch.zeros(1, 4), torch.ones(1))
     with pytest.raises(ValueError):
@@ -190,5 +192,6 @@ def test_kernel_wrappers_take_only_cuda_tensors():
 
 def test_launch_counts_reset():
     ops.reset_launch_counts()
-    assert ops.launch_counts() == {"weighted_gram": 0, "qp_pg_step": 0,
-                                   "qp_pg_multi": 0}
+    assert ops.launch_counts() == {"weighted_gram": 0,
+                                   "weighted_gram_tiled": 0,
+                                   "qp_pg_step": 0, "qp_pg_multi": 0}
