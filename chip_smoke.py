@@ -10,23 +10,28 @@ any failure raises and exits non-zero:
 
 1. the card (name and power limit, as nvidia-smi gives them);
 2. the kernel build: its seconds, and registers / shared / local memory
-   of every kernel as the compiler left them;
+   of every kernel as the compiler left them (a Gram kernel with local
+   memory fails);
 3. each kernel against its plain PyTorch version on the card, in the
    paper regime (B=20 problems, N=60, D=11: the quickstart's shapes; the
-   tiled Gram kernel on a 24-row panel) and the large regime (B=2,
-   N=20000, D=257: benchmarks/bench_scale.py's large_fit; the tiled Gram
-   kernel on one 3352-row streamed panel), with the error, the kernel's
-   ms, the plain version's ms, the bound's ms and one library call's ms
-   where there is one (the error at most 3e-5 (f32) or 1e-2 (bf16) of
-   the plain result's largest magnitude, and for the QP kernels less than
-   the plain solve moves lam from its warm start); a tiled panel must
-   also equal the same rows of the square kernel's K bitwise;
+   tiled Gram kernel on two 24-row panels across the diagonal) and the
+   large regime (B=2, N=20000, D=257: benchmarks/bench_scale.py's
+   large_fit; the tiled Gram kernel on one 3352-row streamed panel), with
+   the error, the kernel's ms, the plain version's ms, the bound's ms and
+   one library call's ms where there is one (the error at most 3e-5
+   (f32) or 1e-2 (bf16) of the plain result's largest magnitude, and for
+   the QP kernels less than the plain solve moves lam from its warm
+   start); the square K must be bitwise symmetric, a tiled panel must
+   equal the same rows of the square kernel's K bitwise, and the
+   prescale the plain one exactly; in the large regime both Gram
+   kernels must take at most twice their bound and the square one less
+   time than its einsum (the panel's ratio to its einsum is printed);
 4. the main path: the quickstart (DTSVM and DSVM, V=10, T=2, N=60,
    p=10, 60 ADMM iterations of 100 QP iterations) through
    ``repro_torch.quickstart.main(device="cuda")`` for every QP engine,
    and for pallas_fused_multi under two budgets (8-row streamed panels;
-   a non-binding tile, so one tiled launch), each against the same on
-   the CPU (risk gap <= 1e-3), the budgeted ones also within 1e-3 of
+   a tile that does not bind, so one square launch), each against the
+   same on the CPU (risk gap <= 1e-3), the budgeted ones also within 1e-3 of
    the dense card run's risks (K is bitwise the dense K, L only within
    rounding; whether the risks came out equal is reported), with the
    kernel launch counts set to 0 just before each run's fits and read
@@ -38,6 +43,9 @@ any failure raises and exits non-zero:
    the f32 tolerance of the dense card fit, a lower peak of device
    memory) and with ``qp_operator="factored"`` (no K, state within the
    same tolerance, peak under 1.5 GB), launch counts kept the same way;
+   then one partial ``Plan.replan`` at the same widths (V=2, T=2: one
+   node's coupling off rebuilds 2 of 4 K slices), its peak device memory
+   printed and the rebuilt slices ``torch.equal`` to a fresh build;
 6. a torch.profiler trace of each quickstart engine and of one budgeted
    run: device busy share and kernel launches;
 7. the ``kernels`` line, the card line, and the result line.
@@ -60,9 +68,12 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
-# fp32 FLOP/s outside the tensor cores (the port's fp32 never uses TF32).
+# fp32 FLOP/s outside the tensor cores (the port's fp32 never uses TF32);
+# and its L2 cache, which a K read every QP iteration must fit to be read
+# from HBM once
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+L2_BYTES = 50e6
 
 # (name in the kernels line, source, the TPU kernel it replaces)
 KERNELS = {
@@ -70,6 +81,10 @@ KERNELS = {
                       "src/repro/kernels/gram.py:77"),
     "weighted_gram_tiled": ("src/repro_torch/kernels/csrc/gram.cu",
                             "src/repro/kernels/gram.py:121"),
+    # the `zia = zi * a` of the TPU kernel's body (_gram_kernel), once
+    # per build, into the feature-major operands of both Gram kernels
+    "gram_prescale": ("src/repro_torch/kernels/csrc/gram.cu",
+                      "src/repro/kernels/gram.py:70"),
     "qp_pg_step": ("src/repro_torch/kernels/csrc/qp_step.cu",
                    "src/repro/kernels/qp_step.py:76"),
     "qp_pg_multi": ("src/repro_torch/kernels/csrc/qp_multi.cu",
@@ -85,19 +100,22 @@ ENGINE_RUNS = [
                                  "qp_precision": "bf16"}),
 ]
 # the quickstart's budgeted runs: (label, PlanBudget(tile=...), Gram panels
-# per fit at N=60: 8-row panels, the last clamped; a tile that does not
-# bind builds the square K in one tiled launch)
+# per fit at N=60: 8-row panels, the last clamped; None: a tile that does
+# not bind builds the square K with the square kernel)
 BUDGET_RUNS = [("pallas_fused_multi/f32/tile(8,128)", (8, 128), 8),
-               ("pallas_fused_multi/f32/tile(64,128)", (64, 128), 1)]
+               ("pallas_fused_multi/f32/tile(64,128)", (64, 128), None)]
 LARGE_FIT = dict(V=2, T=1, N=20000, p=256, iters=2, qp_iters=10)
 LARGE_BUDGET = 2 ** 27      # bench_scale's max_elems: 3352-row panels
+# the partial replan: the large fit's widths at two tasks per node
+REPLAN_FIT = dict(V=2, T=2, N=20000, p=256)
 FACTORED_PEAK_BYTES = 1.5e9
-# panel: the tiled Gram kernel's rows [start, start + M): the paper's
-# 24-row panel of N=60, and the large fit's last (clamped) streamed panel
+# panels: the tiled Gram kernel's rows [start, start + M): two 24-row
+# panels of N=60 that the diagonal crosses, and the large fit's last
+# (clamped) streamed panel, which starts inside a 128-row tile
 REGIMES = {"paper": dict(B=20, N=60, D=11, iters=100, reps=200,
-                         panel=(36, 24)),
+                         panels=((36, 24), (20, 24))),
            "large": dict(B=2, N=20000, D=257, iters=10, reps=5,
-                         panel=(16648, 3352))}
+                         panels=((16648, 3352),))}
 # a kernel's largest error against its plain version, relative to the
 # plain result's largest magnitude (no floor: lam lies in [0, 0.02] in the
 # large regime, and an absolute limit there would pass a kernel that
@@ -132,10 +150,27 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def tflop_s(flops: float, ms: float) -> float:
+    return flops / (ms * 1e-3) / 1e12
+
+
 def bound(nbytes: float, flops: float) -> tuple:
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_speed(kernel: str, rec: dict, beat_library: bool) -> None:
+    """A large-regime Gram kernel must take at most twice its bound, and
+    where ``beat_library`` less time than its einsum in the same run.
+    Only gates the design clears by a wide margin: the panel and its
+    einsum are at par, so their ratio is printed and not gated."""
+    if not rec["ms"] <= 2 * rec["bound_ms"]:
+        raise AssertionError(f"{kernel} takes more than twice its bound: "
+                             f"{rec}")
+    if beat_library and not rec["ms"] < rec["library_ms"]:
+        raise AssertionError(f"{kernel} is not faster than its einsum: "
+                             f"{rec}")
 
 
 def max_err(got, want, rtol):
@@ -186,6 +221,7 @@ def regime_inputs(name: str, dev):
 
 
 def check_kernels(dev) -> dict:
+    from repro_torch.kernels import gram as gram_kernel
     from repro_torch.kernels import ops, ref
     from repro_torch.core import qp
 
@@ -193,56 +229,89 @@ def check_kernels(dev) -> dict:
     for regime, r in REGIMES.items():
         B, N, D, iters, reps = r["B"], r["N"], r["D"], r["iters"], r["reps"]
         Z, a, q, hi, lam0 = regime_inputs(regime, dev)
+        Z = Z.contiguous()
         shape = {"regime": regime, "B": B, "N": N, "D": D}
+
+        # the operands of both Gram kernels: Z feature-major, unscaled and
+        # scaled by a (exact: a transpose and one fp32 multiply)
+        Zs = gram_kernel.prescale(Z, a)
+        Zs_plain = ref.gram_prescale(Z, a)
+        same = torch.equal(Zs, Zs_plain)
+        err = float((Zs - Zs_plain).abs().max())
+        b_ms, b_by = bound(4 * (B * N * D + B * D + 2 * B * N * D),
+                           B * N * D)
+        ms = cuda_ms(lambda: gram_kernel.prescale(Z, a), reps)
+        rec = dict(shape, max_abs_err=err, exact=same,
+                   scratch_bytes=Zs.untyped_storage().nbytes(), ms=ms,
+                   plain_ms=cuda_ms(lambda: ref.gram_prescale(Z, a), reps),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                   tflop_s=tflop_s(B * N * D, ms))
+        del Zs_plain
+        emit({"kernel_check": "gram_prescale", **rec})
+        if not same:
+            raise AssertionError(f"gram_prescale disagrees: {rec}")
+        cases["gram_prescale"].append(rec)
 
         # the weighted Gram build
         K = ops.weighted_gram(Z, a)
         K_plain = ref.weighted_gram(Z, a)
         torch.cuda.synchronize()
         err, scale, ok = max_err(K, K_plain, RTOL["f32"])
+        symmetric = torch.equal(K, K.transpose(-1, -2))
         # K is symmetric: the function needs N(N+1)/2 dot products of
         # length D per problem, and the scaling of Z by a
-        b_ms, b_by = bound(4 * (B * N * D + B * D + B * N * N),
-                           B * N * (N + 1) * D + B * N * D)
+        flops = B * N * (N + 1) * D + B * N * D
+        b_ms, b_by = bound(4 * (B * N * D + B * D + B * N * N), flops)
+        ms = cuda_ms(lambda: ops.weighted_gram(Z, a), reps)
         rec = dict(shape, max_abs_err=err, max_abs_plain=scale,
-                   rtol=RTOL["f32"],
-                   ms=cuda_ms(lambda: ops.weighted_gram(Z, a), reps),
+                   rtol=RTOL["f32"], bitwise_symmetric=symmetric, ms=ms,
                    plain_ms=cuda_ms(lambda: ref.weighted_gram(Z, a), reps),
                    library_ms=cuda_ms(lambda: torch.einsum(
                        "bnd,bd,bmd->bnm", Z, a, Z), reps),
-                   bound_ms=b_ms, bound_by=b_by)
+                   bound_ms=b_ms, bound_by=b_by, tflop_s=tflop_s(flops, ms))
         del K_plain
         emit({"kernel_check": "weighted_gram", **rec})
-        if not ok:
+        if not (ok and symmetric):
             raise AssertionError(f"weighted_gram disagrees: {rec}")
+        if regime == "large":
+            check_speed("weighted_gram", rec, beat_library=True)
         cases["weighted_gram"].append(rec)
 
-        # the tiled Gram kernel: one row panel into a preallocated buffer
-        start, M = r["panel"]
-        Zm = Z[:, start:start + M].contiguous()
-        panel = torch.empty((B, M, N), device=dev)
-        ops.weighted_gram_rows(Zm, a, Z, out=panel)
-        panel_plain = ref.weighted_gram_rows(Zm, a, Z)
-        torch.cuda.synchronize()
-        err, scale, ok = max_err(panel, panel_plain, RTOL["f32"])
-        same_rows = torch.equal(panel, K[:, start:start + M])
-        b_ms, b_by = bound(4 * (B * M * D + B * N * D + B * D + B * M * N),
-                           2 * B * M * N * D + B * M * D)
-        rec = dict(shape, M=M, row_start=start, max_abs_err=err,
-                   max_abs_plain=scale, rtol=RTOL["f32"],
-                   bitwise_square_rows=same_rows,
-                   ms=cuda_ms(lambda: ops.weighted_gram_rows(
-                       Zm, a, Z, out=panel), reps),
-                   plain_ms=cuda_ms(
-                       lambda: ref.weighted_gram_rows(Zm, a, Z), reps),
-                   library_ms=cuda_ms(lambda: torch.einsum(
-                       "bnd,bd,bmd->bnm", Zm, a, Z), reps),
-                   bound_ms=b_ms, bound_by=b_by)
-        del panel, panel_plain
-        emit({"kernel_check": "weighted_gram_tiled", **rec})
-        if not (ok and same_rows):
-            raise AssertionError(f"weighted_gram_tiled disagrees: {rec}")
-        cases["weighted_gram_tiled"].append(rec)
+        # the tiled Gram kernel: row panels of the prescaled Z into a
+        # preallocated buffer
+        for start, M in r["panels"]:
+            Zm = Z[:, start:start + M]
+            panel = torch.empty((B, M, N), device=dev)
+            run = lambda: gram_kernel.weighted_gram_tiled(Zs, start, panel)
+            run()
+            panel_plain = ref.weighted_gram_rows(Zm, a, Z)
+            torch.cuda.synchronize()
+            err, scale, ok = max_err(panel, panel_plain, RTOL["f32"])
+            same_rows = torch.equal(panel, K[:, start:start + M])
+            # the yardstick of earlier runs: a rectangular M x N block,
+            # 2*B*M*N*D FLOPs, and the scaling of its rows by a
+            flops = 2 * B * M * N * D + B * M * D
+            b_ms, b_by = bound(
+                4 * (B * M * D + B * N * D + B * D + B * M * N), flops)
+            ms = cuda_ms(run, reps)
+            lib_ms = cuda_ms(lambda: torch.einsum("bnd,bd,bmd->bnm", Zm, a,
+                                                  Z), reps)
+            rec = dict(shape, M=M, row_start=start, max_abs_err=err,
+                       max_abs_plain=scale, rtol=RTOL["f32"],
+                       bitwise_square_rows=same_rows, ms=ms,
+                       plain_ms=cuda_ms(
+                           lambda: ref.weighted_gram_rows(Zm, a, Z), reps),
+                       library_ms=lib_ms, vs_library=ms / lib_ms,
+                       bound_ms=b_ms, bound_by=b_by,
+                       tflop_s=tflop_s(flops, ms))
+            del panel, panel_plain
+            emit({"kernel_check": "weighted_gram_tiled", **rec})
+            if not (ok and same_rows):
+                raise AssertionError(f"weighted_gram_tiled disagrees: {rec}")
+            if regime == "large":
+                check_speed("weighted_gram_tiled", rec, beat_library=False)
+            cases["weighted_gram_tiled"].append(rec)
+        del Zs
 
         gamma = 1.0 / qp.gershgorin_lipschitz(K)
 
@@ -285,9 +354,14 @@ def check_kernels(dev) -> dict:
                 errs = [max_err(g, w, RTOL[precision]) for g, w in pairs]
                 lam_moved = moved(want[0] if fold else want, lam0, hi)
                 discriminates = RTOL[precision] * errs[0][1] < lam_moved
+                # K in the product's type, read from HBM once per
+                # iteration where it does not fit in the L2, else once
+                k_bytes = (2 if precision == "bf16" else 4) * B * N * N
+                k_reads = iters if k_bytes > L2_BYTES else 1
                 b_ms, b_by = bound(
-                    4 * (B * N * N + 4 * B * N + B
-                         + (B * N * D + B * D if fold else 0)),
+                    k_reads * k_bytes + 4 * (4 * B * N + B
+                                             + (B * N * D + B * D if fold
+                                                else 0)),
                     iters * (2 * B * N * N + 5 * B * N)
                     + (2 * B * N * D if fold else 0))
                 rec = dict(shape, precision=precision, fold=fold,
@@ -322,13 +396,16 @@ def expected_launches(qp_solver: str, fits: int, iters: int,
                       qp_iters: int, panels=None,
                       factored: bool = False) -> dict:
     """The launches of each kernel that ``fits`` fits must make: the
-    square Gram once per fit, or with a budget the tiled Gram ``panels``
-    times per fit (every problem of a fit in each launch); the step
-    kernel qp_iters times per ADMM iteration with ``pallas_fused``; the
-    multi kernel once per ADMM iteration with ``pallas_fused_multi``,
-    unless the factored operator replaces it."""
-    return {"weighted_gram": fits if panels is None else 0,
-            "weighted_gram_tiled": 0 if panels is None else fits * panels,
+    square Gram once per fit, or with a budget that binds the tiled Gram
+    ``panels`` times per fit (every problem of a fit in each launch); the
+    prescale once per fit (once per build, square or streamed); the step
+    kernel qp_iters times per ADMM iteration
+    with ``pallas_fused``; the multi kernel once per ADMM iteration with
+    ``pallas_fused_multi``, unless the factored operator replaces it."""
+    squares = fits if panels is None else 0
+    tiled = 0 if panels is None else fits * panels
+    return {"weighted_gram": squares, "weighted_gram_tiled": tiled,
+            "gram_prescale": fits,
             "qp_pg_step": (fits * iters * qp_iters
                            if qp_solver == "pallas_fused" else 0),
             "qp_pg_multi": (fits * iters if qp_solver == "pallas_fused_multi"
@@ -525,6 +602,76 @@ def large_fit(by_path: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def large_replan(by_path: dict) -> None:
+    """One partial ``Plan.replan`` at the large fit's widths (N=20000,
+    p=256): its peak device memory, its launches, and the rebuilt K slices
+    against a fresh build.
+
+    At the large fit's V=2, T=1 no membership change leaves one of the two
+    problems' ``a`` as it was: each node is the other's only neighbour,
+    and with one task the coupling count is 0 whatever ``couple`` says.
+    So the replan runs at V=2, T=2, where switching node 1's task coupling
+    off changes ``a`` for its two problems and node 0's two K slices carry
+    over.  The old plan's K is not written into (a caller may still hold
+    the old plan), as in the reference."""
+    from repro_torch.api import DTSVM, SolverConfig
+    from repro_torch.core import graph
+    from repro_torch.engine import invariants, plan
+    from repro_torch.kernels import ops
+
+    V, T, N, p = (REPLAN_FIT[k] for k in ("V", "T", "N", "p"))
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(V, T, N, p)).astype(np.float32)
+    y = np.where(rng.normal(size=(V, T, N)) >= 0, 1.0, -1.0).astype(
+        np.float32)
+    cfg = SolverConfig(C=0.01, qp_solver="pallas_fused_multi")
+    prob = DTSVM(cfg).make_problem(X, y, adj=graph.make_graph("ring", V,
+                                                              seed=0),
+                                   device="cuda")
+    old = plan.compile_problem(prob, cfg)
+    couple = torch.ones_like(prob.couple)
+    couple[1] = 0.0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    path = "large_replan/f32"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    new = old.replan(couple=couple)
+    torch.cuda.synchronize()
+    replan_s = time.perf_counter() - t0
+    by_path[path] = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    changed = (new.inv.a != old.inv.a).any(-1)
+    n = int(changed.sum())
+    fresh = invariants.compute_invariants(new.prob)
+    rebuilt_equal = all(torch.equal(new.inv.K[v, t], fresh.K[v, t])
+                        for v, t in changed.nonzero().tolist())
+    kept_equal = all(torch.equal(new.inv.K[v, t], old.inv.K[v, t])
+                     for v, t in (~changed).nonzero().tolist())
+    old_untouched = not any(torch.equal(new.inv.K[v, t], old.inv.K[v, t])
+                            for v, t in changed.nonzero().tolist())
+    l_err = max_err(new.inv.L, fresh.L, RTOL_FIT["f32"])
+    k_bytes = 4 * V * T * N * N
+    emit({"large_replan": "f32", **REPLAN_FIT, "changed_problems": n,
+          "replan_s": replan_s, "held_before_bytes": held,
+          "peak_mem_bytes": peak, "peak_over_held_bytes": peak - held,
+          "k_bytes": k_bytes, "stats": new.stats,
+          "rebuilt_K_equal_fresh": rebuilt_equal,
+          "kept_K_equal_old": kept_equal,
+          "old_K_untouched": old_untouched, "L_max_abs_err": l_err[0]})
+    check_launches(path, by_path[path], expected_launches(
+        "pallas_fused_multi", fits=1, iters=0, qp_iters=0))
+    if not (n == V * T // 2 and rebuilt_equal and kept_equal
+            and old_untouched and l_err[2]):
+        raise AssertionError("the partial replan's K or L differs from a "
+                             "fresh build, or it rebuilt other slices")
+    del old, new, fresh, prob
+    torch.cuda.empty_cache()
+
+
 def profile_engines() -> dict:
     """Trace each quickstart engine and the 8-row budgeted run; returns
     the launches of each hand kernel the profiler saw over all of them."""
@@ -534,6 +681,7 @@ def profile_engines() -> dict:
 
     ours = {"weighted_gram": "gram_kernel",
             "weighted_gram_tiled": "gram_tiled_kernel",
+            "gram_prescale": "gram_prescale_kernel",
             "qp_pg_step": "qp_step_kernel", "qp_pg_multi": "qp_multi_"}
     seen = {k: 0 for k in ours}
     label, tile, _ = BUDGET_RUNS[0]
@@ -608,15 +756,20 @@ def main() -> int:
           "device_count": torch.cuda.device_count()})
 
     ext = build.extension()
-    emit({"build_s": build.build_seconds, "kernel_info": [
-        {"kernel": k, "registers": r, "static_shared_bytes": s,
-         "local_bytes": loc, "max_threads": m}
-        for k, r, s, loc, m in ext.kernel_info()]})
+    info = [{"kernel": k, "registers": r, "static_shared_bytes": s,
+             "local_bytes": loc, "max_threads": m}
+            for k, r, s, loc, m in ext.kernel_info()]
+    emit({"build_s": build.build_seconds, "kernel_info": info})
+    spills = [i for i in info if i["kernel"].startswith("gram")
+              and i["local_bytes"]]
+    if spills:
+        raise AssertionError(f"Gram kernels with local memory: {spills}")
 
     cases = check_kernels(dev)
     by_path = {}
     main_path(by_path)
     large_fit(by_path)
+    large_replan(by_path)
     traced = profile_engines()
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 came on during the run")

@@ -59,16 +59,29 @@ def _run_vmap(prob: core.DTSVMProblem, iters: int, *, qp_iters: int = 200,
               qp_solver: str = "fista", qp_precision: str = "f32",
               qp_operator: str = "materialized",
               state: Optional[core.DTSVMState] = None, eval_fn=None,
-              budget=None, **_ignored):
+              plan: Optional[engine_plan.Plan] = None, budget=None,
+              **_ignored):
     """Single-host backend: one compiled plan, one loop of ADMM steps.
-    ``budget`` streams the plan's K build through bounded row panels.
-    Options of the other backends (e.g. ``topology``) are ignored, as in
-    the reference."""
-    plan = engine_plan.compile_problem(prob, qp_iters=qp_iters,
-                                       qp_solver=qp_solver,
-                                       qp_precision=qp_precision,
-                                       qp_operator=qp_operator,
-                                       budget=budget)
+
+    ``plan`` is a prebuilt plan (e.g. one ``Plan.replan`` made); it must
+    agree with ``prob`` and the QP configuration of the call.  ``budget``
+    streams the plan's K build through bounded row panels (ignored when
+    ``plan`` is given).  Options of the other backends (e.g.
+    ``topology``) are ignored, as in the reference."""
+    if plan is None:
+        plan = engine_plan.compile_problem(prob, qp_iters=qp_iters,
+                                           qp_solver=qp_solver,
+                                           qp_precision=qp_precision,
+                                           qp_operator=qp_operator,
+                                           budget=budget)
+    elif (plan.prob is not prob or plan.qp_iters != qp_iters
+          or plan.qp_solver != qp_solver
+          or plan.qp_precision != qp_precision
+          or plan.qp_operator != qp_operator):
+        raise ValueError(
+            "prebuilt plan= disagrees with the call: pass prob=plan.prob "
+            "and matching qp_iters/qp_solver/qp_precision/qp_operator "
+            "(or omit plan=)")
     return plan.run(state=state, iters=iters, eval_fn=eval_fn)
 
 

@@ -158,12 +158,17 @@ class _ConsensusSolver:
         if eval_fn is None and X_test is not None:
             eval_fn = evaluate.risk_eval_fn(prob.X.shape[0], X_test, y_test,
                                             dev)
+        # one options dict, as in the reference: cfg.budget fills in a
+        # budget that backend_options does not already name
+        options = dict(cfg.backend_options)
+        if cfg.budget is not None:
+            options.setdefault("budget", cfg.budget)
         self.state_, self.history_ = backends.run(
             prob, iters if iters is not None else cfg.iters,
             backend=cfg.backend, qp_iters=cfg.qp_iters,
             qp_solver=cfg.qp_solver, qp_precision=cfg.qp_precision,
             qp_operator=cfg.qp_operator, state=state, eval_fn=eval_fn,
-            budget=cfg.budget, **cfg.backend_options)
+            **options)
         self.problem_ = prob
         return self
 

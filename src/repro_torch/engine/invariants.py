@@ -14,17 +14,21 @@ state, so a fit computes it once:
     L    (V,T)         Gershgorin bound on K (the QP step is 1/L)
 
 Large-n path: the dense build holds two K-sized buffers at once (K and
-the |K| temporary of the Gershgorin pass).  Under a ``PlanBudget`` the
-build streams K in row panels: each panel is one launch of the tiled Gram
-kernel over the whole batch, written straight into its rows of one
-preallocated K, and its |K| row sums are taken before the next panel, so
-the transient workspace is one ``batch * chunk * N`` panel.  The
-reference's ``lax.fori_loop`` over chunks is a Python loop here.  A
-streamed K is bitwise the dense K (on the card both kernels share one
-FMA loop).  L is the same row sums' maximum, but a panel's row sums may be
-reduced in another order than the dense pass's, so it is held within
-rounding, not bitwise.  ``materialize_k=False`` (the factored operator)
-keeps no K at all: the panels are row-summed and discarded.
+the |K| temporary of the Gershgorin pass).  Under a ``PlanBudget`` that
+binds, the build streams K in row panels: each panel is one launch of the
+tiled Gram kernel over the whole batch, written straight into its rows of
+one preallocated K, and its |K| row sums are taken before the next panel,
+so the transient workspace is one ``batch * chunk * N`` panel and its
+|panel| temporary, plus, on the card, the prescaled Z that the Gram
+kernels read (see ``PlanBudget``).  A budget that does not bind builds
+K with the square kernel, as with no budget.  The reference's
+``lax.fori_loop`` over chunks is a Python loop here.  A streamed K is
+bitwise the dense K (on the card each panel element is
+computed in the roles the square kernel gives it).  L is the same row
+sums' maximum, but a panel's row sums may be reduced in another order
+than the dense pass's, so it is held within rounding, not bitwise.
+``materialize_k=False`` (the factored operator) keeps no K at all: the
+panels are row-summed and discarded.
 
 ``update_invariants`` is the incremental path behind ``Plan.replan``: a
 change to ``active``/``couple`` recomputes the counts, u, a and the box,
@@ -53,11 +57,16 @@ class PlanBudget(NamedTuple):
     max_elems: cap on the float32 elements of Gram workspace per streamed
     step; K streams in panels of ``chunk = max_elems // (batch * N)``
     rows (down to a multiple of 8, floor 8).  A budget that holds the
-    whole build falls back to the dense path.
+    whole build falls back to the dense path.  On the card the build
+    also holds the Gram kernels' operands for its whole loop, Z
+    prescaled: ``kernels.gram.prescale_elems(batch, N, D)`` = 2·batch·D·N4
+    floats (N4 = N rounded up to 4) beside the max_elems of panel.  The
+    chunk keeps the reference's integers, so that scratch is not charged
+    to max_elems; where the chunk is below 2·D rows it is the larger.
     tile: ``(tile_m, tile_n)``.  Without ``max_elems``, ``tile_m`` is the
-    row chunk; a non-binding tile builds the square K with the tiled
-    kernel.  The CUDA kernels keep their own CTA tile, so the tile never
-    changes a result.
+    row chunk.  The CUDA kernels keep their own CTA tile, so the tile
+    never changes a result, and a tile that does not bind builds the
+    square K with the square kernel.
     """
     max_elems: Optional[int] = None
     tile: Optional[Tuple[int, int]] = None
@@ -115,44 +124,36 @@ def _row_starts(M: int, chunk: int):
     return [min(i * chunk, M - chunk) for i in range(-(-M // chunk))]
 
 
-def _panel_rowsums(Zm: torch.Tensor, a: torch.Tensor, Zn: torch.Tensor,
-                   chunk: int, K: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
-    """Per-row |K| sums of K = Zm diag(a) Zn^T, built ``chunk`` rows at a
-    time.  Zm: (B, M, D), Zn: (B, N, D), a: (B, D) -> (B, M).  Each panel
-    is one launch over the whole batch, written into its rows of ``K``
-    (B, M, N) when given, else into one reused (B, chunk, N) buffer and
-    discarded."""
-    B, M, _ = Zm.shape
-    N = Zn.shape[1]
-    panel = None if K is not None else torch.empty(
-        (B, chunk, N), dtype=torch.float32, device=Zm.device)
-    rs = torch.empty((B, M), dtype=torch.float32, device=Zm.device)
-    for start in _row_starts(M, chunk):
-        rows = slice(start, start + chunk)
-        Kc = kops.weighted_gram_rows(
-            Zm[:, rows], a, Zn, out=panel if K is None else K[:, rows])
-        rs[:, rows] = Kc.abs().sum(-1)
+def _panel_rowsums(Z: torch.Tensor, a: torch.Tensor, chunk: int,
+                   K: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-row |K| sums of K = Z diag(a) Z^T, built ``chunk`` rows at a
+    time.  Z: (B, N, D), a: (B, D) -> (B, N).  Each panel is one launch
+    over the whole batch, written into its rows of ``K`` (B, N, N) when
+    given, else into one reused (B, chunk, N) buffer and discarded."""
+    B, N, _ = Z.shape
+    rs = torch.empty((B, N), dtype=torch.float32, device=Z.device)
+    for start, Kc in kops.weighted_gram_panels(
+            Z, a, _row_starts(N, chunk), chunk, out=K):
+        rs[:, start:start + chunk] = Kc.abs().sum(-1)
     return rs
 
 
-def streamed_gram_panel(Zm: torch.Tensor, a: torch.Tensor, Zn: torch.Tensor,
+def streamed_gram_panel(Z: torch.Tensor, a: torch.Tensor,
                         chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K = Zm diag(a) Zn^T built ``chunk`` rows at a time, plus the
-    per-row |K| sums from the same pass.
+    """K = Z diag(a) Z^T built ``chunk`` rows at a time, plus the per-row
+    |K| sums from the same pass.
 
-    Zm: (..., M, D), Zn: (..., N, D), a: (..., D) ->
-    ``(K (..., M, N), rowsums (..., M))``.  Each panel is one launch over
-    the whole batch into its rows of one preallocated K, so the live set
-    is K plus one (batch, chunk, N) |panel|.
+    Z: (..., N, D), a: (..., D) -> ``(K (..., N, N), rowsums (..., N))``.
+    Each panel is one launch over the whole batch into its rows of one
+    preallocated K, so the live set is K plus one (batch, chunk, N)
+    |panel|.
     """
-    batch, (M, D), N = Zm.shape[:-2], Zm.shape[-2:], Zn.shape[-2]
-    Zmf = Zm.reshape(-1, M, D)
-    K = torch.empty((Zmf.shape[0], M, N), dtype=torch.float32,
-                    device=Zm.device)
-    rs = _panel_rowsums(Zmf, a.reshape(-1, D), Zn.reshape(-1, N, D),
-                        min(int(chunk), M), K)
-    return K.reshape(batch + (M, N)), rs.reshape(batch + (M,))
+    batch, (N, D) = Z.shape[:-2], Z.shape[-2:]
+    Zf = Z.reshape(-1, N, D)
+    K = torch.empty((Zf.shape[0], N, N), dtype=torch.float32,
+                    device=Z.device)
+    rs = _panel_rowsums(Zf, a.reshape(-1, D), min(int(chunk), N), K)
+    return K.reshape(batch + (N, N)), rs.reshape(batch + (N,))
 
 
 def streamed_lipschitz(Z: torch.Tensor, a: torch.Tensor,
@@ -166,7 +167,7 @@ def streamed_lipschitz(Z: torch.Tensor, a: torch.Tensor,
     chunk = budget.row_chunk(B, N) if budget is not None else None
     if chunk is None:
         chunk = DEFAULT_LIPSCHITZ_CHUNK
-    rs = _panel_rowsums(Zf, af, Zf, min(chunk, N))
+    rs = _panel_rowsums(Zf, af, min(chunk, N))
     return torch.clamp_min(rs.amax(-1), 1e-12).reshape(batch)
 
 
@@ -176,19 +177,18 @@ def gram_and_lipschitz(Z: torch.Tensor, a: torch.Tensor,
     """The dual Hessian K = Z diag(a) Z^T and its Gershgorin bound L.
 
     Z: (..., N, D); ``a`` may carry extra leading batch dims (Z
-    broadcasts up).  Without a binding ``budget``: one batched Gram
-    launch (the tiled kernel when the budget names a ``tile``), then
-    ``gershgorin_lipschitz``.  With one: the streamed build.
+    broadcasts up).  Without a binding ``budget``: one batched launch of
+    the square Gram kernel, then ``gershgorin_lipschitz``.  With one: the
+    streamed build.
     """
     if budget is not None:
         batch, Zf, af = _flat_batch(Z, a)
         chunk = budget.row_chunk(Zf.shape[0], Zf.shape[1])
         if chunk is not None:
-            K, rs = streamed_gram_panel(Zf, af, Zf, chunk)
+            K, rs = streamed_gram_panel(Zf, af, chunk)
             L = torch.clamp_min(rs.amax(-1), 1e-12)
             return K.reshape(batch + K.shape[-2:]), L.reshape(batch)
-    K = kops.weighted_gram(Z, a, tile=None if budget is None
-                           else budget.tile)
+    K = kops.weighted_gram(Z, a)
     return K, qp_lib.gershgorin_lipschitz(K)
 
 

@@ -7,6 +7,14 @@ hold the kernels behind plain C launchers and include no PyTorch header;
 ``bindings.cpp`` is the one source that includes ``torch/extension.h``.
 Nothing here runs at import: a machine without ``nvcc`` imports the
 package and runs the plain versions on the CPU.
+
+The link names the shared libstdc++ first (``LINK_FLAGS``).  Where the
+toolchain's default link of an extension pulls libstdc++.a in instead,
+the module carries a second copy of the iostream and locale code beside
+the process's shared one, and the first number that the module itself
+formats into a stream (``c10::str``, a ``TORCH_CHECK`` message with an
+integer) calls through the wrong locale facet and ends the process with
+a segmentation fault.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ SOURCES = ("bindings.cpp", "gram.cu", "qp_step.cu", "qp_multi.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
+LINK_FLAGS = ("-l:libstdc++.so.6",)
 
 _EXT = None
 #: seconds the last build (or cache check) took, for chip_smoke.py
@@ -38,6 +47,7 @@ def extension():
             build_directory=str(BUILD_DIR),
             extra_cflags=["-O2"],
             extra_cuda_cflags=list(CUDA_FLAGS),
+            extra_ldflags=list(LINK_FLAGS),
             verbose=False)
         build_seconds = time.perf_counter() - t0
     return _EXT

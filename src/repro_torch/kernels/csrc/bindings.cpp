@@ -18,14 +18,17 @@
 #include <tuple>
 #include <vector>
 
-cudaError_t repro_gram_launch(const float* Z, const float* a, float* K, int B,
-                              int N, int D, cudaStream_t stream);
-cudaError_t repro_gram_tiled_launch(const float* Zm, const float* a,
-                                    const float* Zn, float* out,
+int repro_gram_ld(int n);
+int repro_gram_max_rows();
+cudaError_t repro_gram_prescale_launch(const float* Z, const float* a,
+                                       float* Zs, int B, int N, int D,
+                                       cudaStream_t stream);
+cudaError_t repro_gram_launch(const float* Zs, float* K, int B, int N, int D,
+                              cudaStream_t stream);
+cudaError_t repro_gram_tiled_launch(const float* Zs, float* out,
                                     size_t out_batch_stride, size_t ldo,
-                                    int B, int M, int N, int D,
+                                    int B, int N, int D, int row0, int M,
                                     cudaStream_t stream);
-int repro_gram_tiled_max_rows();
 cudaError_t repro_gram_attributes(int which, cudaFuncAttributes* attr,
                                   const char** name);
 cudaError_t repro_qp_step_launch(const float* K, const float* lam,
@@ -48,72 +51,106 @@ cudaError_t repro_qp_multi_attributes(int which, cudaFuncAttributes* attr,
 
 namespace {
 
+// An operand a kernel does not take raises ValueError (TORCH_CHECK_VALUE),
+// a CUDA error RuntimeError (C10_CUDA_CHECK).
+
 void check(const torch::Tensor& t, const char* name, at::ScalarType dtype,
            int64_t dim) {
-  TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
-  TORCH_CHECK(t.scalar_type() == dtype, name, " must be ", dtype, ", got ",
-              t.scalar_type());
-  TORCH_CHECK(t.dim() == dim, name, " must have ", dim, " dims, got ",
-              t.dim());
-  TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
+  TORCH_CHECK_VALUE(t.is_cuda(), name, " must be a CUDA tensor");
+  TORCH_CHECK_VALUE(t.scalar_type() == dtype, name, " must be ", dtype,
+                    ", got ", t.scalar_type());
+  TORCH_CHECK_VALUE(t.dim() == dim, name, " must have ", dim,
+                    " dims, got ", t.dim());
+  TORCH_CHECK_VALUE(t.is_contiguous(), name, " must be contiguous");
 }
 
 int as_int(int64_t v, const char* what) {
-  TORCH_CHECK(v >= 0 && v <= std::numeric_limits<int>::max(), what,
-              " out of range: ", v);
+  TORCH_CHECK_VALUE(v >= 0 && v <= std::numeric_limits<int>::max(), what,
+                    " out of range: ", v);
   return static_cast<int>(v);
 }
 
-// Z (B, N, D), a (B, D) -> K (B, N, N)
-torch::Tensor weighted_gram(torch::Tensor Z, torch::Tensor a) {
+// Z (B, N, D), a (B, D) -> Zs (2, B, D, N): Z feature-major, Zs[0]
+// unscaled and Zs[1] scaled by a, a view whose rows lie
+// repro_gram_ld(N) floats apart (no kernel reads the columns past N)
+torch::Tensor gram_prescale(torch::Tensor Z, torch::Tensor a) {
   check(Z, "Z", at::kFloat, 3);
   check(a, "a", at::kFloat, 2);
   const int64_t B = Z.size(0), N = Z.size(1), D = Z.size(2);
-  TORCH_CHECK(a.size(0) == B && a.size(1) == D, "a must be (B, D)");
-  TORCH_CHECK(B <= 65535, "batch of ", B, " problems exceeds the grid");
+  TORCH_CHECK_VALUE(a.size(0) == B && a.size(1) == D, "a must be (B, D)");
+  TORCH_CHECK_VALUE(a.device() == Z.device(),
+                    "operands must be on one device");
+  TORCH_CHECK_VALUE(B <= 65535, "batch of ", B,
+                    " problems exceeds the grid");
+  TORCH_CHECK_VALUE(N <= repro_gram_max_rows(), N, " rows exceed the grid");
+  TORCH_CHECK_VALUE(D <= 65535 * 32, D, " features exceed the grid");
   const c10::cuda::CUDAGuard guard(Z.device());
-  auto K = torch::empty({B, N, N}, Z.options());
-  C10_CUDA_CHECK(repro_gram_launch(
-      Z.data_ptr<float>(), a.data_ptr<float>(), K.data_ptr<float>(),
+  auto Zs = torch::empty({2, B, D, repro_gram_ld(static_cast<int>(N))},
+                         Z.options());
+  C10_CUDA_CHECK(repro_gram_prescale_launch(
+      Z.data_ptr<float>(), a.data_ptr<float>(), Zs.data_ptr<float>(),
       as_int(B, "B"), as_int(N, "N"), as_int(D, "D"),
       c10::cuda::getCurrentCUDAStream()));
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return Zs.narrow(3, 0, N);
+}
+
+// Zs: gram_prescale's (2, B, D, N) view of Z (B, N, D), which carries N
+void check_prescaled(const torch::Tensor& Zs) {
+  TORCH_CHECK_VALUE(Zs.is_cuda() && Zs.scalar_type() == at::kFloat &&
+                        Zs.dim() == 4 && Zs.size(0) == 2,
+                    "Zs must be gram_prescale's float32 CUDA (2, B, D, N)");
+  const int64_t B = Zs.size(1), D = Zs.size(2), N = Zs.size(3);
+  TORCH_CHECK_VALUE(N <= repro_gram_max_rows(), N, " rows exceed the grid");
+  TORCH_CHECK_VALUE(B <= 65535, "batch of ", B,
+                    " problems exceeds the grid");
+  const int64_t ld = repro_gram_ld(static_cast<int>(N));
+  TORCH_CHECK_VALUE(
+      Zs.numel() == 0 ||
+          (Zs.stride(3) == 1 && Zs.stride(2) == ld &&
+           Zs.stride(1) == D * ld && Zs.stride(0) == B * D * ld),
+      "Zs must be gram_prescale's (2, B, D, N) view, rows ", ld,
+      " floats apart");
+}
+
+// Zs of Z (B, N, D) -> K (B, N, N)
+torch::Tensor weighted_gram(torch::Tensor Zs) {
+  check_prescaled(Zs);
+  const int64_t B = Zs.size(1), D = Zs.size(2), N = Zs.size(3);
+  const c10::cuda::CUDAGuard guard(Zs.device());
+  auto K = torch::empty({B, N, N}, Zs.options());
+  C10_CUDA_CHECK(repro_gram_launch(Zs.data_ptr<float>(), K.data_ptr<float>(),
+                                   as_int(B, "B"), as_int(N, "N"),
+                                   as_int(D, "D"),
+                                   c10::cuda::getCurrentCUDAStream()));
   return K;
 }
 
-// Zm (B, M, D), a (B, D), Zn (B, N, D) -> written into out (B, M, N), a
-// view whose rows may be strided (e.g. rows [s, s+M) of a (B, N', N) K)
-void weighted_gram_tiled(torch::Tensor Zm, torch::Tensor a, torch::Tensor Zn,
-                         torch::Tensor out) {
-  check(Zm, "Zm", at::kFloat, 3);
-  check(a, "a", at::kFloat, 2);
-  check(Zn, "Zn", at::kFloat, 3);
-  const int64_t B = Zm.size(0), M = Zm.size(1), D = Zm.size(2);
-  const int64_t N = Zn.size(1);
-  TORCH_CHECK(a.size(0) == B && a.size(1) == D, "a must be (B, D)");
-  TORCH_CHECK(Zn.size(0) == B && Zn.size(2) == D, "Zn must be (B, N, D)");
-  TORCH_CHECK(out.is_cuda() && out.scalar_type() == at::kFloat &&
-                  out.dim() == 3,
-              "out must be a float32 CUDA tensor of 3 dims");
-  TORCH_CHECK(out.size(0) == B && out.size(1) == M && out.size(2) == N,
-              "out must be (B, M, N)");
-  TORCH_CHECK(out.stride(2) == 1 && out.stride(1) >= N &&
-                  (B == 1 || out.stride(0) >= M * out.stride(1)),
-              "out must have unit column stride and rows that do not "
-              "overlap");
-  TORCH_CHECK(B <= 65535, "batch of ", B, " problems exceeds the grid");
-  TORCH_CHECK(M <= repro_gram_tiled_max_rows(), "panel of ", M,
-              " rows exceeds the grid");
-  TORCH_CHECK(out.device() == Zm.device() && Zn.device() == Zm.device() &&
-                  a.device() == Zm.device(),
-              "operands must be on one device");
-  const c10::cuda::CUDAGuard guard(Zm.device());
+// Zs of Z (B, N, D) -> rows [row0, row0 + M) of K written into out
+// (B, M, N), a view whose rows may be strided (e.g. rows [s, s+M) of a
+// (B, N, N) K)
+void weighted_gram_tiled(torch::Tensor Zs, int64_t row0, torch::Tensor out) {
+  check_prescaled(Zs);
+  const int64_t B = Zs.size(1), D = Zs.size(2), N = Zs.size(3);
+  TORCH_CHECK_VALUE(out.is_cuda() && out.scalar_type() == at::kFloat &&
+                        out.dim() == 3,
+                    "out must be a float32 CUDA tensor of 3 dims");
+  const int64_t M = out.size(1);
+  TORCH_CHECK_VALUE(out.size(0) == B && out.size(2) == N, "out must be (",
+                    B, ", M, ", N, ") for Zs of ", N, " rows");
+  TORCH_CHECK_VALUE(row0 >= 0 && row0 + M <= N, "rows [", row0, ", ",
+                    row0 + M, ") are not rows of a ", N, "-row K");
+  TORCH_CHECK_VALUE(out.stride(2) == 1 && out.stride(1) >= N &&
+                        (B == 1 || out.stride(0) >= M * out.stride(1)),
+                    "out must have unit column stride and rows that do "
+                    "not overlap");
+  TORCH_CHECK_VALUE(out.device() == Zs.device(),
+                    "operands must be on one device");
+  const c10::cuda::CUDAGuard guard(Zs.device());
   C10_CUDA_CHECK(repro_gram_tiled_launch(
-      Zm.data_ptr<float>(), a.data_ptr<float>(), Zn.data_ptr<float>(),
-      out.data_ptr<float>(), static_cast<size_t>(out.stride(0)),
-      static_cast<size_t>(out.stride(1)), as_int(B, "B"), as_int(M, "M"),
-      as_int(N, "N"), as_int(D, "D"), c10::cuda::getCurrentCUDAStream()));
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+      Zs.data_ptr<float>(), out.data_ptr<float>(),
+      static_cast<size_t>(out.stride(0)), static_cast<size_t>(out.stride(1)),
+      as_int(B, "B"), as_int(N, "N"), as_int(D, "D"), as_int(row0, "row0"),
+      as_int(M, "M"), c10::cuda::getCurrentCUDAStream()));
 }
 
 // lam, q, hi (B, N), K (B, N, N), gamma (B,) -> lam (B, N)
@@ -125,19 +162,19 @@ torch::Tensor qp_pg_step(torch::Tensor lam, torch::Tensor K, torch::Tensor q,
   check(hi, "hi", at::kFloat, 2);
   check(gamma, "gamma", at::kFloat, 1);
   const int64_t B = lam.size(0), N = lam.size(1);
-  TORCH_CHECK(K.size(0) == B && K.size(1) == N && K.size(2) == N,
-              "K must be (B, N, N)");
-  TORCH_CHECK(q.sizes() == lam.sizes() && hi.sizes() == lam.sizes(),
-              "q and hi must be (B, N)");
-  TORCH_CHECK(gamma.size(0) == B, "gamma must be (B,)");
-  TORCH_CHECK(B <= 65535, "batch of ", B, " problems exceeds the grid");
+  TORCH_CHECK_VALUE(K.size(0) == B && K.size(1) == N && K.size(2) == N,
+                    "K must be (B, N, N)");
+  TORCH_CHECK_VALUE(q.sizes() == lam.sizes() && hi.sizes() == lam.sizes(),
+                    "q and hi must be (B, N)");
+  TORCH_CHECK_VALUE(gamma.size(0) == B, "gamma must be (B,)");
+  TORCH_CHECK_VALUE(B <= 65535, "batch of ", B,
+                    " problems exceeds the grid");
   const c10::cuda::CUDAGuard guard(lam.device());
   auto out = torch::empty_like(lam);
   C10_CUDA_CHECK(repro_qp_step_launch(
       K.data_ptr<float>(), lam.data_ptr<float>(), q.data_ptr<float>(),
       hi.data_ptr<float>(), gamma.data_ptr<float>(), out.data_ptr<float>(),
       as_int(B, "B"), as_int(N, "N"), c10::cuda::getCurrentCUDAStream()));
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
 }
 
@@ -149,24 +186,25 @@ std::vector<torch::Tensor> qp_pg_multi(torch::Tensor lam0, torch::Tensor K,
                                        std::optional<torch::Tensor> Z,
                                        int64_t iters) {
   check(lam0, "lam0", at::kFloat, 2);
-  TORCH_CHECK(K.scalar_type() == at::kFloat ||
-                  K.scalar_type() == at::kBFloat16,
-              "K must be float32 or bfloat16");
+  TORCH_CHECK_VALUE(K.scalar_type() == at::kFloat ||
+                        K.scalar_type() == at::kBFloat16,
+                    "K must be float32 or bfloat16");
   check(K, "K", K.scalar_type(), 3);
   check(q, "q", at::kFloat, 2);
   check(hi, "hi", at::kFloat, 2);
   check(gamma, "gamma", at::kFloat, 1);
   const int64_t B = lam0.size(0), N = lam0.size(1);
-  TORCH_CHECK(K.size(0) == B && K.size(1) == N && K.size(2) == N,
-              "K must be (B, N, N)");
-  TORCH_CHECK(q.sizes() == lam0.sizes() && hi.sizes() == lam0.sizes(),
-              "q and hi must be (B, N)");
-  TORCH_CHECK(gamma.size(0) == B, "gamma must be (B,)");
+  TORCH_CHECK_VALUE(K.size(0) == B && K.size(1) == N && K.size(2) == N,
+                    "K must be (B, N, N)");
+  TORCH_CHECK_VALUE(q.sizes() == lam0.sizes() && hi.sizes() == lam0.sizes(),
+                    "q and hi must be (B, N)");
+  TORCH_CHECK_VALUE(gamma.size(0) == B, "gamma must be (B,)");
   const bool fold = Z.has_value();
   int64_t D = 0;
   if (fold) {
     check(*Z, "Z", at::kFloat, 3);
-    TORCH_CHECK(Z->size(0) == B && Z->size(1) == N, "Z must be (B, N, D)");
+    TORCH_CHECK_VALUE(Z->size(0) == B && Z->size(1) == N,
+                      "Z must be (B, N, D)");
     D = Z->size(2);
   }
   const int k_bf16 = K.scalar_type() == at::kBFloat16;
@@ -187,7 +225,6 @@ std::vector<torch::Tensor> qp_pg_multi(torch::Tensor lam0, torch::Tensor K,
       partial.data_ptr<float>(), as_int(B, "B"), as_int(N, "N"),
       as_int(D, "D"), as_int(iters, "iters"), blocks,
       c10::cuda::getCurrentCUDAStream()));
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
   if (fold) return {lam, zl};
   return {lam};
 }
@@ -222,9 +259,11 @@ kernel_info() {
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("gram_prescale", &gram_prescale,
+        "Z feature-major, unscaled and scaled by a, for the Gram kernels");
   m.def("weighted_gram", &weighted_gram, "K = Z diag(a) Z^T, batched");
   m.def("weighted_gram_tiled", &weighted_gram_tiled,
-        "a row panel Zm diag(a) Zn^T, batched, into a given output view");
+        "rows [row0, row0 + M) of K, batched, into a given output view");
   m.def("qp_pg_step", &qp_pg_step, "one fused PG step, batched");
   m.def("qp_pg_multi", &qp_pg_multi, "the fused multi-iteration PG solve",
         pybind11::arg("lam0"), pybind11::arg("K"), pybind11::arg("q"),

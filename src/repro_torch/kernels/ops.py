@@ -9,7 +9,7 @@ where the reference maps a one-problem kernel over them.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -48,43 +48,43 @@ def broadcast_z(Z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return Z
 
 
-def weighted_gram(Z: torch.Tensor, a: torch.Tensor, *,
-                  tile=None) -> torch.Tensor:
+def weighted_gram(Z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """K = Z diag(a) Z^T over arbitrary leading batch dims (Z (..., N, D),
     a (..., D); ``a`` may carry more leading dims than Z, which is
-    broadcast up).  With ``tile`` (a ``PlanBudget.tile``) the card runs
-    the tiled kernel over the whole square, as the reference runs its
-    tiled Pallas kernel; the result is bitwise the same."""
+    broadcast up).  On the card one launch of the square kernel builds
+    the whole batch."""
     Z = broadcast_z(Z, a)
     if not _on_card(Z, a):
         return ref.weighted_gram(Z, a)
     batch, (N, D) = Z.shape[:-2], Z.shape[-2:]
-    Zf, af = Z.reshape(-1, N, D), a.reshape(-1, D)
-    if tile is None:
-        K = gram_kernel.weighted_gram(Zf, af)
-    else:
-        K = gram_kernel.weighted_gram_tiled(Zf, af, Zf)
+    K = gram_kernel.weighted_gram(Z.reshape(-1, N, D), a.reshape(-1, D))
     return K.reshape(batch + (N, N))
 
 
-def weighted_gram_rows(Zm: torch.Tensor, a: torch.Tensor, Zn: torch.Tensor,
-                       *, out: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
-    """The rectangular block K = Zm diag(a) Zn^T over leading batch dims:
-    Zm (..., M, D), Zn (..., N, D), a (..., D) -> (..., M, N).  One
-    streamed row panel of the large-n build.  ``out``, a (B, M, N) view
-    with the batch dims flattened (e.g. rows of a preallocated K), takes
-    the result in place and is returned."""
-    if not _on_card(Zm, a, Zn, out):
-        K = ref.weighted_gram_rows(Zm, a, Zn)
-        if out is None:
-            return K
-        return out.copy_(K.reshape(out.shape))
-    batch, (M, D), N = Zm.shape[:-2], Zm.shape[-2:], Zn.shape[-2]
-    K = gram_kernel.weighted_gram_tiled(
-        Zm.reshape(-1, M, D), a.reshape(-1, D), Zn.reshape(-1, N, D),
-        out=out)
-    return K if out is not None else K.reshape(batch + (M, N))
+def weighted_gram_panels(Z: torch.Tensor, a: torch.Tensor, starts,
+                         rows: int, *, out: Optional[torch.Tensor] = None
+                         ) -> Iterator[Tuple[int, torch.Tensor]]:
+    """The row panels of K = Z diag(a) Z^T, one streamed step each of the
+    large-n build.  Z: (B, N, D), a: (B, D).  Yields ``(start, panel)``
+    for each ``start`` in ``starts``: panel = rows [start, start + rows)
+    of K, (B, rows, N), written into ``out[:, start:start + rows]`` when
+    ``out`` (B, N, N) is given, else into one (B, rows, N) buffer that the
+    next panel overwrites.  On the card Z is prescaled once for all the
+    panels and each panel is one launch of the tiled kernel over the
+    batch, bitwise those rows of :func:`weighted_gram`."""
+    card = _on_card(Z, a, out)
+    B, N, _ = Z.shape
+    buf = None if out is not None else torch.empty(
+        (B, rows, N), dtype=torch.float32, device=Z.device)
+    Zs = gram_kernel.prescale(Z, a) if card else None
+    for start in starts:
+        panel = buf if out is None else out[:, start:start + rows]
+        if card:
+            gram_kernel.weighted_gram_tiled(Zs, start, panel)
+        else:
+            panel.copy_(ref.weighted_gram_rows(Z[:, start:start + rows], a,
+                                               Z))
+        yield start, panel
 
 
 def _per_problem(gamma, batch, like: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,13 @@ def weighted_gram_rows(Zm: torch.Tensor, a: torch.Tensor,
                         Zn.transpose(-1, -2))
 
 
+def gram_prescale(Z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Z (B, N, D) feature-major, unscaled and scaled by a (B, D):
+    (2, B, D, N)."""
+    return torch.stack([Z, Z * a[..., None, :]]).transpose(-1, -2) \
+        .contiguous()
+
+
 def _per_problem(gamma, lam: torch.Tensor) -> torch.Tensor:
     """A scalar or per-problem step size, leading-aligned against the
     batch dims of ``lam`` (..., N) and broadcast over the rest."""

@@ -14,12 +14,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro.api import backends as jbackends
 from repro.api import solvers as jsolvers
 from repro.core import graph as jgraph
 from repro.data import synthetic as jsynthetic
 from repro.engine.invariants import PlanBudget as JPlanBudget
 from repro_torch import quickstart
 from repro_torch.api import DSVM, DTSVM, PlanBudget, SolverConfig
+from repro_torch.api import backends
+from repro_torch.engine import invariants
 
 ATOL = 0.015
 _SRC = os.path.join(os.path.dirname(os.path.dirname(
@@ -38,8 +41,9 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _reference_quickstart():
-    """examples/quickstart.py's experiment through the JAX package."""
+def _reference_quickstart(**overrides):
+    """examples/quickstart.py's experiment through the JAX package
+    (``overrides`` replace config fields)."""
     V, T = 10, 2
     n_train = np.zeros((V, T), int)
     n_train[:, 0] = jsynthetic.split_counts(40, V)
@@ -49,7 +53,7 @@ def _reference_quickstart():
         relatedness=0.92, noise=1.0, seed=0)
     adj = jgraph.make_graph("random", V, degree=0.8, seed=0)
     cfg = jsolvers.SolverConfig(C=0.01, eps1=1.0, eps2=1.0, iters=60,
-                                qp_iters=100)
+                                qp_iters=100, **overrides)
     dtsvm = jsolvers.DTSVM(cfg).fit(data["X"], data["y"], mask=data["mask"],
                                     adj=adj)
     dsvm = jsolvers.DSVM(cfg).fit(data["X"], data["y"], mask=data["mask"],
@@ -135,6 +139,95 @@ def test_factored_validation_matches_reference(field):
     with pytest.raises(ValueError, match="factored"):
         jsolvers.DTSVM(jsolvers.SolverConfig(iters=1, **field)).fit(
             data["X"], data["y"])
+
+
+def test_budget_in_backend_options_fits_like_the_reference(monkeypatch):
+    """``backend_options={"budget": ...}`` goes into the one options dict
+    that ``cfg.budget`` only fills in where it names no budget (the
+    reference's ``setdefault``).  The quickstart streamed in 8-row panels
+    that way gives the JAX run's risks within the golden ATOL, and both of
+    its fits stream."""
+    monkeypatch.setenv("REPRO_USE_PALLAS", "0")
+    want = _reference_quickstart(
+        backend_options={"budget": JPlanBudget(tile=(8, 128))})
+    streamed = []
+    panel = invariants.streamed_gram_panel
+    monkeypatch.setattr(invariants, "streamed_gram_panel",
+                        lambda *a, **k: streamed.append(1) or panel(*a, **k))
+    got = quickstart.main(device="cpu", backend_options={
+        "budget": PlanBudget(tile=(8, 128))})
+    assert len(streamed) == 2                        # DTSVM and DSVM
+    for k in ("dtsvm", "dsvm"):
+        np.testing.assert_allclose(got[k], want[k], atol=ATOL, err_msg=k)
+
+
+def test_backend_options_budget_wins_over_the_config_budget(monkeypatch):
+    """With a budget in both places the backend_options one is used, as in
+    the reference: here the 8-row panels, not the non-binding tile."""
+    data = _tiny_data(N=20)
+    streamed = []
+    panel = invariants.streamed_gram_panel
+    monkeypatch.setattr(invariants, "streamed_gram_panel",
+                        lambda *a, **k: streamed.append(1) or panel(*a, **k))
+    cfg = SolverConfig(iters=2, qp_iters=5, budget=PlanBudget(tile=(64, 128)),
+                       backend_options={"budget": PlanBudget(tile=(8, 128))})
+    DTSVM(cfg, device="cpu").fit(data["X"], data["y"])
+    assert len(streamed) == 1
+    DTSVM(cfg.replace(backend_options={}), device="cpu").fit(data["X"],
+                                                              data["y"])
+    assert len(streamed) == 1                        # (64, 128) does not bind
+
+
+_PLAN_KW = dict(qp_iters=5, qp_solver="pg", qp_precision="f32",
+                qp_operator="materialized")
+
+
+def _plans():
+    """One tiny problem and its compiled plan in each package."""
+    from repro.engine import plan as jplan
+    from repro_torch.engine import plan as tplan
+
+    data = _tiny_data(N=10)
+    jprob = jsolvers.DTSVM().make_problem(data["X"], data["y"])
+    tprob = DTSVM().make_problem(data["X"], data["y"], device="cpu")
+    return ((jbackends, jprob, jplan.compile_problem(jprob, **_PLAN_KW)),
+            (backends, tprob, tplan.compile_problem(tprob, **_PLAN_KW)))
+
+
+def test_vmap_runner_uses_a_matching_prebuilt_plan(monkeypatch):
+    """``plan=`` that agrees with the call is run as it is, in both
+    packages: nothing is compiled, the state is the plan's own run, and
+    the two packages agree."""
+    states = []
+    for mod, prob, plan in _plans():
+        def compile_again(*args, **kwargs):
+            raise AssertionError("the runner compiled a new plan")
+
+        monkeypatch.setattr(mod.engine_plan, "compile_problem",
+                            compile_again)
+        got, _ = mod.run(prob, 3, plan=plan, **_PLAN_KW)
+        want, _ = plan.run(iters=3)
+        for name, g, w in zip(want._fields, got, want):
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w),
+                                          err_msg=name)
+        states.append(got)
+    for name, j, t in zip(states[0]._fields, *states):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("mismatch", [
+    dict(qp_iters=6), dict(qp_solver="fista"), dict(qp_precision="bf16"),
+    dict(qp_operator="factored"), dict(prob=None)])
+def test_vmap_runner_refuses_a_mismatched_plan(mismatch):
+    """``plan=`` that disagrees with the call's problem or QP settings
+    raises the reference's ValueError in both packages."""
+    for mod, prob, plan in _plans():
+        kw = dict(_PLAN_KW, **mismatch)
+        if kw.pop("prob", prob) is None:
+            prob = prob._replace(C=prob.C * 2)       # another problem
+        with pytest.raises(ValueError, match="prebuilt plan= disagrees"):
+            mod.run(prob, 1, plan=plan, **kw)
 
 
 def test_net_dicts_raise_naming_the_roadmap():

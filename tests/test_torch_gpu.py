@@ -11,9 +11,13 @@ JAX.)  Tolerance: the largest error at most 3e-5 (f32) or 1e-2 (bf16)
 times the largest magnitude of the plain result.  The shapes
 cover the one-problem edge, the paper regime (20 problems of 60 x 11),
 odd sizes that exercise the masked edges, and N > 1024, where the
-multi-iteration kernel takes its cooperative grid path.  The tiled Gram
-kernel is also held bitwise to the square kernel's rows (the two share
-one FMA loop), and a budgeted fit to the dense fit.
+multi-iteration kernel takes its cooperative grid path.  The Gram
+shapes cross the 128-row CTA tile and the 16-feature stage (N in
+{1, 127, 128, 129, 300}, D in {1, 11, 16, 17, 257}).  The square K is
+held bitwise symmetric, the tiled Gram kernel bitwise to the square
+kernel's rows (each element in the roles the square kernel gives it),
+and a budgeted fit to the dense fit.  Every binding refuses a CPU
+tensor, an operand of another N and a float64 operand with ValueError.
 """
 import numpy as np
 import pytest
@@ -60,17 +64,80 @@ def _on(dev, *arrays):
             for x in arrays]
 
 
+GRAM_SHAPES = [((), 1, 1), ((20,), 60, 11), ((2, 3), 130, 20),
+               ((2,), 1500, 257)] + [
+    ((20,) if n < 200 else (2,), n, d)
+    for n in (1, 127, 128, 129, 300) for d in (1, 11, 16, 17, 257)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch,n,d", [((), 1, 1), ((20,), 60, 11),
-                                       ((2, 3), 130, 20), ((2,), 1500, 257)])
+@pytest.mark.parametrize("batch,n,d", GRAM_SHAPES)
 def test_gram_kernel_matches_plain(cuda, batch, n, d):
-    Zc, ac = _on(cuda, *_gram_inputs(np.random.default_rng(n), batch, n, d))
-    before = ops.launch_counts()["weighted_gram"]
+    """The square K against the plain version, bitwise symmetric; then a
+    panel of its rows that starts inside the first 128-row tile, against
+    the plain rows and bitwise those rows of the square K."""
+    Zc, ac = _on(cuda, *_gram_inputs(np.random.default_rng(n * 1000 + d),
+                                     batch, n, d))
+    before = ops.launch_counts()
     got = ops.weighted_gram(Zc, ac)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["weighted_gram"] == before + 1
+    after = ops.launch_counts()
+    assert after["weighted_gram"] == before["weighted_gram"] + 1
+    assert after["gram_prescale"] == before["gram_prescale"] + 1
     assert got.shape == batch + (n, n)
     _close(got, ref.weighted_gram(Zc, ac), REL["f32"])
+    assert torch.equal(got, got.transpose(-1, -2))
+
+    start = n // 3
+    rows = max(n - start - n // 5, 1)
+    Zf, af = Zc.reshape(-1, n, d), ac.reshape(-1, d)
+    [(_, panel)] = ops.weighted_gram_panels(Zf, af, [start], rows)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["weighted_gram_tiled"] == \
+        after["weighted_gram_tiled"] + 1
+    _close(panel, ref.weighted_gram_rows(Zf[:, start:start + rows], af, Zf),
+           REL["f32"])
+    assert torch.equal(panel,
+                       got.reshape(-1, n, n)[:, start:start + rows])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,d", [(1, 1, 1), (3, 129, 17), (2, 300, 257),
+                                   (20, 60, 11)])
+def test_gram_prescale_is_the_plain_prescale(cuda, b, n, d):
+    from repro_torch.kernels import gram as gram_kernel
+
+    Z, a = _on(cuda, *_gram_inputs(np.random.default_rng(n), (b,), n, d))
+    Zs = gram_kernel.prescale(Z, a)
+    torch.cuda.synchronize()
+    assert Zs.shape == (2, b, d, n)
+    assert Zs.stride(2) == -(-n // 4) * 4       # rows 16-byte aligned
+    assert Zs.untyped_storage().nbytes() == \
+        4 * gram_kernel.prescale_elems(b, n, d)
+    assert torch.equal(Zs, ref.gram_prescale(Z, a))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n,d,chunk", [(20, 60, 11, 8), (2, 1000, 257, 64)])
+def test_streamed_pass_holds_its_panel_and_the_operands(cuda, B, n, d,
+                                                        chunk):
+    """The device memory of a streamed |K| row-sum pass (the factored
+    operator's L) is what PlanBudget's docstring states: the panel
+    buffer and its |panel| temporary, the row sums, and the prescaled
+    operands, prescale_elems(B, N, D) floats held for the whole pass."""
+    from repro_torch.engine import invariants
+    from repro_torch.kernels import gram as gram_kernel
+
+    Z, a = _on(cuda, *_gram_inputs(np.random.default_rng(d), (B,), n, d))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    invariants._panel_rowsums(Z, a, chunk)
+    torch.cuda.synchronize()
+    held = torch.cuda.max_memory_allocated() - base
+    operands = 4 * gram_kernel.prescale_elems(B, n, d)
+    stated = operands + 4 * (2 * B * chunk * n + B * n + B * chunk)
+    assert operands < held <= stated + 5 * 512, (held, stated)
 
 
 @pytest.mark.gpu
@@ -127,24 +194,25 @@ def test_fit_on_the_card_matches_the_cpu(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,M,N,d,start", [
     (1, 1, 1, 1, 0), (20, 24, 60, 11, 36), (2, 67, 131, 257, 5),
-    (3, 130, 62, 1, 1), (2, 64, 256, 33, 64)])
+    (3, 61, 62, 1, 1), (2, 64, 256, 33, 64)])
 def test_tiled_gram_kernel_matches_plain_into_an_offset_view(cuda, B, M, N,
                                                             d, start):
-    """Rows [start, start + M) of a NaN-filled buffer take the panel; M and
-    N not multiples of 64 or 4 exercise the masked edges, and an odd row
-    stride or offset the scalar stores."""
+    """Rows [start, start + M) of an (N + 3)-row NaN-filled buffer take
+    the panel of the same rows of K; M and N not multiples of 128 or 4
+    exercise the masked edges, and an odd row stride or offset the scalar
+    stores."""
     rng = np.random.default_rng(M * N + d)
-    Zm, a = _gram_inputs(rng, (B,), M, d)
-    Zn, _ = _gram_inputs(rng, (B,), N, d)
-    Zm, a, Zn = _on(cuda, Zm, a, Zn)
-    big = torch.full((B, start + M + 3, N), float("nan"), device=cuda)
-    before = ops.launch_counts()["weighted_gram_tiled"]
-    got = ops.weighted_gram_rows(Zm, a, Zn, out=big[:, start:start + M])
+    Z, a = _on(cuda, *_gram_inputs(rng, (B,), N, d))
+    big = torch.full((B, N + 3, N), float("nan"), device=cuda)
+    before = ops.launch_counts()
+    [(_, got)] = ops.weighted_gram_panels(Z, a, [start], M, out=big)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["weighted_gram_tiled"] == before + 1
+    after = ops.launch_counts()
+    assert after["weighted_gram_tiled"] == before["weighted_gram_tiled"] + 1
+    assert after["gram_prescale"] == before["gram_prescale"] + 1
     assert got.data_ptr() == big[:, start:].data_ptr()
-    _close(big[:, start:start + M], ref.weighted_gram_rows(Zm, a, Zn),
-           REL["f32"])
+    _close(big[:, start:start + M],
+           ref.weighted_gram_rows(Z[:, start:start + M], a, Z), REL["f32"])
     assert torch.isnan(big[:, :start]).all()
     assert torch.isnan(big[:, start + M:]).all()
 
@@ -158,10 +226,64 @@ def test_tiled_panels_are_the_square_kernels_rows(cuda, batch, n, d, chunk):
 
     Z, a = _on(cuda, *_gram_inputs(np.random.default_rng(n), batch, n, d))
     K = ops.weighted_gram(Z, a)
-    streamed, rs = invariants.streamed_gram_panel(Z, a, Z, chunk)
+    streamed, rs = invariants.streamed_gram_panel(Z, a, chunk)
     assert torch.equal(streamed, K)
     torch.testing.assert_close(rs, K.abs().sum(-1), rtol=1e-6, atol=0)
-    assert torch.equal(ops.weighted_gram(Z, a, tile=(8, 128)), K)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n,d,start,M", [
+    (20, 60, 11, 20, 24),       # inside the one tile, across the diagonal
+    (2, 300, 257, 100, 150),    # starts mid-tile, across two tile rows
+    (3, 129, 17, 127, 2),       # the last rows of one tile and the next
+    (2, 300, 16, 0, 300),       # the whole square through the tiled kernel
+    (1, 400, 33, 250, 150),     # mid-tile start, columns on both sides
+    (1, 700, 19, 200, 300),     # tiles left of, in and right of the block
+    (2, 260, 1, 5, 255)])
+def test_panels_across_the_diagonal_are_the_square_rows(cuda, B, n, d,
+                                                        start, M):
+    """Panels that start inside a 128-row tile and that the diagonal
+    crosses, written into an offset view of a NaN-filled buffer with a
+    wider row stride: bitwise the same rows of the square K."""
+    from repro_torch.kernels import gram as gram_kernel
+
+    Z, a = _on(cuda, *_gram_inputs(np.random.default_rng(n + start),
+                                   (B,), n, d))
+    K = ops.weighted_gram(Z, a)
+    big = torch.full((B, M + 7, n + 5), float("nan"), device=cuda)
+    view = big[:, 3:3 + M, 1:1 + n]
+    gram_kernel.weighted_gram_tiled(gram_kernel.prescale(Z, a), start, view)
+    torch.cuda.synchronize()
+    assert torch.equal(view, K[:, start:start + M])
+    assert torch.isnan(big[:, :3]).all() and torch.isnan(big[:, 3 + M:]).all()
+    assert torch.isnan(big[:, :, 0]).all()
+    assert torch.isnan(big[:, :, 1 + n:]).all()
+
+
+@pytest.mark.gpu
+def test_nonbinding_budget_launches_the_square_kernel(cuda):
+    """A ``PlanBudget(tile=...)`` that does not bind builds K with one
+    launch of the square kernel and none of the tiled one."""
+    from repro_torch import quickstart
+    from repro_torch.api import DTSVM, PlanBudget, SolverConfig
+    from repro_torch.engine import plan
+
+    data, adj = quickstart.data_and_graph()
+    cfg = SolverConfig(qp_solver="pallas_fused_multi")
+    prob = DTSVM(cfg).make_problem(data["X"], data["y"], data["mask"], adj,
+                                   device=cuda)
+    dense = plan.compile_problem(prob, cfg)
+    budget = PlanBudget(tile=(64, 128))
+    assert budget.row_chunk(prob.X.shape[0] * prob.X.shape[1],
+                            prob.X.shape[2]) is None
+    before = ops.launch_counts()
+    budgeted = plan.compile_problem(prob, cfg, budget=budget)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["weighted_gram"] == before["weighted_gram"] + 1
+    assert after["weighted_gram_tiled"] == before["weighted_gram_tiled"]
+    assert torch.equal(budgeted.inv.K, dense.inv.K)
+    assert torch.equal(budgeted.inv.L, dense.inv.L)
 
 
 @pytest.mark.gpu
@@ -170,12 +292,87 @@ def test_tiled_wrapper_refuses_cpu_tensors(cuda):
 
     Z = torch.ones(1, 8, 3, device=cuda)
     a = torch.ones(1, 3, device=cuda)
+    Zs = gram_kernel.prescale(Z, a)
     with pytest.raises(ValueError):
-        gram_kernel.weighted_gram_tiled(Z.cpu(), a.cpu(), Z.cpu())
+        gram_kernel.weighted_gram_tiled(Zs.cpu(), 0, torch.empty(1, 8, 8))
     with pytest.raises(ValueError):
-        gram_kernel.weighted_gram_tiled(Z, a, Z, out=torch.empty(1, 8, 8))
+        gram_kernel.weighted_gram_tiled(Zs, 0, torch.empty(1, 8, 8))
+    with pytest.raises(ValueError):        # rows 4..11 of an 8-row K
+        gram_kernel.weighted_gram_tiled(
+            Zs, 4, torch.empty(1, 8, 8, device=cuda))
+    with pytest.raises(ValueError):        # 8 columns of a 5-row Z
+        gram_kernel.weighted_gram_tiled(
+            gram_kernel.prescale(Z[:, :5], a), 0,
+            torch.empty(1, 4, 8, device=cuda))
     with pytest.raises(ValueError):
-        ops.weighted_gram_rows(Z, a, Z.cpu())
+        list(ops.weighted_gram_panels(Z, a, [0], 8,
+                                      out=torch.empty(1, 8, 8)))
+
+
+def _binding_operands(ext, dev, binding):
+    """A binding's good operands at B=1, N=8, D=3, and for each way to
+    spoil them the operand list that does: a CPU tensor, an operand of
+    another N (for the prescale, an ``a`` of N entries where it takes D),
+    a float64 operand."""
+    f32 = lambda *shape: torch.zeros(*shape, device=dev)
+    Z, a = f32(1, 8, 3), f32(1, 3)
+    Zs = ext.gram_prescale(Z, a)                      # (2, 1, 3, 8) view
+    lam, K, one = f32(1, 8), f32(1, 8, 8), torch.ones(1, device=dev)
+    good = {"gram_prescale": [Z, a],
+            "weighted_gram": [Zs],
+            "weighted_gram_tiled": [Zs, 0, f32(1, 4, 8)],
+            "qp_pg_step": [lam, K, lam, lam, one],
+            "qp_pg_multi": [lam, K, lam, lam, one, None, 3]}[binding]
+    wrong_n = {"gram_prescale": (1, f32(1, 8)),
+               "weighted_gram": (0, Zs[..., :3]),     # rows 8 apart, not 4
+               "weighted_gram_tiled": (2, f32(1, 4, 9)),
+               "qp_pg_step": (1, f32(1, 9, 9)),
+               "qp_pg_multi": (1, f32(1, 9, 9))}[binding]
+
+    def spoil(i, t):
+        return good[:i] + [t] + good[i + 1:]
+
+    return good, {"cpu": spoil(0, good[0].cpu()),
+                  "wrong_n": spoil(*wrong_n),
+                  "wrong_dtype": spoil(0, good[0].double())}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["cpu", "wrong_n", "wrong_dtype"])
+@pytest.mark.parametrize("binding", ["gram_prescale", "weighted_gram",
+                                     "weighted_gram_tiled", "qp_pg_step",
+                                     "qp_pg_multi"])
+def test_binding_checks_raise_value_errors(cuda, binding, bad):
+    """An operand a kernel does not take raises ValueError from the
+    binding's own checks (TORCH_CHECK_VALUE; several messages format
+    integers), and the process goes on: the same binding then runs on
+    good operands."""
+    from repro_torch.kernels import build
+
+    ext = build.extension()
+    good, spoilt = _binding_operands(ext, cuda, binding)
+    with pytest.raises(ValueError):
+        getattr(ext, binding)(*spoilt[bad])
+    getattr(ext, binding)(*good)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_extension_links_the_shared_libstdcxx(cuda):
+    """The built module depends on the process's shared libstdc++ and
+    carries no copy of its stream code (``build.LINK_FLAGS``): a copy
+    linked in from libstdc++.a crashes on the first number it formats."""
+    import subprocess
+
+    from repro_torch.kernels import build
+
+    so = build.extension().__file__
+    ldd = subprocess.run(["ldd", so], capture_output=True, text=True,
+                         check=True).stdout
+    assert "libstdc++.so" in ldd, ldd
+    nm = subprocess.run(["nm", "-D", "--defined-only", so],
+                        capture_output=True, text=True, check=True).stdout
+    assert "_ZNSo9_M_insert" not in nm           # std::ostream::_M_insert
 
 
 @pytest.mark.gpu

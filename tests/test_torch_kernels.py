@@ -181,7 +181,10 @@ def test_kernel_wrappers_take_only_cuda_tensors():
     with pytest.raises(ValueError):
         gram_kernel.weighted_gram(Z, a)
     with pytest.raises(ValueError):
-        gram_kernel.weighted_gram_tiled(Z, a, Z)
+        gram_kernel.prescale(Z, a)
+    with pytest.raises(ValueError):
+        gram_kernel.weighted_gram_tiled(torch.zeros(2, 1, 3, 4), 0,
+                                        torch.zeros(1, 4, 4))
     lam, K, q, hi, g = (torch.zeros(1, 4), torch.zeros(1, 4, 4),
                         torch.zeros(1, 4), torch.zeros(1, 4), torch.ones(1))
     with pytest.raises(ValueError):
@@ -194,4 +197,5 @@ def test_launch_counts_reset():
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"weighted_gram": 0,
                                    "weighted_gram_tiled": 0,
+                                   "gram_prescale": 0,
                                    "qp_pg_step": 0, "qp_pg_multi": 0}

@@ -114,21 +114,43 @@ def test_row_chunk_of_the_large_fit():
         2, 20000) == 256
 
 
+@pytest.mark.parametrize("kw,B,n,d,chunk,operands", [
+    (dict(tile=(8, 128)), 20, 60, 11, 8, 26400),
+    (dict(max_elems=2 ** 24), 2, 20000, 257, 416, 20560000),
+    (dict(max_elems=2 ** 27), 2, 20000, 257, 3352, 20560000),
+])
+def test_card_operands_beside_a_binding_budget(kw, B, n, d, chunk, operands):
+    """Under a binding budget the chunk stays the reference's, and the
+    card's build holds the Gram kernels' operands beside it: 2·B·D·N4
+    floats of prescaled Z, not charged to max_elems (PlanBudget's
+    docstring).  Where the chunk is below 2·D rows they outweigh the
+    panel."""
+    from repro_torch.kernels import gram
+
+    budget = invariants.PlanBudget(**kw)
+    assert budget.row_chunk(B, n) == jinv.PlanBudget(**kw).row_chunk(B, n) \
+        == chunk
+    assert gram.prescale_elems(B, n, d) == operands
+    assert (operands > B * chunk * n) == (chunk < 2 * d)
+
+
 # ---------------------------------------------------------------------------
 # the row panel (the tiled kernel's plain version) and its dispatch
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("tile", [(8, 128), (16, 256)])
 def test_gram_rows_plain_matches_tiled_pallas_kernel(tile):
+    """A row panel of the port (rows 36-59 of a 60-row K) against the
+    reference's tiled Pallas kernel on the same rows."""
     rng = np.random.default_rng(11)
-    Zm = rng.normal(size=(24, 11)).astype(np.float32)
     Zn = rng.normal(size=(60, 11)).astype(np.float32)
     a = rng.uniform(0.1, 2.0, size=(11,)).astype(np.float32)
-    want = jgram.weighted_gram_tiled(jnp.asarray(Zm), jnp.asarray(a),
+    want = jgram.weighted_gram_tiled(jnp.asarray(Zn[36:]), jnp.asarray(a),
                                      jnp.asarray(Zn), tile=tile,
                                      interpret=True)
-    got = ops.weighted_gram_rows(T(Zm), T(a), T(Zn))
-    assert got.shape == (24, 60)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-5,
+    [(start, got)] = ops.weighted_gram_panels(T(Zn)[None], T(a)[None],
+                                              [36], 24)
+    assert start == 36 and got.shape == (1, 24, 60)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want), rtol=3e-5,
                                atol=3e-5)
 
 
@@ -137,23 +159,55 @@ def test_gram_rows_write_into_an_output_view():
     Z = T(rng.normal(size=(3, 40, 7)).astype(np.float32))
     a = T(rng.uniform(0.1, 2.0, size=(3, 7)).astype(np.float32))
     K = torch.full((3, 40, 40), float("nan"))
-    got = ops.weighted_gram_rows(Z[:, 16:24], a, Z, out=K[:, 16:24])
+    [(_, got)] = ops.weighted_gram_panels(Z, a, [16], 8, out=K)
     assert got.data_ptr() == K[:, 16:24].data_ptr()
     assert torch.equal(K[:, 16:24], ref.weighted_gram(Z, a)[:, 16:24])
     assert torch.isnan(K[:, :16]).all() and torch.isnan(K[:, 24:]).all()
 
 
-def test_weighted_gram_tile_and_shared_z():
-    """``tile`` leaves the plain result as it is; an ``a`` with an extra
-    leading (config) dim broadcasts Z up, as in the reference."""
+def test_weighted_gram_tile_and_shared_z(monkeypatch):
+    """An ``a`` with an extra leading (config) dim broadcasts Z up, as in
+    the reference.  The port's square build is held against the
+    reference's ``tile=(8, 128)`` build (its tiled Pallas kernel in
+    interpret mode), which is what a non-binding tile runs there."""
     rng = np.random.default_rng(13)
     Z = rng.normal(size=(2, 3, 20, 5)).astype(np.float32)
     a = rng.uniform(0.1, 2.0, size=(4, 2, 3, 5)).astype(np.float32)
-    got = ops.weighted_gram(T(Z), T(a), tile=(8, 128))
-    assert torch.equal(got, ops.weighted_gram(T(Z), T(a)))
-    want = np.asarray(jops.weighted_gram(jnp.asarray(Z), jnp.asarray(a)))
+    got = ops.weighted_gram(T(Z), T(a))
+    monkeypatch.setenv("REPRO_USE_PALLAS", "1")
+    want = np.asarray(jops.weighted_gram(jnp.asarray(Z), jnp.asarray(a),
+                                         tile=(8, 128)))
     assert got.shape == want.shape == (4, 2, 3, 20, 20)
     np.testing.assert_allclose(got.numpy(), want, rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("tile", [(64, 128), (256, 256)])
+def test_nonbinding_tile_builds_the_dense_invariants(tile, monkeypatch):
+    """A plan under a ``PlanBudget(tile=...)`` that does not bind builds K
+    with one square Gram call and no row panel: its invariants are the
+    dense plan's bitwise, and within rtol/atol 3e-5 of the reference's
+    plan, which builds that K with its tiled Pallas kernel (interpret
+    mode)."""
+    jprob, tprob = _problems()
+    V, T_, N = tprob.X.shape[:3]
+    budget = invariants.PlanBudget(tile=tile)
+    assert budget.row_chunk(V * T_, N) is None
+
+    def no_panels(*args, **kwargs):
+        raise AssertionError("a non-binding budget streamed row panels")
+
+    monkeypatch.setattr(ops, "weighted_gram_panels", no_panels)
+    tinvs = plan.compile_problem(tprob, budget=budget).inv
+    dense = plan.compile_problem(tprob).inv
+    monkeypatch.setenv("REPRO_USE_PALLAS", "1")
+    jinvs = jplan.compile_problem(jprob,
+                                  budget=jinv.PlanBudget(tile=tile)).inv
+    for name in jinv.PlanInvariants._fields:
+        t = getattr(tinvs, name)
+        np.testing.assert_allclose(t.numpy(), np.asarray(getattr(jinvs,
+                                                                 name)),
+                                   rtol=3e-5, atol=3e-5, err_msg=name)
+        assert torch.equal(t, getattr(dense, name)), name
 
 
 # ---------------------------------------------------------------------------
@@ -167,7 +221,7 @@ def test_streamed_gram_panel_is_the_dense_build(n, d):
     dense = ref.weighted_gram(Z, a)
     want_rs = dense.abs().sum(-1)
     for chunk in (8, 24, 100):
-        K, rs = invariants.streamed_gram_panel(Z, a, Z, chunk)
+        K, rs = invariants.streamed_gram_panel(Z, a, chunk)
         assert torch.equal(K, dense), chunk
         assert torch.equal(rs, want_rs), chunk
     L = invariants.streamed_lipschitz(Z, a)
