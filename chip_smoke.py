@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one GPU and check it.
 
-    python3 chip_smoke.py [--out FILE]
+    python3 chip_smoke.py [--out FILE] [--only large_fit|multi_mid]
 
 Runs from the root of a checkout, on a machine with one CUDA card, the
 CUDA toolkit and ninja; it builds the hand kernels itself into
@@ -23,7 +23,13 @@ any failure raises and exits non-zero:
    the QP kernels less than the plain solve moves lam from its warm
    start); the square K must be bitwise symmetric, a tiled panel must
    equal the same rows of the square kernel's K bitwise, and the
-   prescale the plain one exactly; in the large regime both Gram
+   prescale the plain one exactly; the bf16 multi solve is timed on K
+   converted to bf16 beforehand, as a bf16 plan holds it (the
+   conversion is timed as a record of its own), must give the same bits
+   from the f32 K the wrapper converts, and every multi solve the same
+   bits on a second launch (in the paper regime also its device time
+   replayed from a CUDA graph, without the host's launch cost); in the
+   large regime both Gram
    kernels must take at most twice their bound and the square one less
    time than its einsum (the panel's ratio to its einsum is printed);
 4. the main path: the quickstart (DTSVM and DSVM, V=10, T=2, N=60,
@@ -37,8 +43,10 @@ any failure raises and exits non-zero:
    kernel launch counts set to 0 just before each run's fits and read
    just after: each must equal what the config implies;
 5. the large fit (V=2, T=1, N=20000, p=256, 2 ADMM iterations of 10 QP
-   iterations, pallas_fused_multi in f32 and bf16) against the same fit
-   on the CPU; then the same f32 fit streamed under
+   iterations, pallas_fused_multi in f32 and bf16; each card fit run
+   FIT_REPS times, with the median, least and largest wall printed)
+   against the same fit on the CPU (once); then the same f32 fit
+   streamed under
    ``PlanBudget(max_elems=2**27)`` (K bitwise the dense K, state within
    the f32 tolerance of the dense card fit, a lower peak of device
    memory) and with ``qp_operator="factored"`` (no K, state within the
@@ -49,6 +57,13 @@ any failure raises and exits non-zero:
 6. a torch.profiler trace of each quickstart engine and of one budgeted
    run: device busy share and kernel launches;
 7. the ``kernels`` line, the card line, and the result line.
+
+``--only`` runs one part and prints no result line, to compare two
+trees' ``src/`` under one script (a copy of this file at each tree's
+root): ``large_fit`` phase 5's large fits, ``multi_mid`` the multi
+solve at N between the paper's and the large fit's (B in {2, 20, 300},
+N in {328, 329, 515, 1000}, 100 iterations with the fold), each against
+its plain version and timed.
 
 Without a CUDA device, or without the rest of the repository beside it,
 it exits non-zero and prints no result.
@@ -109,6 +124,18 @@ LARGE_BUDGET = 2 ** 27      # bench_scale's max_elems: 3352-row panels
 # the partial replan: the large fit's widths at two tasks per node
 REPLAN_FIT = dict(V=2, T=2, N=20000, p=256)
 FACTORED_PEAK_BYTES = 1.5e9
+# card fits of each large configuration: one fit's wall moves with host
+# noise by more than a kernel's gain, so the median of several is printed
+FIT_REPS = 5
+# the dense bf16 large fit's peak device memory when K was converted to
+# bf16 in every solve (PERF.md, section 5): the bf16 plan's K takes the
+# place of the solve's temporary, so its peak must stay within
+# PEAK_MARGIN_BYTES of that figure
+PER_SOLVE_CONVERSION_PEAK_BYTES = 6_518_774_272
+PEAK_MARGIN_BYTES = 0.1e9
+# --only multi_mid: the multi solve where K leaves a CTA's shared memory
+MID = dict(batches=(2, 20, 300), Ns=(328, 329, 515, 1000), D=11,
+           iters=100, reps=50)
 # panels: the tiled Gram kernel's rows [start, start + M): two 24-row
 # panels of N=60 that the diagonal crosses, and the large fit's last
 # (clamped) streamed panel, which starts inside a 128-row tile
@@ -148,6 +175,23 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn``'s launches, captured once in a CUDA
+    graph and replayed ``reps`` times: at the paper's sizes a kernel takes
+    less time than the host needs to launch it, so ``cuda_ms`` of the
+    wrapper measures the host."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
 
 
 def tflop_s(flops: float, ms: float) -> float:
@@ -223,6 +267,7 @@ def regime_inputs(name: str, dev):
 def check_kernels(dev) -> dict:
     from repro_torch.kernels import gram as gram_kernel
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import qp_step as qp_kernel
     from repro_torch.core import qp
 
     cases = {k: [] for k in KERNELS}
@@ -337,21 +382,40 @@ def check_kernels(dev) -> dict:
             raise AssertionError(f"qp_pg_step disagrees: {rec}")
         cases["qp_pg_step"].append(rec)
 
+        # a bf16 plan's K: converted once per plan (engine/plan.py), so
+        # the bf16 solve is timed on it; 4 + 2 bytes per element moved
+        K16 = K.to(torch.bfloat16)
+        b_ms, b_by = bound(6 * B * N * N, 0)
+        emit({"conversion": "K to bf16", **shape,
+              "ms": cuda_ms(lambda: K.to(torch.bfloat16), reps),
+              "bound_ms": b_ms, "bound_by": b_by})
+
         # the fused multi-iteration solve, f32 and bf16, with and without
-        # the zl fold
+        # the zl fold; bf16 on the converted K, and checked once more on
+        # the f32 K, which the wrapper converts (the same bits)
         for precision in ("f32", "bf16"):
+            Kp = K16 if precision == "bf16" else K
             for fold in (False, True):
                 Zf = Z if fold else None
-                run = lambda: ops.qp_pg_multi(lam0, K, q, hi, gamma,
+                run = lambda: ops.qp_pg_multi(lam0, Kp, q, hi, gamma,
                                               iters=iters, Z=Zf,
                                               precision=precision)
+                run_f32_k = lambda: ops.qp_pg_multi(lam0, K, q, hi, gamma,
+                                                    iters=iters, Z=Zf,
+                                                    precision=precision)
                 run_plain = lambda: ref.qp_pg_multi(
                     lam0, K, q, hi, gamma, iters=iters, Z=Zf,
                     precision=precision)
                 got, want = run(), run_plain()
+                repeat, from_f32_k = run(), run_f32_k()
                 torch.cuda.synchronize()
                 pairs = zip(got, want) if fold else [(got, want)]
                 errs = [max_err(g, w, RTOL[precision]) for g, w in pairs]
+                outs = lambda o: o if fold else (o,)
+                repeatable = all(torch.equal(a, b) for a, b in
+                                 zip(outs(got), outs(repeat)))
+                same_from_f32_k = all(torch.equal(a, b) for a, b in
+                                      zip(outs(got), outs(from_f32_k)))
                 lam_moved = moved(want[0] if fold else want, lam0, hi)
                 discriminates = RTOL[precision] * errs[0][1] < lam_moved
                 # K in the product's type, read from HBM once per
@@ -364,22 +428,34 @@ def check_kernels(dev) -> dict:
                                                 else 0)),
                     iters * (2 * B * N * N + 5 * B * N)
                     + (2 * B * N * D if fold else 0))
+                launch = qp_kernel.qp_multi_shape(B, N, precision=precision,
+                                                  fold=fold)
                 rec = dict(shape, precision=precision, fold=fold,
-                           iters=iters, max_abs_err=max(e[0] for e in errs),
+                           iters=iters, launch=launch,
+                           max_abs_err=max(e[0] for e in errs),
                            max_abs_plain=errs[0][1],
                            zl_max_abs_err=errs[1][0] if fold else None,
                            zl_max_abs_plain=errs[1][1] if fold else None,
                            rtol=RTOL[precision],
                            moved_from_warm_start=lam_moved,
+                           repeatable=repeatable,
+                           same_from_f32_K=same_from_f32_k,
                            ms=cuda_ms(run, max(reps // 2, 3)),
                            plain_ms=cuda_ms(run_plain, max(reps // 20, 2),
                                             warmup=1),
                            library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                if precision == "bf16":
+                    # the call with an f32 K, converted inside every
+                    # solve (a direct caller's)
+                    rec["ms_f32_K"] = cuda_ms(run_f32_k, max(reps // 2, 3))
+                if regime == "paper":
+                    rec["graph_ms"] = graph_ms(run, reps)
                 emit({"kernel_check": "qp_pg_multi", **rec})
-                if not (discriminates and all(e[2] for e in errs)):
+                if not (discriminates and all(e[2] for e in errs)
+                        and repeatable and same_from_f32_k):
                     raise AssertionError(f"qp_pg_multi disagrees: {rec}")
                 cases["qp_pg_multi"].append(rec)
-        del K
+        del K, K16
         torch.cuda.empty_cache()
     return cases
 
@@ -468,9 +544,10 @@ def main_path(by_path: dict) -> None:
 
 
 def _fit_on_card(cfg, X, y, adj, by_path, path):
-    """One DTSVM fit through the API on the card, its launches counted
-    from 0 just before and read just after.  Returns (state, wall s, peak
-    device bytes)."""
+    """FIT_REPS DTSVM fits through the API on the card, their launches
+    counted from 0 just before the first and read just after the last.
+    Returns (the last fit's state, the fits' wall seconds, peak device
+    bytes over them)."""
     from repro_torch.api import DTSVM
     from repro_torch.kernels import ops
 
@@ -478,12 +555,19 @@ def _fit_on_card(cfg, X, y, adj, by_path, path):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    st = DTSVM(cfg, device="cuda").fit(X, y, adj=adj).state_
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
+    fit_s = []
+    for _ in range(FIT_REPS):
+        t0 = time.perf_counter()
+        st = DTSVM(cfg, device="cuda").fit(X, y, adj=adj).state_
+        torch.cuda.synchronize()
+        fit_s.append(time.perf_counter() - t0)
     by_path[path] = ops.launch_counts()
     return st, fit_s, torch.cuda.max_memory_allocated()
+
+
+def _walls(fit_s) -> dict:
+    return {"fit_s": fit_s, "fit_s_median": float(np.median(fit_s)),
+            "fit_s_min": min(fit_s), "fit_s_max": max(fit_s)}
 
 
 def _state_errs(got, want, rtol):
@@ -510,7 +594,7 @@ def large_fit(by_path: dict) -> None:
     base = SolverConfig(C=0.01, iters=LARGE_FIT["iters"],
                         qp_iters=LARGE_FIT["qp_iters"],
                         qp_solver="pallas_fused_multi")
-    expect = dict(fits=1, iters=LARGE_FIT["iters"],
+    expect = dict(fits=FIT_REPS, iters=LARGE_FIT["iters"],
                   qp_iters=LARGE_FIT["qp_iters"])
     dense = {}
     for precision in ("f32", "bf16"):
@@ -521,8 +605,12 @@ def large_fit(by_path: dict) -> None:
         finite = all(bool(torch.isfinite(t).all()) for t in st)
         cpu = DTSVM(cfg, device="cpu").fit(X, y, adj=adj).state_
         errs = _state_errs(st, cpu, RTOL_FIT[precision])
-        emit({"large_fit": precision, **LARGE_FIT, "fit_s": fit_s,
-              "peak_mem_bytes": peak, "finite": finite,
+        conversion = ({"per_solve_conversion_peak_mem_bytes":
+                       PER_SOLVE_CONVERSION_PEAK_BYTES}
+                      if precision == "bf16" else {})
+        emit({"large_fit": precision, **LARGE_FIT, **_walls(fit_s),
+              "peak_mem_bytes": peak, **conversion,
+              "finite": finite,
               "vs_cpu_max_abs_err": {k: e[0] for k, e in errs.items()},
               "cpu_max_abs": {k: e[1] for k, e in errs.items()},
               "rtol": RTOL_FIT[precision]})
@@ -533,6 +621,11 @@ def large_fit(by_path: dict) -> None:
         if not all(e[2] for e in errs.values()):
             raise AssertionError(f"large fit on the card differs from the "
                                  f"CPU: {errs}")
+        if conversion and not (abs(peak - PER_SOLVE_CONVERSION_PEAK_BYTES)
+                               <= PEAK_MARGIN_BYTES):
+            raise AssertionError(f"the bf16 fit peaked at {peak} bytes, not "
+                                 f"within {PEAK_MARGIN_BYTES} of "
+                                 f"{PER_SOLVE_CONVERSION_PEAK_BYTES}")
         del cpu
 
     # the large-n path: streamed and factored, against the dense card fit
@@ -558,7 +651,7 @@ def large_fit(by_path: dict) -> None:
         limit = peak_dense if label == "budget" else FACTORED_PEAK_BYTES
         emit({"large_fit": f"f32/{label}", **LARGE_FIT,
               "max_elems": LARGE_BUDGET, "row_chunk": chunk,
-              "panels": panels, "fit_s": fit_s, "peak_mem_bytes": peak,
+              "panels": panels, **_walls(fit_s), "peak_mem_bytes": peak,
               "peak_limit_bytes": limit,
               "dense_peak_mem_bytes": peak_dense,
               "vs_dense_cuda_max_abs_err": {k: e[0] for k, e in
@@ -672,6 +765,52 @@ def large_replan(by_path: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def multi_mid(dev) -> None:
+    """``--only multi_mid``: the multi solve with the fold, f32 and on a
+    bf16 K, at MID's shapes, each against its plain version (the phase 3
+    tolerance) and timed on CUDA events."""
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(0)
+    for B in MID["batches"]:
+        for N in MID["Ns"]:
+            Z = torch.from_numpy(rng.normal(size=(B, N, MID["D"]))
+                                 .astype(np.float32)).to(dev)
+            a = torch.from_numpy(rng.uniform(0.05, 0.5, size=(B, MID["D"]))
+                                 .astype(np.float32)).to(dev)
+            hi = torch.full((B, N), 0.02, device=dev)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            q = 1.0 + 0.1 * torch.randn(hi.shape, generator=gen, device=dev)
+            lam0 = hi * torch.rand(hi.shape, generator=gen, device=dev)
+            K = ops.weighted_gram(Z, a)
+            gamma = 1.0 / K.abs().sum(-1).amax(-1)
+            for precision in ("f32", "bf16"):
+                Kp = K.to(torch.bfloat16) if precision == "bf16" else K
+                run = lambda: ops.qp_pg_multi(lam0, Kp, q, hi, gamma,
+                                              iters=MID["iters"], Z=Z,
+                                              precision=precision)
+                got = run()
+                want = ref.qp_pg_multi(lam0, K, q, hi, gamma,
+                                       iters=MID["iters"], Z=Z,
+                                       precision=precision)
+                torch.cuda.synchronize()
+                errs = [max_err(g, w, RTOL[precision])
+                        for g, w in zip(got, want)]
+                lam_moved = moved(want[0], lam0, hi)
+                rec = {"multi_mid": precision, "B": B, "N": N,
+                       "iters": MID["iters"],
+                       "max_abs_err": max(e[0] for e in errs),
+                       "max_abs_plain": errs[0][1],
+                       "moved_from_warm_start": lam_moved,
+                       "ms": cuda_ms(run, MID["reps"])}
+                emit(rec)
+                if not (all(e[2] for e in errs)
+                        and RTOL[precision] * errs[0][1] < lam_moved):
+                    raise AssertionError(f"qp_pg_multi disagrees: {rec}")
+            del K, Kp
+    torch.cuda.empty_cache()
+
+
 def profile_engines() -> dict:
     """Trace each quickstart engine and the 8-row budgeted run; returns
     the launches of each hand kernel the profiler saw over all of them."""
@@ -733,10 +872,19 @@ def nvidia_smi() -> str:
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def write_records(out) -> None:
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(RECORDS, f, indent=1)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every record to this JSON file")
+    ap.add_argument("--only", choices=("large_fit", "multi_mid"),
+                    help="run only this part, and print no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -754,6 +902,14 @@ def main() -> int:
     emit({"card": name, "power_limit": limit,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device_count": torch.cuda.device_count()})
+
+    if args.only:
+        if args.only == "large_fit":
+            large_fit({})
+        else:
+            multi_mid(dev)
+        write_records(args.out)
+        return 0
 
     ext = build.extension()
     info = [{"kernel": k, "registers": r, "static_shared_bytes": s,
@@ -792,11 +948,7 @@ def main() -> int:
             "bound_ms": large["bound_ms"], "bound_by": large["bound_by"],
             "library_ms": large["library_ms"], "cases": cases[kname]})
     emit({"kernels": kernels})
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(RECORDS, f, indent=1)
+    write_records(args.out)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

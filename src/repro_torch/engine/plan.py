@@ -8,6 +8,13 @@ dual solve with the chosen engine (``qp_engines``), zl = Z^T lam and the
 primal/multiplier updates.  The reference's ``lax.scan`` is a Python
 loop here.  ``Plan.replan`` is the incremental path for membership
 changes: it rebuilds only the invariants they touch.
+
+A plan with ``qp_precision="bf16"`` and a materialized K converts K to
+bf16 once, when it is built, and hands that K to every solve
+(``Plan.solve_K``); the invariants keep the f32 K.  The reference
+converts in every solve: the same bits, since K is fixed for the plan's
+life.  The plan holds 2·V·T·N² bytes more between solves, and no solve
+makes a K-sized temporary.
 """
 from __future__ import annotations
 
@@ -100,6 +107,11 @@ class Plan:
         self.qp_precision = qp_precision
         self.qp_operator = qp_operator
         self.budget = budget
+        #: the K the dual solve reads: inv.K, or in bf16 mode inv.K
+        #: converted once for the plan's life
+        self.solve_K = (inv.K.to(torch.bfloat16)
+                        if qp_precision == "bf16" and inv.K is not None
+                        else inv.K)
         V, T = prob.X.shape[:2]
         self.stats = stats if stats is not None else {
             "gram_slices_computed": V * T,
@@ -112,7 +124,8 @@ class Plan:
 
     def step(self, state: core.DTSVMState) -> core.DTSVMState:
         """One ADMM iteration on the precomputed invariants."""
-        return plan_step(self.prob, self.inv, state, qp_iters=self.qp_iters,
+        inv = self.inv._replace(K=self.solve_K)
+        return plan_step(self.prob, inv, state, qp_iters=self.qp_iters,
                          qp_solver=self.qp_solver,
                          qp_precision=self.qp_precision,
                          qp_operator=self.qp_operator)
@@ -165,7 +178,8 @@ def compile_problem(prob: core.DTSVMProblem, cfg=None, *,
     ``qp_precision`` / ``qp_operator`` / ``budget`` attributes (e.g. a
     ``SolverConfig``); explicit keywords override it.  ``"bf16"``
     precision needs an engine with the ``supports_precision`` capability
-    (``"pallas_fused_multi"``).  ``qp_operator="factored"`` builds no K
+    (``"pallas_fused_multi"``); the plan converts K to bf16 once
+    (``Plan.solve_K``).  ``qp_operator="factored"`` builds no K
     (``K=None``; L streams through discarded row panels) and needs
     ``qp_solver="pallas_fused_multi"`` and f32.  ``budget`` streams the
     K build through bounded row panels (the large-n path).

@@ -37,14 +37,16 @@ cudaError_t repro_qp_step_launch(const float* K, const float* lam,
                                  cudaStream_t stream);
 cudaError_t repro_qp_step_attributes(int which, cudaFuncAttributes* attr,
                                      const char** name);
-cudaError_t repro_qp_multi_grid(int k_bf16, int fold, int B, int N,
-                                int* blocks);
+cudaError_t repro_qp_multi_shape(int k_bf16, int fold, int B, int N,
+                                 int* path, int* blocks, int* slots,
+                                 int* smem);
 cudaError_t repro_qp_multi_launch(int k_bf16, int fold, const void* K,
                                   const float* lam0, const float* q,
                                   const float* hi, const float* gamma,
                                   const float* Z, float* lam_out, float* zl,
                                   float* buf, float* partial, int B, int N,
-                                  int D, int iters, int grid_blocks,
+                                  int D, int iters, int path, int blocks,
+                                  int slots, int smem,
                                   cudaStream_t stream);
 cudaError_t repro_qp_multi_attributes(int which, cudaFuncAttributes* attr,
                                       const char** name);
@@ -209,13 +211,15 @@ std::vector<torch::Tensor> qp_pg_multi(torch::Tensor lam0, torch::Tensor K,
   }
   const int k_bf16 = K.scalar_type() == at::kBFloat16;
   const c10::cuda::CUDAGuard guard(lam0.device());
-  int blocks = 0;
-  C10_CUDA_CHECK(repro_qp_multi_grid(k_bf16, fold, as_int(B, "B"),
-                                     as_int(N, "N"), &blocks));
+  int path = 0, blocks = 0, slots = 0, smem = 0;
+  C10_CUDA_CHECK(repro_qp_multi_shape(k_bf16, fold, as_int(B, "B"),
+                                      as_int(N, "N"), &path, &blocks,
+                                      &slots, &smem));
+  const bool grid = path == 1;
   auto lam = torch::empty_like(lam0);
   auto zl = torch::empty({fold ? B : 0, D}, lam0.options());
-  auto buf = torch::empty({blocks ? 2 * B * N : 0}, lam0.options());
-  auto partial = torch::empty({fold && blocks ? B * blocks * D : 0},
+  auto buf = torch::empty({grid ? 2 * B * N : 0}, lam0.options());
+  auto partial = torch::empty({fold && grid ? blocks * slots * D : 0},
                               lam0.options());
   C10_CUDA_CHECK(repro_qp_multi_launch(
       k_bf16, fold, K.data_ptr(), lam0.data_ptr<float>(), q.data_ptr<float>(),
@@ -223,10 +227,23 @@ std::vector<torch::Tensor> qp_pg_multi(torch::Tensor lam0, torch::Tensor K,
       fold ? Z->data_ptr<float>() : nullptr, lam.data_ptr<float>(),
       fold ? zl.data_ptr<float>() : nullptr, buf.data_ptr<float>(),
       partial.data_ptr<float>(), as_int(B, "B"), as_int(N, "N"),
-      as_int(D, "D"), as_int(iters, "iters"), blocks,
-      c10::cuda::getCurrentCUDAStream()));
+      as_int(D, "D"), as_int(iters, "iters"), path, blocks, slots,
+      smem, c10::cuda::getCurrentCUDAStream()));
   if (fold) return {lam, zl};
   return {lam};
+}
+
+// The multi solve's launch on the current device for B problems of N rows:
+// (path: 0 one CTA per problem with K in shared memory, 1 the cooperative
+// grid; CTAs; the most problems one CTA's rows touch; dynamic shared bytes
+// per CTA)
+std::tuple<int, int, int, int> qp_multi_shape(bool k_bf16, bool fold,
+                                              int64_t B, int64_t N) {
+  int path = 0, blocks = 0, slots = 0, smem = 0;
+  C10_CUDA_CHECK(repro_qp_multi_shape(k_bf16, fold, as_int(B, "B"),
+                                      as_int(N, "N"), &path, &blocks,
+                                      &slots, &smem));
+  return {path, blocks, slots, smem};
 }
 
 // Registers, shared and local (spill) memory of every kernel instance, as
@@ -269,6 +286,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         pybind11::arg("lam0"), pybind11::arg("K"), pybind11::arg("q"),
         pybind11::arg("hi"), pybind11::arg("gamma"), pybind11::arg("Z"),
         pybind11::arg("iters"));
+  m.def("qp_multi_shape", &qp_multi_shape,
+        "(path, CTAs, problems per CTA, dynamic shared bytes) of the multi "
+        "solve's launch");
   m.def("kernel_info", &kernel_info,
         "(name, registers, static shared bytes, local bytes, max threads)");
 }

@@ -3,10 +3,11 @@
 // One warp owns kRows consecutive rows of one problem's K: its 32 lanes
 // stride over the columns, so each K row is read once, coalesced, and
 // each iterate value a lane loads serves kRows rows.  Rows past the edge
-// re-read the last row and are never written.
+// re-read the last row and are never written.  The step kernel's
+// row_group_matvec reads K and the iterate a value a lane; qp_multi.cu
+// shares the row groups, the warp and lane sums and the update.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace repro_qp {
@@ -15,44 +16,32 @@ constexpr int kRows = 4;     // rows per warp
 constexpr int kWarps = 8;    // warps per block
 constexpr int kThreads = kWarps * 32;
 
-__device__ __forceinline__ float load_k(const float* p) { return *p; }
-__device__ __forceinline__ float load_k(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-// The iterate as the product sees it: f32 as is; with bf16 K it is
-// rounded to bf16 too, so each product of two bf16 values is exact in f32
-// and only the f32 sum rounds.
-__device__ __forceinline__ float iterate_operand(float l, const float*) {
-  return l;
-}
-__device__ __forceinline__ float iterate_operand(float l,
-                                                 const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(l));
+// acc[k] summed across the warp, so every lane holds the row's total.
+__device__ __forceinline__ void warp_sum(float (&acc)[kRows]) {
+#pragma unroll
+  for (int k = 0; k < kRows; ++k)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
 }
 
 // acc[k] = sum_c K[r0 + k, c] * lam[c] for k < kRows, on every lane.
-template <typename KT>
-__device__ __forceinline__ void row_group_matvec(const KT* __restrict__ Kb,
+__device__ __forceinline__ void row_group_matvec(const float* __restrict__ Kb,
                                                  const float* lam, int N,
-                                                 int r0, float acc[kRows]) {
+                                                 int r0, float (&acc)[kRows]) {
   const int lane = threadIdx.x % 32;
-  const KT* rows[kRows];
+  const float* rows[kRows];
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
     acc[k] = 0.f;
     rows[k] = Kb + (size_t)min(r0 + k, N - 1) * N;
   }
   for (int c = lane; c < N; c += 32) {
-    const float l = iterate_operand(lam[c], Kb);
+    const float l = lam[c];
 #pragma unroll
-    for (int k = 0; k < kRows; ++k) acc[k] = fmaf(load_k(rows[k] + c), l, acc[k]);
+    for (int k = 0; k < kRows; ++k) acc[k] = fmaf(rows[k][c], l, acc[k]);
   }
-#pragma unroll
-  for (int k = 0; k < kRows; ++k)
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+  warp_sum(acc);
 }
 
 // The row this lane writes (lane k < kRows owns row r0 + k) and its Klam.

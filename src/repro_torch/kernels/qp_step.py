@@ -22,6 +22,8 @@ from repro_torch.kernels import build
 
 #: launches of each kernel, counted where the wrapper launches it
 COUNTS = {"qp_pg_step": 0, "qp_pg_multi": 0}
+#: the multi solve's launch paths, by the number ``csrc/qp_multi.cu`` gives
+MULTI_PATHS = ("block", "grid")
 
 
 def _check_cuda_f32(**tensors):
@@ -51,7 +53,8 @@ def qp_pg_multi(lam0: torch.Tensor, K: torch.Tensor, q: torch.Tensor,
     """The fused multi-iteration PG solve on the card.  lam0/q/hi:
     (B, N), K: (B, N, N), gamma: (B,), optional Z: (B, N, D).  Returns
     lam (B, N), or ``(lam, zl (B, D))`` with ``Z``.  ``precision="bf16"``
-    converts K to bf16 here (a bf16 K is taken as it is)."""
+    converts an f32 K to bf16 here, on every call; a bf16 K (a ``Plan``'s,
+    converted once) is taken as it is."""
     if precision not in ("f32", "bf16"):
         raise ValueError(f"unknown precision {precision!r}")
     _check_cuda_f32(lam0=lam0, q=q, hi=hi, gamma=gamma,
@@ -69,3 +72,14 @@ def qp_pg_multi(lam0: torch.Tensor, K: torch.Tensor, q: torch.Tensor,
                           None if Z is None else Z.contiguous(), int(iters))
     COUNTS["qp_pg_multi"] += 1
     return out[0] if Z is None else (out[0], out[1])
+
+
+def qp_multi_shape(B: int, N: int, *, precision: str = "f32",
+                   fold: bool = False) -> dict:
+    """How ``qp_pg_multi`` launches for B problems of N rows on the
+    current card: its path (``MULTI_PATHS``), CTAs, the most problems
+    one CTA's rows touch and dynamic shared bytes per CTA."""
+    path, blocks, per_cta, smem = build.extension().qp_multi_shape(
+        precision == "bf16", fold, B, N)
+    return {"path": MULTI_PATHS[path], "blocks": blocks,
+            "problems_per_cta": per_cta, "smem_bytes": smem}

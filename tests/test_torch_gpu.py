@@ -16,8 +16,11 @@ shapes cross the 128-row CTA tile and the 16-feature stage (N in
 {1, 127, 128, 129, 300}, D in {1, 11, 16, 17, 257}).  The square K is
 held bitwise symmetric, the tiled Gram kernel bitwise to the square
 kernel's rows (each element in the roles the square kernel gives it),
-and a budgeted fit to the dense fit.  Every binding refuses a CPU
-tensor, an operand of another N and a float64 operand with ValueError.
+and a budgeted fit to the dense fit.  The multi kernel is held on each
+of its launch paths, bitwise to a second launch and to itself on a K
+converted to bf16 beforehand, and with its iterate staged in chunks
+(N = 26000 f32, 51300 bf16).  Every binding refuses a CPU tensor, an
+operand of another N and a float64 operand with ValueError.
 """
 import numpy as np
 import pytest
@@ -174,6 +177,113 @@ def test_qp_multi_kernel_matches_plain(cuda, batch, n, iters, precision,
                            precision=precision)
     for g, w in (zip(got, want) if fold else [(got, want)]):
         _close(g, w, REL[precision])
+
+
+def _qp_inputs_on_card(dev, B, n, seed):
+    """_qp_inputs' operands made on the card, for N too large to build K
+    on the host."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Z = torch.randn(B, n, 5, generator=gen, device=dev)
+    a = 0.1 + 1.9 * torch.rand(B, 5, generator=gen, device=dev)
+    K = torch.einsum("bnd,bd,bmd->bnm", Z, a, Z)
+    q = 1.0 + 0.3 * torch.randn(B, n, generator=gen, device=dev)
+    hi = torch.full((B, n), 0.2, device=dev)
+    hi[:, n - n // 4:] = 0.0
+    lam0 = -0.1 + 0.4 * torch.rand(B, n, generator=gen, device=dev)
+    gamma = 1.0 / K.abs().sum(-1).amax(-1).clamp_min(1e-12)
+    return K, q, hi, lam0, gamma
+
+
+# (precision, batch, n, path): each launch path of the multi kernel, and
+# N at and just above the largest whose K fits in an H100 CTA's 227 KB of
+# shared memory beside the iterates (232 f32, 328 bf16), above which the
+# grid takes it; rows of N = 233, 329, 515 and 1025 are not on 16 bytes
+# (element path), those of 244, 344 and 3000 are (16-byte loads); 300
+# problems are more than an H100's resident CTAs, so a CTA's row groups
+# span problems
+MULTI_PATHS = [("f32", (20,), 60, "block"),
+               ("f32", (2,), 232, "block"),
+               ("f32", (2,), 233, "grid"),
+               ("f32", (2,), 244, "grid"),
+               ("f32", (2,), 515, "grid"),
+               ("f32", (2,), 1025, "grid"),
+               ("f32", (3,), 3000, "grid"),
+               ("f32", (300,), 329, "grid"),
+               ("bf16", (20,), 60, "block"),
+               ("bf16", (2,), 328, "block"),
+               ("bf16", (2,), 329, "grid"),
+               ("bf16", (2,), 344, "grid"),
+               ("bf16", (2,), 515, "grid"),
+               ("bf16", (2,), 1025, "grid"),
+               ("bf16", (3,), 3000, "grid"),
+               ("bf16", (300,), 515, "grid")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("precision,batch,n,path", MULTI_PATHS)
+def test_qp_multi_kernel_is_repeatable_on_every_path(cuda, precision, batch,
+                                                     n, path, fold):
+    """Each launch path, against the plain version; two launches on the
+    same inputs are torch.equal (no atomics; fixed sums), and a K
+    converted to bf16 beforehand gives the bits of an f32 K with
+    precision="bf16"."""
+    from repro_torch.kernels import qp_step as qp_kernel
+
+    shape = qp_kernel.qp_multi_shape(batch[0], n, precision=precision,
+                                     fold=fold)
+    assert shape["path"] == path
+    if path == "grid" and batch[0] > shape["blocks"]:
+        assert shape["problems_per_cta"] >= 2
+    rng = np.random.default_rng(n + 7)
+    K, q, hi, lam0, gamma = _qp_inputs(rng, batch, n)
+    Z = rng.normal(size=batch + (n, 9)).astype(np.float32) if fold else None
+    K, q, hi, lam0, gamma, Z = _on(cuda, K, q, hi, lam0, gamma, Z)
+    Kp = K.to(torch.bfloat16) if precision == "bf16" else K
+    run = lambda K_: ops.qp_pg_multi(lam0, K_, q, hi, gamma, iters=6, Z=Z,
+                                     precision=precision)
+    first, second, pre = run(K), run(K), run(Kp)
+    want = ref.qp_pg_multi(lam0, K, q, hi, gamma, iters=6, Z=Z,
+                           precision=precision)
+    torch.cuda.synchronize()
+    pairs = zip(first, want) if fold else [(first, want)]
+    for g, w in pairs:
+        _close(g, w, REL[precision])
+    for a, b in ((first, second), (first, pre)):
+        for x, y in (zip(a, b) if fold else [(a, b)]):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision,n", [("f32", 26000), ("bf16", 51300)])
+def test_qp_multi_grid_stages_the_iterate_in_chunks(cuda, precision, n):
+    """An iterate larger than one CTA's staging (25600 f32 / 51200 bf16
+    entries) is staged in column chunks; 51300 bf16 rows are not on 16
+    bytes, so the chunks take the element path.  K is made on the card
+    (2.7 GB f32 / 5.3 GB bf16) and converted before the launch."""
+    from repro_torch.kernels import qp_step as qp_kernel
+
+    shape = qp_kernel.qp_multi_shape(1, n, precision=precision, fold=True)
+    assert shape["path"] == "grid"
+    K, q, hi, lam0, gamma = _qp_inputs_on_card(cuda, 1, n, seed=n)
+    if precision == "bf16":
+        K = K.to(torch.bfloat16)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    Z = torch.randn(1, n, 9, generator=gen, device=cuda)
+    got = ops.qp_pg_multi(lam0, K, q, hi, gamma, iters=3, Z=Z,
+                          precision=precision)
+    again = ops.qp_pg_multi(lam0, K, q, hi, gamma, iters=3, Z=Z,
+                            precision=precision)
+    want = ref.qp_pg_multi(lam0, K, q, hi, gamma, iters=3, Z=Z,
+                           precision=precision)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        _close(g, w, REL[precision])
+        assert torch.equal(g, a)
+    if precision == "f32":      # the f32 limit is below how far lam moved
+        moved = float((want[0] - torch.minimum(lam0.clamp_min(0.0), hi))
+                      .abs().max())
+        assert REL["f32"] * float(want[0].abs().max()) < moved
 
 
 @pytest.mark.gpu
