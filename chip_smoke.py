@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one GPU and check it.
 
-    python3 chip_smoke.py [--out FILE] [--only large_fit|multi_mid]
+    python3 chip_smoke.py [--out FILE] [--only large_fit|multi_mid|figures]
 
 Runs from the root of a checkout, on a machine with one CUDA card, the
 CUDA toolkit and ninja; it builds the hand kernels itself into
@@ -56,14 +56,36 @@ any failure raises and exits non-zero:
    printed and the rebuilt slices ``torch.equal`` to a fresh build;
 6. a torch.profiler trace of each quickstart engine and of one budgeted
    run: device busy share and kernel launches;
-7. the ``kernels`` line, the card line, and the result line.
+7. the paper's figures through ``repro_torch.figures``: the five golden
+   regimes of ``tests/golden/fig{2..6}.json`` (within the fixtures'
+   ATOL = 0.015), then each figure once at its paper regime (the widths
+   of the reference's ``run(fast=False)``, seed 0; Fig. 2 per network
+   with ``fista`` and ``pallas_fused_multi``), each run on the card and
+   on the CPU (every network-average risk within one test sample,
+   1/n_test), its launches counted from 0 just before the card run and
+   read just after (one square Gram build per fit, sweep and CSVM fit;
+   one multi launch per ADMM iteration of a ``pallas_fused_multi`` fit
+   or sweep), with its wall and its derived metric (e.g. Fig. 2's
+   target-task transfer gain); then Fig. 3's paper grid (16 configs)
+   as one sweep and as the serial loop of its 16 fits, per engine, with
+   both walls, both launch counts, their risks within 1/n_test, the
+   sweep's final states within 1e-4 of each leaf's largest magnitude of
+   the same sweep on the CPU (its risks within 1/n_test), and a profiler
+   trace of each sweep; the kernels at these paths' own operands, each
+   against its plain version as in phase 3: the square Gram kernel at
+   the sweep's build (one Z shared by 16 configs' a, S*V*T = 320
+   problems, and bitwise the K the sweep kept) and at CSVM's pooled
+   build (one a over T = 2 tasks of V*N = 400 rows), the multi solve at
+   the operands of the sweep's second ADMM iteration (320 problems, the
+   shared Z folded in);
+8. the ``kernels`` line, the card line, and the result line.
 
 ``--only`` runs one part and prints no result line, to compare two
 trees' ``src/`` under one script (a copy of this file at each tree's
 root): ``large_fit`` phase 5's large fits, ``multi_mid`` the multi
 solve at N between the paper's and the large fit's (B in {2, 20, 300},
 N in {328, 329, 515, 1000}, 100 iterations with the fold), each against
-its plain version and timed.
+its plain version and timed, ``figures`` phase 7.
 
 Without a CUDA device, or without the rest of the repository beside it,
 it exits non-zero and prints no result.
@@ -71,6 +93,7 @@ it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -152,6 +175,12 @@ RTOL = {"f32": 3e-5, "bf16": 1e-2}
 # each state leaf's largest magnitude: besides the kernels, two ADMM
 # iterations of cuBLAS products stand against the CPU's
 RTOL_FIT = {"f32": 1e-4, "bf16": 1e-2}
+
+# the figures phase: Fig. 2 (and the sweep against its serial loop) on
+# these engines; a golden regime within the fixtures' ATOL
+# (tests/test_golden_figures.py)
+FIG2_ENGINES = ("fista", "pallas_fused_multi")
+GOLDEN_ATOL = 0.015
 
 RECORDS = []
 
@@ -811,57 +840,396 @@ def multi_mid(dev) -> None:
     torch.cuda.empty_cache()
 
 
-def profile_engines() -> dict:
-    """Trace each quickstart engine and the 8-row budgeted run; returns
-    the launches of each hand kernel the profiler saw over all of them."""
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch import quickstart
-    from repro_torch.engine.invariants import PlanBudget
-
-    ours = {"weighted_gram": "gram_kernel",
+#: the hand kernels by a fragment of their device names, as the profiler
+#: lists them
+PROFILED = {"weighted_gram": "gram_kernel",
             "weighted_gram_tiled": "gram_tiled_kernel",
             "gram_prescale": "gram_prescale_kernel",
             "qp_pg_step": "qp_step_kernel", "qp_pg_multi": "qp_multi_"}
-    seen = {k: 0 for k in ours}
+
+
+def _profile(label: str, fn) -> dict:
+    """Trace one call of ``fn`` with torch.profiler: print its device busy
+    share and launches; return the launches of each hand kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, launches = 0.0, 0
+    per_kernel = {k: 0 for k in PROFILED}
+    top = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        busy_us += dev_us
+        launches += ev.count
+        top.append((dev_us, ev.key[:80], ev.count))
+        for k, frag in PROFILED.items():
+            if frag in ev.key:
+                per_kernel[k] += ev.count
+    top.sort(reverse=True)
+    emit({"profile": label, "traced_wall_s": wall,
+          "device_busy_s": busy_us / 1e6,
+          "device_busy_share": busy_us / 1e6 / wall,
+          "device_launches": launches, "our_kernels": per_kernel,
+          "top": [{"name": n, "calls": c, "device_ms": t / 1e3}
+                  for t, n, c in top[:5]]})
+    return per_kernel
+
+
+def profile_engines(seen: dict) -> None:
+    """Trace each quickstart engine and the 8-row budgeted run; adds the
+    launches of each hand kernel the profiler saw to ``seen``."""
+    from repro_torch import quickstart
+    from repro_torch.engine.invariants import PlanBudget
+
     label, tile, _ = BUDGET_RUNS[0]
     runs = ENGINE_RUNS + [(label, {"qp_solver": "pallas_fused_multi",
                                    "budget": PlanBudget(tile=tile)})]
     for label, kw in runs:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            quickstart.main(device="cuda", **kw)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        busy_us, launches, per_kernel = 0.0, 0, {k: 0 for k in ours}
-        top = []
-        for ev in prof.key_averages():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = ev.self_cuda_time_total
-            busy_us += dev_us
-            launches += ev.count
-            top.append((dev_us, ev.key[:80], ev.count))
-            for k, frag in ours.items():
-                if frag in ev.key:
-                    per_kernel[k] += ev.count
-        for k in ours:
+        per_kernel = _profile(label, lambda: quickstart.main(device="cuda",
+                                                             **kw))
+        for k in seen:
             seen[k] += per_kernel[k]
-        top.sort(reverse=True)
-        rec = {"profile": label, "traced_wall_s": wall,
-               "device_busy_s": busy_us / 1e6,
-               "device_busy_share": busy_us / 1e6 / wall,
-               "device_launches": launches, "our_kernels": per_kernel,
-               "top": [{"name": n, "calls": c, "device_ms": t / 1e3}
-                       for t, n, c in top[:5]]}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the paper's figures
+# ---------------------------------------------------------------------------
+def fixture(name: str) -> dict:
+    with open(os.path.join(ROOT, "tests", "golden", f"{name}.json")) as f:
+        return json.load(f)
+
+
+def figure_launches(name: str, regime: dict) -> dict:
+    """The launches a figure's runner must make at ``regime``: a square
+    Gram build (and its prescale) per fit, per sweep and per CSVM fit
+    (every task in one); per ADMM iteration of a fit or a sweep one multi
+    launch with ``pallas_fused_multi``, ``qp_iters`` step launches with
+    ``pallas_fused``, none with ``fista``."""
+    # (fits, sweeps, CSVM fits) per seed, and for Fig. 5 per scenario
+    fits, sweeps, csvms = {"fig2": (2, 0, 1), "fig3": (0, 1, 1),
+                           "fig4": (0, 1, 0), "fig5": (0, 1, 1),
+                           "fig6": (0, 1, 0)}[name]
+    reps = len(regime["seeds"]) * len(regime.get("pos_fracs", [0]))
+    loops = reps * (fits + sweeps) * regime["iters"]
+    solver = regime.get("qp_solver", "fista")
+    builds = reps * (fits + sweeps + csvms)
+    return {"weighted_gram": builds, "weighted_gram_tiled": 0,
+            "gram_prescale": builds,
+            "qp_pg_step": (loops * regime.get("qp_iters", 100)
+                           if solver == "pallas_fused" else 0),
+            "qp_pg_multi": loops if solver == "pallas_fused_multi" else 0}
+
+
+def network_averages(name: str, out: dict) -> dict:
+    """A figure's outputs as network-average risks: Fig. 6's per-node
+    risks averaged over the nodes; every other output is one already."""
+    if name == "fig6":
+        return {k: np.asarray(v).mean(-1) for k, v in out.items()}
+    return {k: np.asarray(v, np.float64) for k, v in out.items()}
+
+
+def derived(name: str, out: dict) -> dict:
+    """The figure's claim as numbers (its benchmark's ``emit`` line)."""
+    if name == "fig2":
+        t, d = out["dtsvm_curve"][-1], out["dsvm_curve"][-1]
+        return {"dtsvm_t1": float(t[0]), "dsvm_t1": float(d[0]),
+                "csvm_t1": float(out["csvm"][0]),
+                "transfer_gain": float(d[0] - t[0])}
+    if name in ("fig3", "fig4"):
+        t1 = {tuple(row[:2]): row[2] for row in out["grid"]}
+        best, worst = min(t1, key=t1.get), max(t1, key=t1.get)
+        rec = {"best": list(best), "best_risk": float(t1[best]),
+               "worst": list(worst), "worst_risk": float(t1[worst]),
+               "tuning_range": float(t1[worst] - t1[best])}
+        if name == "fig3":
+            rec["csvm_t1"] = float(out["csvm"][0])
+        return rec
+    if name == "fig5":
+        pf, t, d, c = min(out["scenarios"])        # the most unbalanced
+        return {"pos_frac": pf, "dtsvm": t, "dsvm": d, "csvm": c,
+                "gain_vs_csvm": c - t}
+    left, right = np.asarray(out["left_dsvm"]), np.asarray(out["right_mixed"])
+    return {"left_dsvm": float(left.mean()),
+            "right_mixed": float(right.mean()),
+            "dsvm_only_nodes_gain": float(left[:, 3:].mean()
+                                          - right[:, 3:].mean())}
+
+
+def figure_runs() -> list:
+    """(label, figure, regime, held to the fixture): the five golden
+    regimes, then each figure once at its paper regime (the widths of the
+    reference's ``run(fast=False)``, one seed; Fig. 2 per network and per
+    engine)."""
+    from repro_torch.figures import (fig2_convergence, fig3_eps_sweep,
+                                     fig4_c_sweep, fig5_unbalanced,
+                                     fig6_mixed, golden)
+
+    runs = [(f"golden/{n}", n, fixture(n)["regime"], True)
+            for n in golden.FIGURES]
+    for net, V, deg, n_tgt in fig2_convergence.NETS:
+        for solver in FIG2_ENGINES:
+            runs.append((f"paper/fig2/{net}/{solver}", "fig2",
+                         dict(V=V, deg=deg, n_tgt=n_tgt, n_src=800,
+                              seeds=[0], iters=fig2_convergence.ITERS,
+                              n_test=1800, qp_solver=solver), False))
+    runs += [
+        ("paper/fig3", "fig3", dict(eps_grid=list(fig3_eps_sweep.EPS_GRID),
+                                    seeds=[0], iters=fig3_eps_sweep.ITERS),
+         False),
+        ("paper/fig4", "fig4", dict(c_grid=list(fig4_c_sweep.C_GRID),
+                                    e2_grid=list(fig4_c_sweep.E2_GRID),
+                                    seeds=[0], iters=fig4_c_sweep.ITERS),
+         False),
+        ("paper/fig5", "fig5", dict(pos_fracs=list(fig5_unbalanced.POS_FRACS),
+                                    seeds=[0], iters=fig5_unbalanced.ITERS),
+         False),
+        ("paper/fig6", "fig6", dict(seeds=[0], iters=fig6_mixed.ITERS),
+         False)]
+    return runs
+
+
+def figures(by_path: dict, seen: dict, cases: dict) -> None:
+    """Each figure run on the card and on the CPU: the card within one
+    test sample (1/n_test) of the CPU in every network-average risk, a
+    golden regime within ATOL of its fixture, its launches as
+    ``figure_launches`` says.  Then Fig. 3's paper grid as one sweep and
+    as a serial loop of the same fits, per engine."""
+    from repro_torch.figures import golden
+    from repro_torch.kernels import ops
+
+    for label, name, regime, golden_run in figure_runs():
+        path = f"figures/{label}"
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        card = golden.outputs(name, regime, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_path[path] = launches = ops.launch_counts()
+        t0 = time.perf_counter()
+        cpu = golden.outputs(name, regime, device="cpu")
+        cpu_wall = time.perf_counter() - t0
+        n_test = regime.get("n_test", 1800)
+        card_avg, cpu_avg = (network_averages(name, o) for o in (card, cpu))
+        gap_cpu = max(float(np.abs(card_avg[k] - cpu_avg[k]).max())
+                      for k in card_avg)
+        rec = {"figure": label, **regime,
+               "wall_s": wall, "cpu_wall_s": cpu_wall,
+               "derived": derived(name, card),
+               "derived_cpu": derived(name, cpu),
+               "gap_to_cpu": gap_cpu, "limit_to_cpu": 1.0 / n_test}
+        if name == "fig6":
+            rec["per_node_gap_to_cpu"] = max(
+                float(np.abs(np.asarray(card[k]) - np.asarray(cpu[k])).max())
+                for k in card)
+        if golden_run:
+            want = fixture(name)["outputs"]
+            rec["gap_to_fixture"] = max(
+                float(np.abs(np.asarray(card[k], np.float64)
+                             - np.asarray(want[k], np.float64)).max())
+                for k in want)
+            rec["limit_to_fixture"] = GOLDEN_ATOL
         emit(rec)
-    if not all(seen.values()):
-        raise AssertionError(f"the profiler saw none of some kernels: "
-                             f"{seen}")
-    return seen
+        check_launches(path, launches, figure_launches(name, regime))
+        if not gap_cpu <= 1.0 / n_test + 1e-6:
+            raise AssertionError(f"{label}: the card's risks differ from the "
+                                 f"CPU's by {gap_cpu} > 1/{n_test}")
+        if golden_run and not rec["gap_to_fixture"] <= GOLDEN_ATOL:
+            raise AssertionError(f"{label}: {rec['gap_to_fixture']} from the "
+                                 f"fixture, beyond {GOLDEN_ATOL}")
+    sweep_vs_serial(by_path, seen, cases)
+
+
+@contextlib.contextmanager
+def captured(module, name: str):
+    """Record the arguments of every call of ``module.name`` made while the
+    block runs: the operands a path hands a kernel's wrapper, so that the
+    kernel can be held against its plain version on exactly those."""
+    calls, real = [], getattr(module, name)
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def hold_gram(label: str, Z, a, cases: dict, built=None) -> None:
+    """The square Gram kernel at a path's own operands (a Z shared by a
+    stack of ``a``, or one ``a`` over a stack of Z) against its plain
+    version on the operands broadcast to each other, at RTOL; ``built``,
+    the K the path kept, must be this call's bits."""
+    from repro_torch.kernels import ops, ref
+
+    K = ops.weighted_gram(Z, a)
+    Zb = ops.broadcast_z(Z, a)
+    ab = a.expand(Zb.shape[:-2] + a.shape[-1:])
+    K_plain = ref.weighted_gram(Zb, ab)
+    torch.cuda.synchronize()
+    err, scale, ok = max_err(K, K_plain, RTOL["f32"])
+    B, (N, D) = Zb[..., 0, 0].numel(), Zb.shape[-2:]
+    flops = B * N * (N + 1) * D + B * N * D
+    b_ms, b_by = bound(4 * (Z.numel() + a.numel() + B * N * N), flops)
+    rec = {"regime": label, "B": B, "N": N, "D": D,
+           "z_shape": list(Z.shape), "a_shape": list(a.shape),
+           "max_abs_err": err, "max_abs_plain": scale, "rtol": RTOL["f32"],
+           "ms": cuda_ms(lambda: ops.weighted_gram(Z, a), 50),
+           "plain_ms": cuda_ms(lambda: ref.weighted_gram(Zb, ab), 50),
+           "library_ms": cuda_ms(lambda: torch.einsum(
+               "...nd,...d,...md->...nm", Zb, ab, Zb), 50),
+           "bound_ms": b_ms, "bound_by": b_by}
+    if built is not None:
+        rec["equals_built_k"] = torch.equal(K, built)
+        ok = ok and rec["equals_built_k"]
+    emit({"kernel_check": "weighted_gram", **rec})
+    if not ok:
+        raise AssertionError(f"weighted_gram disagrees at {label}: {rec}")
+    cases["weighted_gram"].append(rec)
+
+
+def hold_multi(label: str, args: tuple, kw: dict, cases: dict) -> None:
+    """The multi solve at one call's own operands (``args``, ``kw`` as the
+    path passed them: a shared Z is broadcast only for the plain
+    version) against its plain version at RTOL, with the moved guard."""
+    from repro_torch.kernels import ops, ref
+
+    lam0, K, q, hi, gamma = args
+    iters, Z = kw["iters"], kw.get("Z")
+    precision = kw.get("precision", "f32")
+    Zb = None if Z is None else ops.broadcast_z(Z, lam0)
+    run = lambda: ops.qp_pg_multi(lam0, K, q, hi, gamma, iters=iters, Z=Z,
+                                  precision=precision)
+    run_plain = lambda: ref.qp_pg_multi(lam0, K, q, hi, gamma, iters=iters,
+                                        Z=Zb, precision=precision)
+    got, want = run(), run_plain()
+    torch.cuda.synchronize()
+    outs = lambda o: o if Z is not None else (o,)
+    errs = [max_err(g, w, RTOL[precision])
+            for g, w in zip(outs(got), outs(want))]
+    lam_moved = moved(outs(want)[0], lam0, hi)
+    B, N = lam0[..., 0].numel(), lam0.shape[-1]
+    k_bytes = (2 if precision == "bf16" else 4) * B * N * N
+    k_reads = iters if k_bytes > L2_BYTES else 1
+    fold_bytes = 0 if Z is None else 4 * (Z.numel() + B * Z.shape[-1])
+    b_ms, b_by = bound(
+        k_reads * k_bytes + 4 * (4 * B * N + B) + fold_bytes,
+        iters * (2 * B * N * N + 5 * B * N)
+        + (0 if Z is None else 2 * B * N * Z.shape[-1]))
+    rec = {"regime": label, "B": B, "N": N, "iters": iters,
+           "precision": precision, "fold": Z is not None,
+           "z_shape": None if Z is None else list(Z.shape),
+           "max_abs_err": max(e[0] for e in errs),
+           "max_abs_plain": errs[0][1],
+           "zl_max_abs_err": errs[1][0] if Z is not None else None,
+           "zl_max_abs_plain": errs[1][1] if Z is not None else None,
+           "rtol": RTOL[precision], "moved_from_warm_start": lam_moved,
+           "ms": cuda_ms(run, 20), "plain_ms": cuda_ms(run_plain, 5),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    emit({"kernel_check": "qp_pg_multi", **rec})
+    if not (all(e[2] for e in errs)
+            and RTOL[precision] * errs[0][1] < lam_moved):
+        raise AssertionError(f"qp_pg_multi disagrees at {label}: {rec}")
+    cases["qp_pg_multi"].append(rec)
+
+
+def sweep_vs_serial(by_path: dict, seen: dict, cases: dict) -> None:
+    """Fig. 3's paper grid (16 eps configs, V=10, 60 ADMM iterations of
+    100 QP iterations, seed 0) as one sweep and as the serial loop of its
+    16 fits, per engine, both on the card: the walls, the launches (the
+    sweep: one Gram build, one multi launch per iteration), the final
+    risks within one test sample of each other; the card sweep's final
+    states within RTOL_FIT of the same sweep on the CPU, its risks within
+    one test sample; then the kernels at these paths' own operands (the
+    sweep's build and its second multi solve, and CSVM's pooled build
+    on the same data) against their plain versions, and a torch.profiler
+    trace of each sweep."""
+    from repro_torch.figures import common, fig3_eps_sweep
+    from repro_torch.kernels import ops
+
+    grid = fig3_eps_sweep.EPS_GRID
+    keys = [(e1, e2) for e1 in grid for e2 in grid]
+    cfgs = [dict(eps1=e1, eps2=e2) for e1, e2 in keys]
+    iters, qp_iters = fig3_eps_sweep.ITERS, 100
+    data, A = common.build(10, [50, 400], degree=0.8667, seed=0)
+    n_test = data["X_test"].shape[1]
+    for solver in FIG2_ENGINES:
+        multi = solver == "pallas_fused_multi"
+        ops.reset_launch_counts()
+        with captured(ops, "weighted_gram") as gram_calls, \
+                captured(ops, "qp_pg_multi") as multi_calls:
+            res, sweep_s = common.run_sweep(data, A, cfgs, iters,
+                                            qp_iters=qp_iters,
+                                            qp_solver=solver, device="cuda")
+        by_path[f"figures/sweep/fig3/{solver}"] = sweep_n = \
+            ops.launch_counts()
+        ops.reset_launch_counts()
+        serial_s, serial = [], []
+        for e1, e2 in keys:
+            _, hist, dt, _ = common.run_dtsvm(data, A, iters, eps1=e1,
+                                              eps2=e2, qp_iters=qp_iters,
+                                              qp_solver=solver,
+                                              device="cuda")
+            serial_s.append(dt)
+            serial.append(hist[-1])
+        by_path[f"figures/serial/fig3/{solver}"] = serial_n = \
+            ops.launch_counts()
+        cpu, _ = common.run_sweep(data, A, cfgs, iters, qp_iters=qp_iters,
+                                  qp_solver=solver, device="cpu")
+        states = _state_errs(res.states, cpu.states, RTOL_FIT["f32"])
+        gap = float(np.abs(res.final_risks() - np.stack(serial)).max())
+        gap_cpu = float(np.abs(res.final_risks() - cpu.final_risks()).max())
+        emit({"sweep_vs_serial": f"fig3/{solver}", "configs": len(cfgs),
+              "V": 10, "iters": iters, "qp_iters": qp_iters,
+              "sweep_wall_s": sweep_s, "serial_wall_s": sum(serial_s),
+              "serial_over_sweep": sum(serial_s) / sweep_s,
+              "serial_fit_s_median": float(np.median(serial_s)),
+              "risk_gap": gap, "limit": 1.0 / n_test,
+              "risk_gap_to_cpu": gap_cpu,
+              "state_errs_to_cpu": states, "state_rtol": RTOL_FIT["f32"]})
+        check_launches(f"figures/sweep/fig3/{solver}", sweep_n, {
+            "weighted_gram": 1, "weighted_gram_tiled": 0,
+            "gram_prescale": 1, "qp_pg_step": 0,
+            "qp_pg_multi": iters if multi else 0})
+        check_launches(f"figures/serial/fig3/{solver}", serial_n, {
+            "weighted_gram": len(cfgs), "weighted_gram_tiled": 0,
+            "gram_prescale": len(cfgs), "qp_pg_step": 0,
+            "qp_pg_multi": len(cfgs) * iters if multi else 0})
+        if not gap <= 1.0 / n_test + 1e-6:
+            raise AssertionError(f"fig3 sweep ({solver}) differs from its "
+                                 f"serial fits by {gap}")
+        if not gap_cpu <= 1.0 / n_test + 1e-6:
+            raise AssertionError(f"fig3 sweep ({solver}): the card's risks "
+                                 f"differ from the CPU's by {gap_cpu}")
+        if not all(ok for _, _, ok in states.values()):
+            raise AssertionError(f"fig3 sweep ({solver}): the card's states "
+                                 f"differ from the CPU's: {states}")
+        if multi:
+            (Z, a), _ = gram_calls[0]
+            hold_gram("fig3_sweep", Z, a, cases, built=res.plan.inv.K)
+            args, kw = multi_calls[1]
+            hold_multi("fig3_sweep/iteration_2", args, kw, cases)
+        per_kernel = _profile(f"fig3 sweep/{solver}", lambda: common.run_sweep(
+            data, A, cfgs, iters, qp_iters=qp_iters, qp_solver=solver,
+            device="cuda"))
+        for k in seen:
+            seen[k] += per_kernel[k]
+    with captured(ops, "weighted_gram") as gram_calls:
+        common.run_csvm_per_task(data, device="cuda")
+    (Z, a), _ = gram_calls[0]
+    hold_gram("fig3_csvm", Z, a, cases)
 
 
 # ---------------------------------------------------------------------------
@@ -883,7 +1251,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every record to this JSON file")
-    ap.add_argument("--only", choices=("large_fit", "multi_mid"),
+    ap.add_argument("--only", choices=("large_fit", "multi_mid", "figures"),
                     help="run only this part, and print no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -906,6 +1274,8 @@ def main() -> int:
     if args.only:
         if args.only == "large_fit":
             large_fit({})
+        elif args.only == "figures":
+            figures({}, {k: 0 for k in PROFILED}, {k: [] for k in KERNELS})
         else:
             multi_mid(dev)
         write_records(args.out)
@@ -926,7 +1296,12 @@ def main() -> int:
     main_path(by_path)
     large_fit(by_path)
     large_replan(by_path)
-    traced = profile_engines()
+    traced = {k: 0 for k in PROFILED}
+    profile_engines(traced)
+    figures(by_path, traced, cases)
+    if not all(traced.values()):
+        raise AssertionError(f"the profiler saw none of some kernels: "
+                             f"{traced}")
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 came on during the run")
 

@@ -2,15 +2,19 @@
 
 The package mirrors ``src/repro/`` module for module
 (``repro_torch/engine/plan.py`` is the twin of ``repro/engine/plan.py``)
-and imports nothing of the reference package or its framework.  This
-slice ports the paper's main path on the single-host ``vmap`` backend:
+and imports nothing of the reference package or its framework.  Ported
+so far: the paper's main path on the single-host ``vmap`` backend,
 
     make_problem -> compile_problem (Z, counts, U, box, L, K = Z diag(a) Z^T)
                  -> Plan.run (eqs. 6-9, pluggable dual QP engine) -> risks
 
-through ``repro_torch.api.DTSVM`` / ``DSVM``.  The three TPU kernels on
-that path (the weighted Gram build and the two fused QP solves) are CUDA
-C++ kernels for ``sm_90a`` under ``repro_torch/kernels/csrc/``, built at
+through ``repro_torch.api.DTSVM`` / ``DSVM`` / ``CSVM``; the large-n
+path (``PlanBudget``, the factored operator, ``Plan.replan``); the sweep
+engine and ``sweep_fit`` (a grid of configs as one batched fit); and
+the runners of the paper's Figs. 2-6 (``repro_torch.figures``).  The
+four TPU kernels (the square and the tiled weighted Gram build, the
+fused QP step and the fused multi-iteration QP solve) are CUDA C++
+kernels for ``sm_90a`` under ``repro_torch/kernels/csrc/``, built at
 first use.  A kernel or its plain PyTorch version is chosen by the
 device of the tensors, and the caller chooses the device: entry points
 take ``device=None``, which means ``"cuda"``; pass ``device="cpu"`` to

@@ -1,11 +1,22 @@
 """repro_torch.api — the user-facing surface of the port.
 
-    from repro_torch.api import DSVM, DTSVM, SolverConfig
+    from repro_torch.api import CSVM, DSVM, DTSVM, SolverConfig, sweep_fit
     DTSVM(cfg).fit(X, y, mask=mask, adj=adj, device="cuda")
+    sweep_fit(X, y, [dict(eps1=e) for e in grid], mask=mask, adj=adj,
+              device="cuda")
+
+- ``solvers``: one fit/predict protocol (``Solver``) over CSVM / DSVM /
+  DTSVM
+- ``sweep``: ``sweep_fit``, a whole hyper-parameter grid (Figs. 3-6) as
+  one batched fit
+- ``backends``: the execution registries, for single fits and sweeps
+- ``evaluate``: shared risk and residual evaluation
 """
 from repro_torch.api import backends, evaluate
-from repro_torch.api.solvers import DSVM, DTSVM, SolverConfig
+from repro_torch.api.solvers import CSVM, DSVM, DTSVM, Solver, SolverConfig
+from repro_torch.api.sweep import SweepResult, dsvm_overrides, sweep_fit
 from repro_torch.engine.invariants import PlanBudget
 
-__all__ = ["DSVM", "DTSVM", "PlanBudget", "SolverConfig", "backends",
-           "evaluate"]
+__all__ = ["CSVM", "DSVM", "DTSVM", "PlanBudget", "Solver", "SolverConfig",
+           "SweepResult", "backends", "dsvm_overrides", "evaluate",
+           "sweep_fit"]

@@ -1,4 +1,4 @@
-"""Execution backends behind ``Solver.fit`` (twin of
+"""Execution backends behind ``Solver.fit`` and ``sweep_fit`` (twin of
 ``repro/api/backends.py``).
 
 A backend is a callable
@@ -9,8 +9,17 @@ A backend is a callable
 The port has the single-host ``"vmap"`` backend: one compiled plan (under
 ``budget``, the streamed large-n build), one loop.  The reference's other
 backends are still to be ported: ``"async"`` with the fabric (ROADMAP.md,
-"Modules to port", item 8), ``"shard_map"`` and ``"sample_shard"``
-(item 12).
+"Modules to port", item 2), ``"shard_map"`` and ``"sample_shard"``
+(item 6).
+
+A sweep backend runs a compiled ``engine.SweepPlan``:
+
+    run(plan, iters, *, state, eval_fn, chain, **options)
+        -> (states, history | None)
+
+``"vmap"`` runs the whole grid on one device (``chain=True``: the
+warm-start chain); ``"shard_map"`` (configs across devices) is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -22,9 +31,11 @@ from repro_torch.engine import plan as engine_plan
 _REGISTRY: Dict[str, Callable] = {}
 
 _NOT_PORTED = {
-    "async": "ROADMAP.md, 'Modules to port', item 8 (the fabric)",
-    "shard_map": "ROADMAP.md, 'Modules to port', item 12",
-    "sample_shard": "ROADMAP.md, 'Modules to port', item 12",
+    "async": "ROADMAP.md, 'Modules to port', item 2 (the fabric)",
+    "shard_map": "ROADMAP.md, 'Modules to port', item 6 (multi-device "
+                 "backends)",
+    "sample_shard": "ROADMAP.md, 'Modules to port', item 6 (multi-device "
+                    "backends)",
 }
 
 
@@ -94,3 +105,52 @@ def run(prob: core.DTSVMProblem, iters: int, *, backend: str = "vmap",
     return get(backend)(prob, iters, qp_iters=qp_iters, qp_solver=qp_solver,
                         qp_precision=qp_precision, qp_operator=qp_operator,
                         state=state, eval_fn=eval_fn, **options)
+
+
+# -- batched sweeps ---------------------------------------------------------
+_SWEEP_REGISTRY: Dict[str, Callable] = {}
+
+
+def register_sweep(name: str):
+    """Register a sweep runner: ``run(plan, iters, *, state, eval_fn,
+    chain, **options) -> (states, history | None)`` over a compiled
+    ``engine.SweepPlan`` (decorator)."""
+    def deco(fn: Callable) -> Callable:
+        _SWEEP_REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+@register_sweep("vmap")
+def _run_sweep_vmap(plan, iters: int, *, state=None, eval_fn=None,
+                    chain: bool = False, **_ignored):
+    if chain:
+        return plan.run_chain(state=state, iters=iters, eval_fn=eval_fn)
+    return plan.run(state=state, iters=iters, eval_fn=eval_fn)
+
+
+@register_sweep("shard_map")
+def _run_sweep_shard_map(plan, iters: int, *, state=None, eval_fn=None,
+                         chain: bool = False, **options):
+    """The reference's checks of its arguments, then the refusal: configs
+    across devices are not ported yet."""
+    if chain:
+        raise ValueError("warm-start chains are sequential in the config "
+                         "axis — use backend='vmap' for chain=True")
+    if eval_fn is not None:
+        raise ValueError("per-iteration histories are a single-host "
+                         "feature; run the sharded sweep without "
+                         "X_test/eval_fn and evaluate the final states")
+    return plan.run_sharded(iters, state=state, **options), None
+
+
+def run_sweep(plan, iters: int, *, backend: str = "vmap", state=None,
+              eval_fn=None, chain: bool = False, **options):
+    """Dispatch one batched sweep through the named sweep backend."""
+    try:
+        fn = _SWEEP_REGISTRY[backend]
+    except KeyError:
+        raise ValueError(f"unknown sweep backend {backend!r}; available: "
+                         f"{sorted(_SWEEP_REGISTRY)}") from None
+    return fn(plan, iters, state=state, eval_fn=eval_fn, chain=chain,
+              **options)

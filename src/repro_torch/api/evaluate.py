@@ -7,7 +7,7 @@ the fitted state.
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +38,11 @@ def risk_eval_fn(V: int, X_test, y_test, device) -> Callable:
 
 
 def risks_of_state(state: core.DTSVMState, X_test, y_test) -> torch.Tensor:
-    """(V, T) per-node risks of a fitted state on the shared test set."""
+    """(V, T) per-node risks of a fitted state on the shared test set.
+
+    Also takes sweep-stacked states (leaves (S, V, T, ...), e.g. a
+    ``SweepResult``'s): leading axes before (V, T) broadcast through,
+    giving (S, V, T)."""
     V = state.r.shape[-3]
     Xte, yte = broadcast_test_set(X_test, y_test, V, state.r.device)
     return core.risks(state.r, Xte, yte)
@@ -49,3 +53,17 @@ def global_risks(risks_vt) -> np.ndarray:
     if isinstance(risks_vt, torch.Tensor):
         risks_vt = risks_vt.detach().cpu().numpy()
     return np.asarray(risks_vt).mean(axis=0)
+
+
+def risk_curve(history) -> Optional[np.ndarray]:
+    """Stacked per-iteration eval history as a numpy array (or None)."""
+    if history is None:
+        return None
+    if isinstance(history, torch.Tensor):
+        history = history.detach().cpu().numpy()
+    return np.asarray(history)
+
+
+def consensus_residuals(state: core.DTSVMState, prob: core.DTSVMProblem):
+    """(task_residual, node_residual), from the math layer."""
+    return core.consensus_residuals(state, prob)

@@ -1,39 +1,46 @@
-"""One fit/predict surface over the paper's consensus solvers (twin of
+"""One fit/predict surface over the paper's three solvers (twin of
 ``repro/api/solvers.py``).
 
     cfg = SolverConfig(C=0.01, eps2=1.0, iters=60)
     DTSVM(cfg).fit(X, y, mask=mask, adj=adj).risks(X_test, y_test)
     DSVM(cfg).fit(X, y, mask=mask, adj=adj).risks(X_test, y_test)
+    CSVM(cfg).fit(X, y, mask=mask).risks(X_test, y_test)
 
-``SolverConfig`` keeps the reference's fields and names, so a
-``to_dict()`` dict means the same thing in both packages.  The device is
-not part of the config: it goes to the solver's constructor or to
-``fit`` (``None`` means ``"cuda"``; ``repro_torch.device``).  Options
-the port does not have yet raise ``NotImplementedError`` naming the
-ROADMAP.md item that brings them.  ``CSVM`` comes with a later slice.
+All three implement the ``Solver`` protocol.  ``SolverConfig`` keeps the
+reference's fields and names, so a ``to_dict()`` dict means the same
+thing in both packages.  The device is not part of the config: it goes
+to the solver's constructor or to ``fit`` (``None`` means ``"cuda"``;
+``repro_torch.device``).  Options the port does not have yet raise
+``NotImplementedError`` naming the ROADMAP.md item that brings them.
+A hyper-parameter grid runs as one batched fit through
+``repro_torch.api.sweep_fit``.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from typing import (Any, Dict, Optional, Protocol, Tuple,
+                    runtime_checkable)
 
 import numpy as np
 import torch
 
 from repro_torch import device as device_lib
 from repro_torch.api import backends, evaluate
+from repro_torch.core import csvm as csvm_lib
 from repro_torch.core import dsvm as dsvm_lib
 from repro_torch.core import dtsvm as core
+from repro_torch.engine import plan as engine_plan
 from repro_torch.engine.invariants import PlanBudget
 
 _NOT_PORTED_NET = ("SolverConfig.net (the communication fabric) is not "
-                   "ported yet: ROADMAP.md, 'Modules to port', item 8")
+                   "ported yet: ROADMAP.md, 'Modules to port', item 2")
 
 
 @dataclass(frozen=True)
 class SolverConfig:
-    """Hyper-parameters + execution strategy (the reference's fields).
+    """Hyper-parameters + execution strategy of every solver (the
+    reference's fields).
 
     C, eps1, eps2, eta1, eta2: Prop. 1's penalty, regularization and
     consensus weights.  iters: ADMM iterations per ``fit()``.  qp_iters:
@@ -120,8 +127,34 @@ def _check_ported(cfg: SolverConfig) -> None:
     if cfg.telemetry:
         raise NotImplementedError(
             "SolverConfig.telemetry is not ported yet: ROADMAP.md, "
-            "'Modules to port', item 11 (observability)")
+            "'Modules to port', item 5 (observability)")
     backends.get(cfg.backend)      # raises on the backends still to port
+
+
+@runtime_checkable
+class Solver(Protocol):
+    """What every solver exposes; see the module doc for the data layout."""
+
+    config: SolverConfig
+
+    def init_state(self, prob):
+        """Zero state for ``prob`` (a ``core.DTSVMState`` for the
+        consensus solvers)."""
+
+    def step(self, state, prob):
+        """One algorithm iteration ``state -> state``."""
+
+    def fit(self, X, y, mask=None, adj=None, **kw) -> "Solver":
+        """Train on X (V, T, N, p) / y (V, T, N); returns self."""
+
+    def predict(self, X):
+        """Predicted labels in {-1, +1} for test inputs."""
+
+    def risks(self, X_test, y_test):
+        """Misclassification rates on a shared (T, n, p) test set."""
+
+    def residuals(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(task, node) consensus-constraint violations of the fit."""
 
 
 class _ConsensusSolver:
@@ -140,6 +173,18 @@ class _ConsensusSolver:
     def make_problem(self, X, y, mask=None, adj=None, *, active=None,
                      couple=None, device=None) -> core.DTSVMProblem:
         raise NotImplementedError
+
+    # -- protocol ----------------------------------------------------------
+    def init_state(self, prob: core.DTSVMProblem) -> core.DTSVMState:
+        return core.init_state(prob)
+
+    def step(self, state: core.DTSVMState,
+             prob: core.DTSVMProblem) -> core.DTSVMState:
+        """One Prop.-1 ADMM iteration on ``prob``'s device, with the
+        configured QP engine.  One-shot: it compiles the problem's
+        invariants on every call, as the reference does; a loop holds a
+        plan instead (``engine.compile_problem`` + ``plan.step``)."""
+        return engine_plan.compile_problem(prob, self.config).step(state)
 
     def fit(self, X, y, mask=None, adj=None, *, active=None, couple=None,
             iters: Optional[int] = None,
@@ -228,3 +273,100 @@ class DSVM(_ConsensusSolver):
         return dsvm_lib.make_dsvm_problem(
             X, y, mask, adj, C=cfg.C, eps2=cfg.eps2, eta2=cfg.eta2,
             active=active, device=device)
+
+
+class CSVM:
+    """Centralized pooled SVM per task, the paper's baseline [13].
+
+    The same surface, other math: all nodes' data of a task is pooled and
+    one box QP is solved per task, all tasks in one batched solve (one
+    Gram launch on the card).  ``fit`` takes the (V, T, N, p) layout of
+    the consensus solvers, or plain (N, p) single-task data.  ``C_scale``
+    multiplies the config's C.
+    """
+
+    def __init__(self, config: Optional[SolverConfig] = None, *,
+                 C_scale: float = 1.0, device=None, **overrides):
+        cfg = config if config is not None else SolverConfig()
+        self.config = cfg.replace(**overrides) if overrides else cfg
+        self.C_scale = C_scale
+        self.device = device
+        self.w_: Optional[torch.Tensor] = None      # (T, p)
+        self.b_: Optional[torch.Tensor] = None      # (T,)
+        self.history_ = None
+
+    def init_state(self, prob=None):
+        """The fitted (w (T, p), b (T,)) pair: CSVM has no ADMM state."""
+        return (self.w_, self.b_)
+
+    def step(self, state, prob):
+        """CSVM is a direct (single-shot) solver: always raises."""
+        raise NotImplementedError(
+            "CSVM is a direct (single-shot) solver; use fit()")
+
+    def fit(self, X, y, mask=None, adj=None, *, device=None,
+            **_ignored) -> "CSVM":
+        """Pool all nodes' data per task and solve one box QP per task on
+        ``device`` (default: the constructor's, else ``"cuda"``).  ``adj``
+        is accepted and ignored, so swapping CSVM for DTSVM stays a
+        one-line change.  Returns self."""
+        if self.config.net is not None:
+            raise ValueError("SolverConfig.net models a decentralized "
+                             "network; CSVM is centralized (no links to "
+                             "model) — drop net or use DSVM/DTSVM")
+        if self.config.telemetry:
+            raise ValueError("SolverConfig.telemetry streams the ADMM "
+                             "loop's consensus diagnostics; CSVM is a "
+                             "direct (single-shot) solver — drop "
+                             "telemetry or use DSVM/DTSVM")
+        dev = device_lib.resolve(device if device is not None
+                                 else self.device)
+        f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+        X, y = f32(X), f32(y)
+        if X.ndim == 2:                       # single task, pooled already
+            X, y = X[None, None], y[None, None]
+        V, T, N, p = X.shape
+        mask = (torch.ones((V, T, N), dtype=torch.float32, device=dev)
+                if mask is None else f32(mask).reshape(V, T, N))
+        # nodes pooled per task: (V, T, N, ...) -> (T, V*N, ...)
+        pool = lambda a: a.transpose(0, 1).reshape((T, V * N) + a.shape[3:])
+        self.w_, self.b_ = csvm_lib.csvm_fit_tasks(
+            pool(X), pool(y), self.config.C * self.C_scale, pool(mask),
+            qp_iters=self.config.qp_iters)
+        return self
+
+    def _require_fit(self):
+        if self.w_ is None:
+            raise RuntimeError("call fit() first")
+
+    def decision(self, X) -> torch.Tensor:
+        """X: (T, n, p) or (n, p) -> (T, n) decision values."""
+        self._require_fit()
+        X = torch.as_tensor(X, dtype=torch.float32, device=self.w_.device)
+        if X.ndim == 2:
+            X = X[None]
+        return torch.einsum("tnp,tp->tn", X, self.w_) + self.b_[:, None]
+
+    def predict(self, X) -> torch.Tensor:
+        """Predicted labels in {-1, +1}: (T, n) for (T, n, p) inputs."""
+        return torch.sign(self.decision(X))
+
+    def risks(self, X_test, y_test) -> torch.Tensor:
+        """(T,) per-task test risks (no node axis: the model is pooled)."""
+        self._require_fit()
+        y_test = torch.as_tensor(y_test, dtype=torch.float32,
+                                 device=self.w_.device)
+        if y_test.ndim == 1:
+            y_test = y_test[None]
+        g = self.decision(X_test)
+        return (torch.sign(g) != torch.sign(y_test)).to(
+            torch.float32).mean(-1)
+
+    def global_risks(self, X_test, y_test) -> np.ndarray:
+        """(T,) risks as numpy, already network-global (pooled model)."""
+        return self.risks(X_test, y_test).cpu().numpy()
+
+    def residuals(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A centralized model is trivially in consensus."""
+        z = torch.zeros((), dtype=torch.float32)
+        return z, z

@@ -9,7 +9,11 @@ doc for the derivation and the ``active``/``couple``/``mask``
 generalizations, which this module keeps).
 
 All leaves of a problem and a state are fp32 tensors on one device (the
-adjacency is bool); the hyper-parameters are 0-d fp32 tensors.
+adjacency is bool); the hyper-parameters are 0-d fp32 tensors.  The
+pieces below count their axes from the end, so a sweep's stacked problem
+(``engine.sweep``: a leading config axis S on the state, ``active``,
+``couple``, and hyper-parameters of shape (S, 1, 1, 1)) runs through
+them as it is; the reference gets that axis from ``jax.vmap``.
 """
 from __future__ import annotations
 
@@ -86,19 +90,21 @@ def init_state(prob: DTSVMProblem) -> DTSVMState:
 # pieces
 # ---------------------------------------------------------------------------
 def _default_nbr_reduce(prob: DTSVMProblem):
-    """Sum an (V, T, D) array over each node's neighbors (dense adj)."""
+    """Sum an (..., V, T, D) array over each node's neighbors (dense adj)."""
     adjf = prob.adj.to(torch.float32)
-    return lambda arr: torch.einsum("vu,utd->vtd", adjf, arr)
+    return lambda arr: torch.einsum("vu,...utd->...vtd", adjf, arr)
 
 
-def _counts(prob: DTSVMProblem):
-    """Per-(v,t) coupling pair count and active-neighbor count."""
-    active = prob.active                                   # (V,T)
-    T_v = active.sum(1, keepdim=True)                      # (V,1)
-    ntp = (T_v - 1.0) * prob.couple[:, None] * active      # (V,T)
+def _counts(prob: DTSVMProblem, nbr_counts: Optional[torch.Tensor] = None):
+    """Per-(v,t) coupling pair count and active-neighbor count
+    (``nbr_counts``: precomputed (..., V, T) active-neighbor counts)."""
+    active = prob.active                                   # (...,V,T)
+    T_v = active.sum(-1, keepdim=True)                     # (...,V,1)
+    ntp = (T_v - 1.0) * prob.couple[..., None] * active    # (...,V,T)
     ntp = torch.clamp_min(ntp, 0.0)
-    nbr_counts = torch.einsum("vu,ut->vt", prob.adj.to(torch.float32),
-                              active)
+    if nbr_counts is None:
+        nbr_counts = torch.einsum("vu,...ut->...vt",
+                                  prob.adj.to(torch.float32), active)
     nbr = nbr_counts * active                              # inactive rows: 0
     return ntp, nbr
 
@@ -120,11 +126,11 @@ def _f_vec(prob: DTSVMProblem, state: DTSVMState, ntp, nbr, nbr_reduce):
     """f_vt^{(k)}, eq. (11): (V, T, 2p+2)."""
     p = prob.X.shape[-1]
     r, alpha, beta = state.r, state.alpha, state.beta
-    active = prob.active[..., None]                        # (V,T,1)
+    active = prob.active[..., None]                        # (...,V,T,1)
     # task sums: over the other active tasks at the node (coupled nodes)
     r_act = r * active
-    task_sum = r_act.sum(1, keepdim=True) - r_act          # (V,T,D)
-    task_term = ntp[..., None] * r + task_sum * prob.couple[:, None, None]
+    task_sum = r_act.sum(-2, keepdim=True) - r_act         # (...,V,T,D)
+    task_term = ntp[..., None] * r + task_sum * prob.couple[..., None, None]
     task_term = torch.cat([task_term[..., : p + 1],
                            torch.zeros_like(task_term[..., p + 1:])], -1)
     # neighbor sums: over the active neighbors, same task

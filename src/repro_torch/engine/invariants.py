@@ -99,10 +99,12 @@ class PlanInvariants(NamedTuple):
     L: torch.Tensor        # (V, T)
 
 
-def _masks_part(prob: core.DTSVMProblem):
-    """The active/couple-dependent pieces: counts, u, a, hi."""
+def _masks_part(prob: core.DTSVMProblem,
+                nbr_counts: Optional[torch.Tensor] = None):
+    """The active/couple-dependent pieces: counts, u, a, hi
+    (``nbr_counts``: precomputed (..., V, T) active-neighbor counts)."""
     p = prob.X.shape[-1]
-    ntp, nbr = core._counts(prob)
+    ntp, nbr = core._counts(prob, nbr_counts)
     u = core._u_diag(prob, ntp, nbr)
     a = 1.0 / u[..., : p + 1] + 1.0 / u[..., p + 1:]
     hi = prob.box_scale * prob.C * prob.mask * prob.active[..., None]

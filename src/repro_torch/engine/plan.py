@@ -25,6 +25,7 @@ import torch
 from repro_torch.core import dtsvm as core
 from repro_torch.engine import invariants as inv_lib
 from repro_torch.engine import qp_engines
+from repro_torch.kernels import ops as kops
 
 DEFAULT_QP_SOLVER = "fista"
 
@@ -41,8 +42,8 @@ def consensus_update(prob: core.DTSVMProblem, state: core.DTSVMState,
 
     # eq. (8): alpha update on the (w0, b0) block, coupled nodes only
     r_act = r_new * act
-    task_sum = r_act.sum(1, keepdim=True) - r_act
-    d_alpha = ntp[..., None] * r_new - task_sum * prob.couple[:, None, None]
+    task_sum = r_act.sum(-2, keepdim=True) - r_act
+    d_alpha = ntp[..., None] * r_new - task_sum * prob.couple[..., None, None]
     alpha = state.alpha + 0.5 * prob.eta1 * d_alpha[..., : p + 1] * act
 
     # eq. (9): beta update over active neighbors
@@ -79,7 +80,8 @@ def plan_step(prob: core.DTSVMProblem, inv: inv_lib.PlanInvariants,
     else:
         lam = engine(inv.K, q, inv.hi, state.lam,
                      iters=qp_iters, L=inv.L)                  # eq. (6)
-        zl = torch.einsum("vtn,vtnd->vtd", lam, Z)             # X^T Y lam
+        zl = torch.einsum("...n,...nd->...d", lam,
+                          kops.broadcast_z(Z, lam))            # X^T Y lam
     r_new, alpha, beta = consensus_update(prob, state, u, ntp, nbr, f, zl,
                                           nbr_reduce)
     return core.DTSVMState(r=r_new, alpha=alpha, beta=beta, lam=lam)

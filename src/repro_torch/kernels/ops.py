@@ -41,7 +41,8 @@ def reset_launch_counts() -> None:
 
 def broadcast_z(Z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """Z expanded to ``a``'s extra leading batch dims (the sweep's
-    shared-Z case: one (..., N, D) Z re-weighted by a stack of ``a``)."""
+    shared-Z case: one (..., N, D) Z re-weighted by a stack of ``a``, or
+    solved against a stack of duals lam (..., N))."""
     extra = (a.ndim - 1) - (Z.ndim - 2)
     if extra > 0:
         Z = Z.expand(a.shape[:-1] + Z.shape[-2:])
@@ -50,10 +51,13 @@ def broadcast_z(Z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 
 def weighted_gram(Z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """K = Z diag(a) Z^T over arbitrary leading batch dims (Z (..., N, D),
-    a (..., D); ``a`` may carry more leading dims than Z, which is
-    broadcast up).  On the card one launch of the square kernel builds
-    the whole batch."""
+    a (..., D)).  Either may carry more leading dims than the other, which
+    is broadcast up to them (a sweep's stack of ``a`` over one Z; CSVM's
+    one ``a`` over a stack of tasks).  On the card one launch of the
+    square kernel builds the whole batch."""
     Z = broadcast_z(Z, a)
+    if a.ndim - 1 < Z.ndim - 2:
+        a = a.expand(Z.shape[:-2] + a.shape[-1:])
     if not _on_card(Z, a):
         return ref.weighted_gram(Z, a)
     batch, (N, D) = Z.shape[:-2], Z.shape[-2:]
@@ -111,7 +115,11 @@ def qp_pg_multi(lam0, K, q, hi, gamma, *, iters: int,
     """The fused multi-iteration PG solve over arbitrary leading batch
     dims.  Returns ``lam``, or ``(lam, zl)`` when ``Z`` (..., N, D) is
     given.  ``precision="bf16"``: bf16 K and iterate in the product, f32
-    sums, step and projection."""
+    sums, step and projection.  ``Z`` may lack leading batch dims of
+    ``lam0`` (a sweep's Z, which its configs share): it is broadcast up to
+    them."""
+    if Z is not None:
+        Z = broadcast_z(Z, lam0)
     if not _on_card(lam0, K, q, hi, Z):
         return ref.qp_pg_multi(lam0, K, q, hi, gamma, iters=iters, Z=Z,
                                precision=precision)

@@ -538,3 +538,197 @@ def test_budgeted_replan_on_the_card_rebuilds_the_changed_slices(cuda):
     assert ops.launch_counts()["weighted_gram_tiled"] > before
     fresh = invariants.compute_invariants(replanned.prob)
     assert torch.equal(replanned.inv.K, fresh.K)
+
+
+# ---------------------------------------------------------------------------
+# CSVM, sweeps and the figures on the card
+# ---------------------------------------------------------------------------
+def _fig_data(V=6, seed=0):
+    from repro_torch.figures import common
+
+    return common.build(V, [24, 120], degree=0.8, seed=seed, n_test=300)
+
+
+@pytest.mark.gpu
+def test_csvm_on_the_card_matches_the_cpu(cuda):
+    """CSVM pooled per task: one square Gram launch per fit for all the
+    tasks, w within 1e-4 and b within 1e-3 of the largest magnitude of the
+    CPU port's (w, b) (the bias column weighs 1000), risks within one test
+    sample."""
+    from repro_torch.api import CSVM, SolverConfig
+
+    data, _ = _fig_data()
+    cfg = SolverConfig(C=0.01, qp_iters=600)
+    before = ops.launch_counts()
+    card = CSVM(cfg, device="cuda").fit(data["X"], data["y"],
+                                        mask=data["mask"])
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["weighted_gram"] == before["weighted_gram"] + 1
+    assert after["gram_prescale"] == before["gram_prescale"] + 1
+    cpu = CSVM(cfg, device="cpu").fit(data["X"], data["y"],
+                                      mask=data["mask"])
+    scale = max(float(cpu.w_.abs().max()), float(cpu.b_.abs().max()))
+    assert float((card.w_.cpu() - cpu.w_).abs().max()) <= \
+        1e-4 * float(cpu.w_.abs().max())
+    assert float((card.b_.cpu() - cpu.b_).abs().max()) <= 1e-3 * scale
+    np.testing.assert_allclose(
+        card.global_risks(data["X_test"], data["y_test"]),
+        cpu.global_risks(data["X_test"], data["y_test"]), atol=1.0 / 300)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qp_solver", ["fista", "pallas_fused",
+                                       "pallas_fused_multi"])
+def test_sweep_on_the_card_is_its_serial_fits(cuda, qp_solver):
+    """A 4-config sweep with per-config masks on the card: one square Gram
+    launch builds every config's K; each ADMM iteration is one multi
+    launch (``pallas_fused_multi``) or ``qp_iters`` step launches
+    (``pallas_fused``) over all S*V*T problems; each config's state
+    within 1e-5 of the largest magnitude of its serial card fit's."""
+    from repro_torch.api import dsvm_overrides
+    from repro_torch.core import dtsvm
+    from repro_torch.engine import compile_sweep, plan
+
+    data, adj = _fig_data()
+    V = adj.shape[0]
+    active = np.ones((V, 2), np.float32)
+    active[3:, 1] = 0.0
+    couple = np.array([1, 1, 1, 0, 0, 0], np.float32)
+    cfgs = [dict(eps1=0.1), dict(eps2=10.0, C=0.1), dsvm_overrides(V),
+            dict(eps2=10.0, active=active, couple=couple)]
+    prob = dtsvm.make_problem(data["X"], data["y"], data["mask"], adj,
+                              device=cuda)
+    iters, qp_iters = 4, 20
+    before = ops.launch_counts()
+    splan = compile_sweep(prob, cfgs, qp_iters=qp_iters, qp_solver=qp_solver)
+    st, _ = splan.run(iters=iters)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    launched = {k: after[k] - before[k] for k in after}
+    assert launched["weighted_gram"] == 1 and launched["gram_prescale"] == 1
+    assert launched["qp_pg_multi"] == (iters if qp_solver ==
+                                       "pallas_fused_multi" else 0)
+    assert launched["qp_pg_step"] == (iters * qp_iters if qp_solver ==
+                                      "pallas_fused" else 0)
+    for s, pc in enumerate(splan.config_problems):
+        want, _ = plan.compile_problem(pc, qp_iters=qp_iters,
+                                       qp_solver=qp_solver).run(iters=iters)
+        for name, g, w in zip(want._fields, st, want):
+            scale = max(float(w.abs().max()), 1e-30)
+            assert float((g[s] - w).abs().max()) <= 1e-5 * scale, (s, name)
+
+
+@pytest.mark.gpu
+def test_budgeted_sweep_on_the_card_streams_the_dense_k(cuda):
+    """Under a binding budget the stacked K streams through tiled-kernel
+    panels over all S*V*T problems, bitwise the dense stacked K."""
+    from repro_torch.core import dtsvm
+    from repro_torch.engine import PlanBudget, compile_sweep, invariants
+
+    data, adj = _fig_data()
+    prob = dtsvm.make_problem(data["X"], data["y"], data["mask"], adj,
+                              device=cuda)
+    cfgs = [dict(C=c) for c in (0.01, 0.1, 1.0)]
+    dense = compile_sweep(prob, cfgs, qp_iters=5)
+    budget = PlanBudget(tile=(8, 128))
+    N = prob.X.shape[2]
+    panels = len(invariants._row_starts(N, budget.row_chunk(36, N)))
+    before = ops.launch_counts()
+    streamed = compile_sweep(prob, cfgs, qp_iters=5, budget=budget)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["weighted_gram_tiled"] - before["weighted_gram_tiled"] \
+        == panels > 1
+    assert after["weighted_gram"] == before["weighted_gram"]
+    assert torch.equal(streamed.inv.K, dense.inv.K)
+
+
+@pytest.mark.gpu
+def test_sweep_fit_on_the_card_matches_the_cpu(cuda):
+    """Fig. 5's pair (DTSVM beside the DSVM overrides) through sweep_fit:
+    the card's final states within 1e-4 of each leaf's largest magnitude
+    of the CPU port's (the large fit's card-against-CPU tolerance), its
+    risks within one test sample."""
+    from repro_torch.figures import common
+    from repro_torch.api import dsvm_overrides
+
+    data, adj = _fig_data()
+    cfgs = [dict(), dsvm_overrides(adj.shape[0])]
+    res = {dev: common.run_sweep(data, adj, cfgs, 10, device=dev)[0]
+           for dev in ("cuda", "cpu")}
+    for name, g, w in zip(res["cpu"].states._fields, res["cuda"].states,
+                          res["cpu"].states):
+        scale = float(w.abs().max())
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale, name
+    np.testing.assert_allclose(res["cuda"].final_risks(),
+                               res["cpu"].final_risks(), atol=1.0 / 300)
+
+
+@pytest.mark.gpu
+def test_kernels_at_sweep_and_csvm_operands_match_plain(cuda, monkeypatch):
+    """The kernels at the operands these paths hand them, each against
+    its plain version: the square Gram kernel at a sweep's build (one Z
+    shared by S configs' a; bitwise the K the sweep kept) and at CSVM's
+    pooled build (one (p+1,) a over the tasks' Z), and the multi solve
+    on the stacked sweep problems with the shared Z folded in (and more
+    than the tolerance away from its warm start)."""
+    from repro_torch.core import csvm, dtsvm
+    from repro_torch.engine import compile_sweep
+
+    data, adj = _fig_data()
+    prob = dtsvm.make_problem(data["X"], data["y"], data["mask"], adj,
+                              device=cuda)
+    inv = compile_sweep(prob, [dict(eps1=e) for e in (0.1, 1.0, 10.0)],
+                        qp_iters=20).inv
+    Zb = ops.broadcast_z(inv.Z, inv.a)
+    K = ops.weighted_gram(inv.Z, inv.a)
+    assert torch.equal(K, inv.K)
+    _close(K, ref.weighted_gram(Zb, inv.a), REL["f32"])
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    lam0 = inv.hi * torch.rand(inv.hi.shape, generator=gen, device=cuda)
+    q = 1.0 + 0.1 * torch.randn(inv.hi.shape, generator=gen, device=cuda)
+    lam, zl = ops.qp_pg_multi(lam0, inv.K, q, inv.hi, 1.0 / inv.L,
+                              iters=20, Z=inv.Z)
+    lam_p, zl_p = ref.qp_pg_multi(lam0, inv.K, q, inv.hi, 1.0 / inv.L,
+                                  iters=20, Z=Zb)
+    _close(lam, lam_p, REL["f32"])
+    _close(zl, zl_p, REL["f32"])
+    moved = float((lam_p - torch.minimum(lam0, inv.hi)).abs().max())
+    assert REL["f32"] * float(lam_p.abs().max()) < moved
+
+    calls = []
+    real = ops.weighted_gram
+    monkeypatch.setattr(ops, "weighted_gram",
+                        lambda Z, a: calls.append((Z, a)) or real(Z, a))
+    X, y, mask = (torch.as_tensor(data[k], dtype=torch.float32,
+                                  device=cuda) for k in ("X", "y", "mask"))
+    pool = lambda a: a.transpose(0, 1).reshape(
+        (a.shape[1], -1) + a.shape[3:])
+    csvm.csvm_fit_tasks(pool(X), pool(y), 0.01, pool(mask), qp_iters=5)
+    (Z, a), = calls
+    assert a.ndim == 1 and Z.ndim == 3
+    _close(real(Z, a), ref.weighted_gram(Z, a.expand(Z.shape[0], -1)),
+           REL["f32"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["fig2", "fig3", "fig4", "fig5", "fig6"])
+def test_golden_figures_on_the_card(cuda, name):
+    """Each golden regime through the port on the card, within the
+    fixtures' ATOL = 0.015 of tests/golden/<fig>.json."""
+    import json
+    import os
+
+    from repro_torch.figures import golden
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "golden", f"{name}.json")
+    with open(path) as f:
+        want = json.load(f)
+    got = golden.outputs(name, want["regime"], device="cuda")
+    for key, val in want["outputs"].items():
+        np.testing.assert_allclose(np.asarray(got[key], np.float64),
+                                   np.asarray(val, np.float64), atol=0.015,
+                                   err_msg=f"{name}/{key}")
