@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one GPU and check it.
 
-    python3 chip_smoke.py [--out FILE] [--only large_fit|multi_mid|figures]
+    python3 chip_smoke.py [--out FILE]
+                          [--only large_fit|multi_mid|figures|sessions]
 
 Runs from the root of a checkout, on a machine with one CUDA card, the
 CUDA toolkit and ninja; it builds the hand kernels itself into
@@ -78,14 +79,41 @@ any failure raises and exits non-zero:
    build (one a over T = 2 tasks of V*N = 400 rows), the multi solve at
    the operands of the sweep's second ADMM iteration (320 problems, the
    shared Z folded in);
-8. the ``kernels`` line, the card line, and the result line.
+8. the online sessions of Fig. 7 through ``repro_torch.figures.
+   fig7_online`` (an ``OnlineSession`` per run, its replans, and the
+   replay of its event log, which must equal the live session bitwise):
+   the golden regime of ``tests/golden/fig7.json`` (within ATOL of the
+   fixture) and the paper regime (V=6, T=3, N=40, 30 ADMM iterations a
+   stage, 1800 test samples, seed 0) with ``fista`` and
+   ``pallas_fused_multi``, each on the card and on the CPU (every
+   network-average risk within 1/n_test), with each stage's wall, the
+   derived gains, and the launches counted from 0 just before the card
+   run and read just after: one build of the changed K slices per
+   stage, live and replay (10, fixed by the protocol, which replans
+   four times), whose problems must sum to the slices ``plan_stats``
+   says the session and its replay computed, and with
+   ``pallas_fused_multi`` one multi launch per ADMM iteration of each;
+   a profiler trace of one paper stage per engine;
+   then the other plan modes through the same replans at the paper
+   regime: under a binding ``PlanBudget`` (the changed slices streamed
+   through the tiled kernel) and the factored operator (L-only
+   replans, no square Gram launch, no K), each state within RTOL_FIT
+   f32 of the dense session's, and bf16 (state within RTOL_FIT bf16 of
+   the same session on the CPU); every mode's risks within 0.05 of
+   the dense f32 session's; then the
+   kernels at a session's own operands: the square Gram kernel at a
+   partial replan's ``Z[changed]``, ``a[changed]`` (bitwise the slices the
+   new plan kept, every other slice ``torch.equal`` to the old plan's,
+   which is left as it was) and the multi solve of one session step,
+   each against its plain version;
+9. the ``kernels`` line, the card line, and the result line.
 
 ``--only`` runs one part and prints no result line, to compare two
 trees' ``src/`` under one script (a copy of this file at each tree's
 root): ``large_fit`` phase 5's large fits, ``multi_mid`` the multi
 solve at N between the paper's and the large fit's (B in {2, 20, 300},
 N in {328, 329, 515, 1000}, 100 iterations with the fold), each against
-its plain version and timed, ``figures`` phase 7.
+its plain version and timed, ``figures`` phase 7, ``sessions`` phase 8.
 
 Without a CUDA device, or without the rest of the repository beside it,
 it exits non-zero and prints no result.
@@ -181,6 +209,13 @@ RTOL_FIT = {"f32": 1e-4, "bf16": 1e-2}
 # (tests/test_golden_figures.py)
 FIG2_ENGINES = ("fista", "pallas_fused_multi")
 GOLDEN_ATOL = 0.015
+
+# the sessions phase: Fig. 7's paper regime (benchmarks/fig7_online.py
+# run(fast=False), cut to seed 0), per engine; a bf16 (or factored)
+# session's risks within the bound tests/test_engine.py holds bf16 to
+FIG7_PAPER = dict(stage_iters=30, n_test=1800, qp_iters=100, seed=0)
+FIG7_ENGINES = ("fista", "pallas_fused_multi")
+MODE_RISK_GAP = 0.05
 
 RECORDS = []
 
@@ -860,6 +895,7 @@ def _profile(label: str, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
     busy_us, launches = 0.0, 0
     per_kernel = {k: 0 for k in PROFILED}
     top = []
@@ -877,6 +913,7 @@ def _profile(label: str, fn) -> dict:
                 per_kernel[k] += ev.count
     top.sort(reverse=True)
     emit({"profile": label, "traced_wall_s": wall,
+          "summary_s": time.perf_counter() - t0,
           "device_busy_s": busy_us / 1e6,
           "device_busy_share": busy_us / 1e6 / wall,
           "device_launches": launches, "our_kernels": per_kernel,
@@ -975,7 +1012,7 @@ def figure_runs() -> list:
                                      fig6_mixed, golden)
 
     runs = [(f"golden/{n}", n, fixture(n)["regime"], True)
-            for n in golden.FIGURES]
+            for n in golden.FIGURES if n != "fig7"]     # Fig. 7: phase 8
     for net, V, deg, n_tgt in fig2_convergence.NETS:
         for solver in FIG2_ENGINES:
             runs.append((f"paper/fig2/{net}/{solver}", "fig2",
@@ -1233,6 +1270,261 @@ def sweep_vs_serial(by_path: dict, seen: dict, cases: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the online sessions of Fig. 7
+# ---------------------------------------------------------------------------
+def _session_run(path: str, by_path: dict, stage_iters: int, **kw):
+    """``fig7_online.stage_marks`` on the card, its launches counted from 0
+    just before and read just after, and the problems of each square
+    Gram launch.  Returns (marks, info, launches, Gram problems, wall)."""
+    from repro_torch.figures import fig7_online
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with captured(ops, "weighted_gram") as grams:
+        marks, info = fig7_online.stage_marks(stage_iters, device="cuda",
+                                              **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_path[path] = launches = ops.launch_counts()
+    problems = [int(np.prod(torch.broadcast_shapes(Z.shape[:-2],
+                                                   a.shape[:-1])))
+                for (Z, a), _ in grams]
+    return marks, info, launches, problems, wall
+
+
+def _marks_gap(a: dict, b: dict) -> float:
+    return max(float(np.abs(np.asarray(a[k], np.float64)
+                            - np.asarray(b[k], np.float64)).max())
+               for k in b)
+
+
+def session_launches(info: dict, problems: list, builds: int,
+                     stage_iters: int, qp_solver: str, panels=None,
+                     factored: bool = False) -> dict:
+    """The launches a Fig. 7 session and its replay must make: one build
+    of the changed K slices per compile and per replan that changed an
+    ``a`` row (``builds``, each one prescale and one square launch, or
+    ``panels`` tiled launches under a binding budget; the factored
+    operator's L-only build one tiled launch, its panel all 40 rows);
+    one multi launch per ADMM iteration with ``pallas_fused_multi``.
+    The square launches' problems must sum to the slices ``plan_stats``
+    counts."""
+    stats = info["plan_stats"]["gram_slices_computed"] + \
+        info["replay_plan_stats"]["gram_slices_computed"]
+    if panels is None and not factored and sum(problems) != stats:
+        raise AssertionError(f"the square Gram launches built "
+                             f"{sum(problems)} problems, plan_stats "
+                             f"counts {stats}")
+    squares = 0 if (panels or factored) else builds
+    tiled = builds * (panels or 1) if (panels or factored) else 0
+    iters = 2 * 5 * stage_iters        # five stages, live and replay
+    return {"weighted_gram": squares, "weighted_gram_tiled": tiled,
+            "gram_prescale": builds, "qp_pg_step": 0,
+            "qp_pg_multi": iters if qp_solver == "pallas_fused_multi"
+            and not factored else 0}
+
+
+def check_replans(label: str, info: dict) -> None:
+    """Fig. 7's protocol replans the live session and its replay once per
+    stage switch."""
+    from repro_torch.figures import fig7_online
+
+    want = len(fig7_online.STAGES) - 1
+    for key in ("plan_stats", "replay_plan_stats"):
+        if info[key]["replans"] != want:
+            raise AssertionError(f"{label}: {key} counts "
+                                 f"{info[key]['replans']} replans, the "
+                                 f"protocol makes {want}")
+
+
+def sessions(by_path: dict, seen: dict, cases: dict) -> None:
+    """Fig. 7's golden regime and paper regime per engine, card against
+    CPU; the other plan modes through the paper regime's replans; the
+    kernels at a partial replan's and a session step's own operands."""
+    from repro_torch.engine.invariants import PlanBudget
+    from repro_torch.figures import fig7_online
+
+    phase_t0 = time.perf_counter()
+    regime = fixture("fig7")["regime"]
+    runs = [("golden/fig7", regime, {})]
+    runs += [(f"paper/fig7/{engine}", FIG7_PAPER, {"qp_solver": engine})
+             for engine in FIG7_ENGINES]
+    # one build of the changed K slices per stage (the compile, then four
+    # replans that each change an ``a`` row), live and replay: fixed by
+    # the protocol, not read from the run
+    builds = 2 * len(fig7_online.STAGES)
+    for label, reg, kw in runs:
+        r = dict(reg)
+        stage_iters = r.pop("stage_iters")
+        path = f"sessions/{label}"
+        marks, info, launches, problems, wall = _session_run(
+            path, by_path, stage_iters, **r, **kw)
+        t0 = time.perf_counter()
+        cpu, cpu_info = fig7_online.stage_marks(stage_iters, device="cpu",
+                                                **r, **kw)
+        cpu_wall = time.perf_counter() - t0
+        gap_cpu = _marks_gap(marks, cpu)
+        rec = {"session": label, **reg, **kw, "wall_s": wall,
+               "stage_s": info["stage_s"], "replay_s": info["replay_s"],
+               "cpu_wall_s": cpu_wall, "cpu_stage_s": cpu_info["stage_s"],
+               "replay_bitwise": True, "plan_stats": info["plan_stats"],
+               "gram_launch_problems": problems,
+               "derived": fig7_online.derived(marks),
+               "derived_cpu": fig7_online.derived(cpu),
+               "gap_to_cpu": gap_cpu, "limit_to_cpu": 1.0 / r["n_test"]}
+        if label.startswith("golden"):
+            rec["gap_to_fixture"] = _marks_gap(marks,
+                                               fixture("fig7")["outputs"])
+            rec["limit_to_fixture"] = GOLDEN_ATOL
+        emit(rec)
+        check_replans(label, info)
+        check_launches(path, launches, session_launches(
+            info, problems, builds, stage_iters,
+            kw.get("qp_solver", "fista")))
+        if not gap_cpu <= 1.0 / r["n_test"] + 1e-6:
+            raise AssertionError(f"{label}: the card's risks differ from the "
+                                 f"CPU's by {gap_cpu} > 1/{r['n_test']}")
+        if "gap_to_fixture" in rec and \
+                not rec["gap_to_fixture"] <= GOLDEN_ATOL:
+            raise AssertionError(f"{label}: {rec['gap_to_fixture']} from the "
+                                 f"fixture, beyond {GOLDEN_ATOL}")
+        if label.startswith("paper"):
+            trace_stage(kw["qp_solver"], seen)
+        if kw.get("qp_solver") == "pallas_fused_multi":
+            dense = (marks, info["session"].state)    # the modes' yardstick
+
+    # the other plan modes of the multi engine, through the same replans
+    r = dict(FIG7_PAPER)
+    stage_iters = r.pop("stage_iters")
+    base = {"qp_solver": "pallas_fused_multi"}
+    budget = PlanBudget(tile=(8, 128))             # 8-row panels of N=40
+    modes = [("budget", {"budget": budget}, budget.row_chunk(1, 40)),
+             ("bf16", {"qp_precision": "bf16"}, None),
+             ("factored", {"qp_operator": "factored"}, None)]
+    for label, kw, chunk in modes:
+        path = f"sessions/paper/fig7/pallas_fused_multi/{label}"
+        marks, info, launches, problems, wall = _session_run(
+            path, by_path, stage_iters, **r, **base, **kw)
+        sess = info["session"]
+        errs = _state_errs(sess.state, dense[1], RTOL_FIT["f32"])
+        if label == "bf16":
+            # bf16 is held as phase 5 holds it: against the same session
+            # on the CPU, within the bf16 tolerance
+            _, cpu_info = fig7_online.stage_marks(stage_iters, device="cpu",
+                                                  **r, **base, **kw)
+            held = _state_errs(sess.state, cpu_info["session"].state,
+                               RTOL_FIT["bf16"])
+            against = "the same session on the CPU"
+        else:
+            held, against = errs, "the dense f32 session"
+        rec = {"session": f"paper/fig7/pallas_fused_multi/{label}",
+               "wall_s": wall, "stage_s": info["stage_s"],
+               "replay_s": info["replay_s"], "replay_bitwise": True,
+               "plan_stats": info["plan_stats"],
+               "derived": fig7_online.derived(marks),
+               "risk_gap_to_f32": _marks_gap(marks, dense[0]),
+               "state_errs_to_f32": {k: e[0] for k, e in errs.items()},
+               "f32_max_abs": {k: e[1] for k, e in errs.items()},
+               "state_equal_f32": all(torch.equal(a, b) for a, b in
+                                      zip(sess.state, dense[1])),
+               "plan_has_K": sess._plan.inv.K is not None,
+               "held_against": against,
+               "held_errs": {k: e[0] for k, e in held.items()},
+               "held_max_abs": {k: e[1] for k, e in held.items()},
+               "held_rtol": RTOL_FIT["bf16" if label == "bf16" else "f32"]}
+        emit(rec)
+        check_replans(label, info)
+        panels = None if chunk is None else -(-40 // chunk)
+        check_launches(path, launches, session_launches(
+            info, problems, builds, stage_iters, "pallas_fused_multi",
+            panels=panels, factored=label == "factored"))
+        if not all(e[2] for e in held.values()):
+            raise AssertionError(f"the {label} session differs from "
+                                 f"{against}: {held}")
+        if not rec["risk_gap_to_f32"] <= MODE_RISK_GAP:
+            raise AssertionError(f"the {label} session's risks are "
+                                 f"{rec['risk_gap_to_f32']} from f32's")
+        if rec["plan_has_K"] == (label == "factored"):
+            raise AssertionError(f"the {label} session's plan has K: "
+                                 f"{rec['plan_has_K']}")
+    session_operands(cases)
+    emit({"phase": "sessions", "seconds": time.perf_counter() - phase_t0})
+
+
+def trace_stage(engine: str, seen: dict) -> None:
+    """A torch.profiler trace of one paper-regime stage (stage 2: its
+    replan of all 18 slices and its 30 ADMM iterations), the unit an
+    online user waits for; adds the hand kernels' launches to ``seen``.
+    One stage, not the whole run: the profiler's summary of the fista
+    run's 290k launches took 128 s (measured on one H100)."""
+    from repro_torch.figures import fig7_online
+
+    r = dict(FIG7_PAPER)
+    stage_iters = r.pop("stage_iters")
+    sess = fig7_online.make_session(device="cuda", qp_solver=engine, **r)
+    for i, (_, tasks, couple) in enumerate(fig7_online.STAGES[:2]):
+        fig7_online.enter_stage(sess, tasks, couple)
+        if i == 0:
+            sess.run(stage_iters)
+    per_kernel = _profile(f"fig7 stage 2/{engine}",
+                          lambda: sess.run(stage_iters))
+    for k in seen:
+        seen[k] += per_kernel[k]
+
+
+def session_operands(cases: dict) -> None:
+    """The kernels at a session's own operands: the last stage's partial
+    replan (Task 2 leaves: 12 of 18 slices change) builds K from
+    ``Z[changed]``, ``a[changed]``, held against the plain version and
+    bitwise the slices the new plan kept, the untouched slices
+    ``torch.equal`` to the old plan's, which the replan leaves as it
+    was; and the multi solve of the stage's second step.  The leaving
+    task's slices weigh its bias by 1/1e-6 (U's floor), so the Gram
+    kernel is also held per problem, at RTOL of that problem's largest
+    magnitude."""
+    from repro_torch.figures import fig7_online
+    from repro_torch.kernels import ops, ref
+
+    sess = fig7_online.make_session(device="cuda", n_test=100,
+                                    qp_solver="pallas_fused_multi")
+    for _, tasks, couple in fig7_online.STAGES[:-1]:
+        fig7_online.enter_stage(sess, tasks, couple)
+        sess.run(2)
+    old = sess._plan
+    old_K = old.inv.K.clone()
+    fig7_online.enter_stage(sess, *fig7_online.STAGES[-1][1:])
+    with captured(ops, "weighted_gram") as grams, \
+            captured(ops, "qp_pg_multi") as multis:
+        sess.run(2)
+    new = sess._plan
+    changed = (new.inv.a != old.inv.a).any(-1)
+    n = int(changed.sum())
+    (Z, a), _ = grams[0]
+    K_plain = ref.weighted_gram(Z, a)
+    per_problem = ((new.inv.K[changed] - K_plain).abs().amax((-2, -1))
+                   / K_plain.abs().amax((-2, -1)))
+    rec = {"session_replan": "fig7/s5_t2_leaves", "changed_problems": n,
+           "problems": changed.numel(), "gram_calls": len(grams),
+           "z_shape": list(Z.shape),
+           "max_rel_err_per_problem": float(per_problem.max()),
+           "rtol": RTOL["f32"],
+           "kept_K_equal_old": torch.equal(new.inv.K[~changed],
+                                           old.inv.K[~changed]),
+           "old_K_untouched": torch.equal(old.inv.K, old_K)}
+    emit(rec)
+    if not (len(grams) == 1 and 0 < n < changed.numel()
+            and Z.shape[0] == a.shape[0] == n and rec["kept_K_equal_old"]
+            and rec["old_K_untouched"]
+            and rec["max_rel_err_per_problem"] <= RTOL["f32"]):
+        raise AssertionError(f"the partial replan is not what it should "
+                             f"be: {rec}")
+    hold_gram("fig7_replan", Z, a, cases, built=new.inv.K[changed])
+    args, kw = multis[1]
+    hold_multi("fig7_session/step_2", args, kw, cases)
+
+
+# ---------------------------------------------------------------------------
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1251,7 +1543,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every record to this JSON file")
-    ap.add_argument("--only", choices=("large_fit", "multi_mid", "figures"),
+    ap.add_argument("--only", choices=("large_fit", "multi_mid", "figures",
+                                       "sessions"),
                     help="run only this part, and print no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1272,10 +1565,12 @@ def main() -> int:
           "device_count": torch.cuda.device_count()})
 
     if args.only:
+        build.extension()           # built before any timed region
         if args.only == "large_fit":
             large_fit({})
-        elif args.only == "figures":
-            figures({}, {k: 0 for k in PROFILED}, {k: [] for k in KERNELS})
+        elif args.only in ("figures", "sessions"):
+            run = figures if args.only == "figures" else sessions
+            run({}, {k: 0 for k in PROFILED}, {k: [] for k in KERNELS})
         else:
             multi_mid(dev)
         write_records(args.out)
@@ -1299,6 +1594,7 @@ def main() -> int:
     traced = {k: 0 for k in PROFILED}
     profile_engines(traced)
     figures(by_path, traced, cases)
+    sessions(by_path, traced, cases)
     if not all(traced.values()):
         raise AssertionError(f"the profiler saw none of some kernels: "
                              f"{traced}")

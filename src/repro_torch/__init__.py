@@ -10,8 +10,10 @@ so far: the paper's main path on the single-host ``vmap`` backend,
 
 through ``repro_torch.api.DTSVM`` / ``DSVM`` / ``CSVM``; the large-n
 path (``PlanBudget``, the factored operator, ``Plan.replan``); the sweep
-engine and ``sweep_fit`` (a grid of configs as one batched fit); and
-the runners of the paper's Figs. 2-6 (``repro_torch.figures``).  The
+engine and ``sweep_fit`` (a grid of configs as one batched fit);
+``OnlineSession`` (tasks entering and leaving a live network) with the
+event log and its ``replay`` (``repro_torch.store``); and the runners of
+the paper's Figs. 2-7 (``repro_torch.figures``).  The
 four TPU kernels (the square and the tiled weighted Gram build, the
 fused QP step and the fused multi-iteration QP solve) are CUDA C++
 kernels for ``sm_90a`` under ``repro_torch/kernels/csrc/``, built at

@@ -1,0 +1,313 @@
+"""OnlineSession: the paper's Fig. 7 setting as an object (twin of
+``repro/api/session.py``).
+
+Tasks enter and leave a live consensus network without restarting: only
+the ``active`` (V, T) and ``couple`` (V,) masks change between stages,
+while the ADMM state (r, alpha, beta, warm-started duals) carries over:
+
+    sess = OnlineSession(X, y, mask=mask, adj=adj,
+                         config=SolverConfig(eps2=100.0, qp_iters=100))
+    sess.run(30)                       # stage 1: all tasks independent
+    sess.drop_task(1); sess.set_coupling(True)
+    sess.run(30)                       # stage 2: task 0 couples with 2
+    ...
+    sess.risks(X_test, y_test)
+
+The session plans incrementally (``repro_torch.engine``): the first
+``run`` compiles the problem's invariants into a ``Plan``; afterwards a
+membership event invalidates only what it touches (``Plan.replan``):
+the counts, the U/a diagonals, the QP box, and the K slices of the
+(v, t) pairs whose ``a`` row changed, which one Gram launch rebuilds (a
+binding ``PlanBudget`` streams them through the tiled kernel's panels).
+Every untouched slice carries over bit for bit; ``plan_stats`` counts
+them.  The session runs on ``device`` (``None`` means ``"cuda"``).
+
+``jit=True`` runs each ``run`` through ``core.run_dtsvm`` on a freshly
+made problem, as the reference's jitted path does.  The port has no
+tracing compiler, so that path is eager; it compiles a new plan per
+``run`` and is numerically equivalent to the plan path (tested).
+
+``log=`` takes an ``repro_torch.store.EventLog`` (anything with an
+``append(event, **payload)`` method): the constructor and every
+membership event and ``run`` are recorded, every array as a numpy copy,
+so that ``repro_torch.store.replay`` rebuilds the session from its
+history alone, on any device.
+
+Not ported yet, and refused by the constructor: the communication fabric
+(``SolverConfig.net``, ``backend="async"``, and with it the node
+events; ROADMAP.md, 'Modules to port', item 2), telemetry (item 5) and
+the multi-device backends (item 6).  Snapshots (``SessionStore``) are
+item 3.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.api import backends, evaluate
+from repro_torch.api.solvers import (SolverConfig, _as_solver_config,
+                                     _check_ported)
+from repro_torch.core import dtsvm as core
+from repro_torch.engine import plan as engine_plan
+
+
+def _numpy(x, dtype=np.float32) -> np.ndarray:
+    """A numpy copy of an array, a tensor on any device, or anything
+    ``np.array`` takes (e.g. a reference log's arrays)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.array(x, dtype, copy=True)
+
+
+def _node_index(nodes, V: int):
+    return slice(None) if nodes is None else np.asarray(nodes, int)
+
+
+class OnlineSession:
+    """Carry ADMM state across task enter/leave events (paper Fig. 7)."""
+
+    def __init__(self, X, y, mask=None, adj=None, *,
+                 config: Optional[SolverConfig] = None,
+                 active=None, couple=None, X_test=None, y_test=None,
+                 jit: bool = False, log=None, device=None, **overrides):
+        self.config = _as_solver_config(config, overrides)
+        _check_ported(self.config)
+        self.device = dev = device_lib.resolve(device)
+        on_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        self._X = on_dev(_numpy(X))
+        self._y = on_dev(_numpy(y))
+        V, T, N, p = self._X.shape
+        self._mask = on_dev(np.ones((V, T, N), np.float32) if mask is None
+                            else _numpy(mask))
+        self._adj = on_dev(np.zeros((V, V), bool) if adj is None
+                           else _numpy(adj, bool))
+        self.V, self.T = V, T
+        self._active = (np.ones((V, T), np.float32) if active is None
+                        else _numpy(active))
+        self._couple = (np.ones((V,), np.float32) if couple is None
+                        else _numpy(couple))
+        self._jit = jit
+        self._test = None
+        if X_test is not None:
+            self._test = evaluate.broadcast_test_set(X_test, y_test, V, dev)
+        self.state: Optional[core.DTSVMState] = None
+        self.iteration = 0
+        self.history = []            # one (iters, V, T) risk block per run()
+        self._plan: Optional[engine_plan.Plan] = None
+        self._masks_dirty = False    # membership changed since last plan
+        #: the fabric's byte accounting (item 2); a vmap session has none
+        self.net_report_: Optional[dict] = None
+        self._log = log
+        self._emit("init", X=_numpy(self._X), y=_numpy(self._y),
+                   mask=_numpy(self._mask), adj=_numpy(self._adj, bool),
+                   config=self.config.to_dict(),
+                   active=self._active.copy(), couple=self._couple.copy(),
+                   jit=jit,
+                   X_test=None if X_test is None else _numpy(X_test),
+                   y_test=None if y_test is None else _numpy(y_test))
+
+    def _emit(self, event: str, **payload) -> None:
+        """Append one record to the session's event log, if any."""
+        if self._log is not None:
+            self._log.append(event, **payload)
+
+    # ------------------------------------------------------------------
+    # membership events
+    # ------------------------------------------------------------------
+    @property
+    def active(self) -> np.ndarray:
+        """(V, T) activity mask (copy; mutate via the event methods)."""
+        return self._active.copy()
+
+    @property
+    def couple(self) -> np.ndarray:
+        """(V,) task-coupling mask (copy)."""
+        return self._couple.copy()
+
+    def add_task(self, task: int, nodes: Optional[Sequence[int]] = None
+                 ) -> "OnlineSession":
+        """Activate ``task`` at ``nodes`` (default: everywhere)."""
+        self._active[_node_index(nodes, self.V), task] = 1.0
+        self._masks_dirty = True
+        self._emit("add_task", task=int(task), nodes=None if nodes is None
+                   else [int(n) for n in nodes])
+        return self
+
+    def drop_task(self, task: int, nodes: Optional[Sequence[int]] = None
+                  ) -> "OnlineSession":
+        """Deactivate ``task``; its per-node state freezes but persists,
+        so the task re-enters later exactly where it left off."""
+        self._active[_node_index(nodes, self.V), task] = 0.0
+        self._masks_dirty = True
+        self._emit("drop_task", task=int(task), nodes=None if nodes is None
+                   else [int(n) for n in nodes])
+        return self
+
+    def set_active(self, active) -> "OnlineSession":
+        """Replace the whole (V, T) activity mask at once (bulk form of
+        ``add_task``/``drop_task``)."""
+        self._active = _numpy(active).reshape(self.V, self.T)
+        self._masks_dirty = True
+        self._emit("set_active", active=self._active.copy())
+        return self
+
+    def set_coupling(self, on: Union[bool, float, np.ndarray],
+                     nodes: Optional[Sequence[int]] = None
+                     ) -> "OnlineSession":
+        """Turn cross-task consensus on/off, per node or globally."""
+        if np.ndim(on) == 0:
+            self._couple[_node_index(nodes, self.V)] = float(on)
+        else:
+            if nodes is not None:
+                raise ValueError(
+                    "pass either a full (V,) couple mask OR a scalar with "
+                    "nodes=, not both")
+            self._couple = _numpy(on).reshape(self.V)
+        self._masks_dirty = True
+        self._emit("set_coupling",
+                   on=float(on) if np.ndim(on) == 0 else _numpy(on),
+                   nodes=None if nodes is None
+                   else [int(n) for n in nodes])
+        return self
+
+    # ------------------------------------------------------------------
+    # node-level membership: a fabric feature (ROADMAP.md, item 2)
+    # ------------------------------------------------------------------
+    def _node_event(self) -> None:
+        # the constructor admits the vmap backend only, where the
+        # reference refuses node events with this same error
+        raise ValueError(
+            "node membership events are a fabric feature — configure "
+            "a communication model (SolverConfig(net=NetConfig(...))) "
+            "or backend='async' first")
+
+    def node_enter(self, node: int) -> "OnlineSession":
+        """A new node joins (a fabric session's event; refused here)."""
+        self._node_event()
+
+    def node_leave(self, node: int) -> "OnlineSession":
+        """A graceful departure (a fabric session's event; refused)."""
+        self._node_event()
+
+    def node_crash(self, node: int) -> "OnlineSession":
+        """An abrupt death (a fabric session's event; refused here)."""
+        self._node_event()
+
+    def node_recover(self, node: int, from_state=None) -> "OnlineSession":
+        """A crashed node rejoins (a fabric session's event; refused)."""
+        self._node_event()
+
+    @property
+    def node_status(self) -> dict:
+        """Current per-node membership: ``{"alive": (V,) bool mask,
+        "events": [event dicts fired so far]}``; without a fabric every
+        node is alive and no event has fired."""
+        return {"alive": np.ones(self.V, bool), "events": []}
+
+    # ------------------------------------------------------------------
+    # execution
+    # ------------------------------------------------------------------
+    def problem(self) -> core.DTSVMProblem:
+        """The current-stage problem: same arrays, fresh masks.
+
+        The masks are COPIED here: on the CPU a tensor made from a
+        float32 numpy array aliases it, and the membership events mutate
+        ``_active``/``_couple`` in place, so an uncopied mask would
+        rewrite the masks of a plan compiled for the old ones.
+        """
+        cfg = self.config
+        return core.make_problem(
+            self._X, self._y, self._mask, self._adj, C=cfg.C,
+            eps1=cfg.eps1, eps2=cfg.eps2, eta1=cfg.eta1, eta2=cfg.eta2,
+            box_scale=cfg.box_scale, active=self._active.copy(),
+            couple=self._couple.copy(), device=self.device)
+
+    def _current_plan(self) -> engine_plan.Plan:
+        """The stage's Plan: compiled once, then incrementally re-planned
+        (the masks copied, as in ``problem``)."""
+        if self._plan is None:
+            self._plan = engine_plan.compile_problem(
+                self.problem(), self.config)
+        elif self._masks_dirty:
+            self._plan = self._plan.replan(active=self._active.copy(),
+                                           couple=self._couple.copy())
+        self._masks_dirty = False
+        return self._plan
+
+    @property
+    def plan_stats(self) -> dict:
+        """Invariant-reuse counters of the incremental planner (empty
+        before the first ``run``)."""
+        return {} if self._plan is None else dict(self._plan.stats)
+
+    def run(self, iters: Optional[int] = None, *, record: bool = True):
+        """Advance the live network ``iters`` ADMM iterations under the
+        CURRENT membership masks.  Returns the (iters, V, T) risk curve
+        (numpy) when a test set was given (and ``record``), else None."""
+        cfg = self.config
+        iters = iters if iters is not None else cfg.iters
+        self._emit("run", iters=int(iters), record=bool(record))
+        ev = None
+        if record and self._test is not None:
+            Xte, yte = self._test
+            ev = lambda st: core.risks(st.r, Xte, yte)  # noqa: E731
+        default_qp_mode = (cfg.qp_precision, cfg.qp_operator) == (
+            "f32", "materialized")
+        # the legacy path runs the core loop, which only knows the
+        # materialized f32 operator: other QP modes take the plan path
+        if self._jit and default_qp_mode:
+            prob = self.problem()
+            if self.state is None:
+                self.state = core.init_state(prob)
+            self.state, hist = core.run_dtsvm(
+                prob, iters, cfg.qp_iters, state=self.state, eval_fn=ev,
+                qp_solver=cfg.qp_solver)
+        else:
+            # the constructor admits the vmap backend only: the
+            # reference's plan-less branch (the other backends) and its
+            # "async" branch (fabric state carried across runs) come with
+            # ROADMAP.md items 6 and 2
+            plan = self._current_plan()
+            if self.state is None:
+                self.state = core.init_state(plan.prob)
+            options = dict(cfg.backend_options, plan=plan)
+            self.state, hist = backends.run(
+                plan.prob, iters, backend="vmap", qp_iters=cfg.qp_iters,
+                qp_solver=cfg.qp_solver, qp_precision=cfg.qp_precision,
+                qp_operator=cfg.qp_operator, state=self.state, eval_fn=ev,
+                **options)
+        self.iteration += iters
+        hist = evaluate.risk_curve(hist)
+        if hist is None:
+            return None
+        self.history.append(hist)
+        return hist.copy()
+
+    # ------------------------------------------------------------------
+    # evaluation
+    # ------------------------------------------------------------------
+    def _require_state(self) -> core.DTSVMState:
+        if self.state is None:
+            raise RuntimeError("run() the session first")
+        return self.state
+
+    def risks(self, X_test=None, y_test=None) -> torch.Tensor:
+        """(V, T) risks on the given (or construction-time) test set."""
+        st = self._require_state()
+        if X_test is None:
+            if self._test is None:
+                raise ValueError("no test set given")
+            Xte, yte = self._test
+            return core.risks(st.r, Xte, yte)
+        return evaluate.risks_of_state(st, X_test, y_test)
+
+    def global_risks(self, X_test=None, y_test=None) -> np.ndarray:
+        """(T,) network-average risks."""
+        return evaluate.global_risks(self.risks(X_test, y_test))
+
+    def residuals(self):
+        """(task, node) consensus residuals under the current masks."""
+        return core.consensus_residuals(self._require_state(), self.problem())

@@ -119,6 +119,30 @@ class SolverConfig:
         return cls(**d)
 
 
+def _as_solver_config(config: Optional[SolverConfig],
+                      overrides: dict) -> SolverConfig:
+    """``config`` (default: ``SolverConfig()``) with ``overrides``
+    replaced."""
+    cfg = config if config is not None else SolverConfig()
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    return cfg
+
+
+def effective_backend(cfg: SolverConfig) -> str:
+    """The backend a config actually runs: a communication model
+    (``cfg.net``) promotes the default "vmap" to "async" and is invalid
+    with any other backend.  Shared by the solvers and the
+    ``OnlineSession``, as in the reference."""
+    if cfg.net is not None:
+        if cfg.backend == "vmap":
+            return "async"
+        if cfg.backend != "async":
+            raise ValueError(f"SolverConfig.net is an async-backend "
+                             f"feature; got backend={cfg.backend!r}")
+    return cfg.backend
+
+
 def _check_ported(cfg: SolverConfig) -> None:
     """Raise on the options the port does not have yet: ``net``,
     ``telemetry`` and the backends other than ``"vmap"``."""
@@ -162,8 +186,7 @@ class _ConsensusSolver:
 
     def __init__(self, config: Optional[SolverConfig] = None, *,
                  device=None, **overrides):
-        cfg = config if config is not None else SolverConfig()
-        self.config = cfg.replace(**overrides) if overrides else cfg
+        self.config = _as_solver_config(config, overrides)
         self.device = device
         self.problem_: Optional[core.DTSVMProblem] = None
         self.state_: Optional[core.DTSVMState] = None
@@ -287,8 +310,7 @@ class CSVM:
 
     def __init__(self, config: Optional[SolverConfig] = None, *,
                  C_scale: float = 1.0, device=None, **overrides):
-        cfg = config if config is not None else SolverConfig()
-        self.config = cfg.replace(**overrides) if overrides else cfg
+        self.config = _as_solver_config(config, overrides)
         self.C_scale = C_scale
         self.device = device
         self.w_: Optional[torch.Tensor] = None      # (T, p)

@@ -17,12 +17,13 @@ them as it is; the reference gets that axis from ``jax.vmap``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.core import qp as qp_lib
 from repro_torch.kernels import ops as kops
 
 _U_FLOOR = 1e-6
@@ -152,6 +153,46 @@ def _qp_inputs(prob: DTSVMProblem, u, f):
     q = prob.mask + (Z * g[..., None, :]).sum(-1)
     hi = prob.box_scale * prob.C * prob.mask * prob.active[..., None]
     return Z, K, q, hi
+
+
+def dtsvm_step(state: DTSVMState, prob: DTSVMProblem,
+               qp_iters: int = 200) -> DTSVMState:
+    """One full Proposition-1 iteration (eqs. 6-9), self-contained.
+
+    The LEGACY per-iteration oracle: it rebuilds every loop invariant (Z,
+    K, u, counts, box) on each call, and solves the duals of all (v, t)
+    problems in one batched FISTA solve (the reference vmaps a
+    one-problem solve over them).  Runs go through :func:`run_dtsvm` /
+    ``engine.compile_problem``, which hoist the invariants out of the
+    loop; with ``qp_solver="fista"`` the states are bitwise these.
+    """
+    from repro_torch.engine.plan import consensus_update   # deferred: cycle
+    nbr_reduce = _default_nbr_reduce(prob)
+    ntp, nbr = _counts(prob)
+    u = _u_diag(prob, ntp, nbr)
+    f = _f_vec(prob, state, ntp, nbr, nbr_reduce)
+    Z, K, q, hi = _qp_inputs(prob, u, f)
+    lam = qp_lib.solve_box_qp_fista(K, q, hi, iters=qp_iters,
+                                    lam0=state.lam)           # eq. (6)
+    zl = torch.einsum("...n,...nd->...d", lam,
+                      kops.broadcast_z(Z, lam))               # X^T Y lam
+    r, alpha, beta = consensus_update(prob, state, u, ntp, nbr, f, zl,
+                                      nbr_reduce)             # eqs. (7)-(9)
+    return DTSVMState(r=r, alpha=alpha, beta=beta, lam=lam)
+
+
+def run_dtsvm(prob: DTSVMProblem, iters: int, qp_iters: int = 200,
+              state: Optional[DTSVMState] = None,
+              eval_fn: Optional[Callable[[DTSVMState], torch.Tensor]] = None,
+              qp_solver: str = "fista"):
+    """Run ``iters`` ADMM iterations through a freshly compiled
+    ``engine.Plan`` (``qp_solver`` selects the dual engine).  Returns
+    ``(state, history)``, history stacking ``eval_fn(state)`` after every
+    iteration (or None)."""
+    from repro_torch.engine import plan as engine_plan   # deferred: cycle
+    pl = engine_plan.compile_problem(prob, qp_iters=qp_iters,
+                                     qp_solver=qp_solver)
+    return pl.run(state=state, iters=iters, eval_fn=eval_fn)
 
 
 # ---------------------------------------------------------------------------

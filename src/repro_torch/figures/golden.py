@@ -1,6 +1,7 @@
-"""The outputs the golden fixtures ``tests/golden/fig{2..6}.json`` hold,
+"""The outputs the golden fixtures ``tests/golden/fig{2..7}.json`` hold,
 from the port's runners (twin of the ``_fig*_outputs`` functions of
-``tests/test_golden_figures.py``).
+``tests/test_golden_figures.py``).  ``fig7_churn`` runs over the
+communication fabric, which is not ported yet.
 
     outputs("fig3", fixture["regime"], device="cuda")
 
@@ -10,9 +11,10 @@ its ``outputs`` are, with numpy arrays and lists for values.
 from __future__ import annotations
 
 from repro_torch.figures import (fig2_convergence, fig3_eps_sweep,
-                                 fig4_c_sweep, fig5_unbalanced, fig6_mixed)
+                                 fig4_c_sweep, fig5_unbalanced, fig6_mixed,
+                                 fig7_online)
 
-FIGURES = ("fig2", "fig3", "fig4", "fig5", "fig6")
+FIGURES = ("fig2", "fig3", "fig4", "fig5", "fig6", "fig7")
 
 
 def outputs(name: str, regime: dict, device=None) -> dict:
@@ -43,4 +45,10 @@ def outputs(name: str, regime: dict, device=None) -> dict:
         left, right, _ = fig6_mixed.mixed_network_risks(
             r.pop("seeds"), r.pop("iters"), device=device, **r)
         return {"left_dsvm": left, "right_mixed": right}
+    if name == "fig7":
+        marks, _ = fig7_online.stage_marks(r.pop("stage_iters"),
+                                           device=device, **r)
+        return marks
+    if name == "fig7_churn":
+        fig7_online.churn_marks(r.pop("stage_iters"), device=device, **r)
     raise ValueError(f"unknown figure {name!r}; expected one of {FIGURES}")

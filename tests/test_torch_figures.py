@@ -1,11 +1,12 @@
 """The port's figure runners (``repro_torch.figures``) reproduce the golden
-fixtures ``tests/golden/fig{2..6}.json`` on the CPU, through
+fixtures ``tests/golden/fig{2..7}.json`` on the CPU, through
 ``repro_torch.figures.golden``.
 
 Each runner is called at its fixture's own ``regime`` (read from the
 JSON) and held to the fixtures' ``ATOL = 0.015``
 (tests/test_golden_figures.py), the bound the JAX package's own golden
-tests use; the observed gap is printed (on this tree about 3e-8).
+tests use; the observed gap is printed (on this tree about 3e-8; Fig. 7
+1.5e-8, its replay audit bitwise inside ``stage_marks``).
 """
 import json
 import os

@@ -714,7 +714,8 @@ def test_kernels_at_sweep_and_csvm_operands_match_plain(cuda, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["fig2", "fig3", "fig4", "fig5", "fig6"])
+@pytest.mark.parametrize("name", ["fig2", "fig3", "fig4", "fig5", "fig6",
+                                  "fig7"])
 def test_golden_figures_on_the_card(cuda, name):
     """Each golden regime through the port on the card, within the
     fixtures' ATOL = 0.015 of tests/golden/<fig>.json."""
@@ -732,3 +733,60 @@ def test_golden_figures_on_the_card(cuda, name):
         np.testing.assert_allclose(np.asarray(got[key], np.float64),
                                    np.asarray(val, np.float64), atol=0.015,
                                    err_msg=f"{name}/{key}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [dict(qp_solver="fista"),
+                                 dict(qp_solver="pallas_fused_multi"),
+                                 dict(qp_solver="pallas_fused_multi",
+                                      budget="panels"),
+                                 dict(qp_solver="pallas_fused", jit=True)])
+def test_session_on_the_card_matches_the_cpu(cuda, cfg):
+    """Fig. 7's five stages through an ``OnlineSession`` on the card
+    (incremental replans; under a binding budget the rebuilt slices
+    stream through the tiled kernel; ``jit=True`` compiles per run):
+    the final state within 1e-4 of each leaf's largest magnitude of the
+    same session on the CPU, and a replay of its event log on the card
+    bitwise the live session.  The sessions are Fig. 7's (the network,
+    data and config of ``fig7_online.make_session``), built here so that
+    ``jit`` can be set."""
+    from repro_torch.api import OnlineSession, PlanBudget, SolverConfig
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.data import synthetic
+    from repro_torch.figures import fig7_online
+    from repro_torch.store import EventLog, replay
+
+    cfg = dict(cfg)
+    jit = cfg.pop("jit", False)
+    if cfg.pop("budget", None):
+        cfg["budget"] = PlanBudget(tile=(8, 128))     # 8-row panels of 40
+    V, T = fig7_online.V, fig7_online.T
+    n_train = np.zeros((V, T), int)
+    n_train[:, :2] = 10
+    n_train[:, 2] = 40
+    data = synthetic.make_multitask_data(
+        V=V, T=T, p=10, n_train=n_train, n_test=300, relatedness=0.9,
+        noise=1.0, seed=0)
+    sessions, logs = {}, {}
+    for dev in ("cuda", "cpu"):
+        logs[dev] = EventLog()
+        sess = sessions[dev] = OnlineSession(
+            data["X"], data["y"], mask=data["mask"], adj=graph_lib.full(V),
+            config=SolverConfig(C=0.01, eps1=1.0, eps2=100.0, qp_iters=40,
+                                **cfg),
+            X_test=data["X_test"], y_test=data["y_test"],
+            couple=np.zeros(V, np.float32), log=logs[dev], jit=jit,
+            device=dev)
+        for _, tasks, couple in fig7_online.STAGES:
+            fig7_online.enter_stage(sess, tasks, couple)
+            sess.run(4)
+    card, cpu = sessions["cuda"], sessions["cpu"]
+    for name, g, w in zip(cpu.state._fields, card.state, cpu.state):
+        scale = float(w.abs().max())
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale, name
+    assert card.plan_stats == cpu.plan_stats
+    twin = replay(logs["cuda"], device="cuda")
+    for name, g, w in zip(card.state._fields, twin.state, card.state):
+        assert torch.equal(g, w), name
+    for h, w in zip(twin.history, card.history):
+        assert np.array_equal(h, w)
