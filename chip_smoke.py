@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's main path on one GPU and check it.
 
     python3 chip_smoke.py [--out FILE]
-                          [--only large_fit|multi_mid|figures|sessions]
+                          [--only large_fit|multi_mid|figures|sessions|fabric]
 
 Runs from the root of a checkout, on a machine with one CUDA card, the
 CUDA toolkit and ninja; it builds the hand kernels itself into
@@ -106,14 +106,41 @@ any failure raises and exits non-zero:
    new plan kept, every other slice ``torch.equal`` to the old plan's,
    which is left as it was) and the multi solve of one session step,
    each against its plain version;
-9. the ``kernels`` line, the card line, and the result line.
+9. the communication fabric (``repro_torch.net``, the ``"async"``
+   backend): (a) Fig. 7's node-churn variant through
+   ``fig7_online.churn_marks`` (a lossy int8 fabric with error
+   feedback, drops, partial activation and bounded staleness; a crash, a
+   recovery and a leave; its event log replayed bitwise and the final
+   alive mask checked inside), the golden regime within ATOL of
+   ``tests/golden/fig7_churn.json`` and the paper regime per engine
+   within 1/n_test of the same run on the CPU, launches counted as in
+   phase 8 (the node events replan nothing); (b) BENCH_comms' error
+   feedback point (``benchmarks/bench_comms.py``: V=6, T=2, 40/200
+   samples, 60 ADMM iterations of 100 QP iterations) on the card and
+   the CPU: int8 with and without error feedback at identical bytes per
+   round, error feedback no worse in risk and closer to the float32
+   solution, each fit's counters equal to the CPU's and its risks within
+   a stated bound of them; then the exchange's general path (a delay
+   ring, a binding token bucket, drops) with ``pallas_fused`` under a
+   binding budget against the same fit on the CPU, its step, tiled Gram
+   and prescale launches counted; (c) the identity
+   fabric at phase 5's large fit (V=2, T=1, N=20000, p=256,
+   ``pallas_fused_multi``): the async fit ``torch.equal`` to the vmap
+   fit on the same plan, FIT_REPS walls of each and their peak device
+   memory; (d) a torch.profiler trace of one paper stage on the vmap
+   backend, the identity (buffer) fabric and the churn (mailbox)
+   fabric: launches per round and the device's busy share; then the
+   Gram kernel at the churn session's compile and the multi solve at
+   one of its rounds, against their plain versions;
+10. the ``kernels`` line, the card line, and the result line.
 
 ``--only`` runs one part and prints no result line, to compare two
 trees' ``src/`` under one script (a copy of this file at each tree's
 root): ``large_fit`` phase 5's large fits, ``multi_mid`` the multi
 solve at N between the paper's and the large fit's (B in {2, 20, 300},
 N in {328, 329, 515, 1000}, 100 iterations with the fold), each against
-its plain version and timed, ``figures`` phase 7, ``sessions`` phase 8.
+its plain version and timed, ``figures`` phase 7, ``sessions`` phase 8,
+``fabric`` phase 9.
 
 Without a CUDA device, or without the rest of the repository beside it,
 it exits non-zero and prints no result.
@@ -216,6 +243,15 @@ GOLDEN_ATOL = 0.015
 FIG7_PAPER = dict(stage_iters=30, n_test=1800, qp_iters=100, seed=0)
 FIG7_ENGINES = ("fista", "pallas_fused_multi")
 MODE_RISK_GAP = 0.05
+
+# the fabric phase: BENCH_comms' error-feedback point
+# (benchmarks/bench_comms.py run(fast=False): V=6, 40/200 samples per task
+# over a random graph of degree 0.8, 1800 test samples, 60 ADMM
+# iterations of 100 QP iterations)
+COMMS = dict(V=6, n_per_task=(40, 200), degree=0.8, n_test=1800, iters=60,
+             qp_iters=100)
+# the exchange's general path (delay ring, token bucket) on that data
+GENERAL_FABRIC = dict(iters=30, qp_iters=50)
 
 RECORDS = []
 
@@ -1012,7 +1048,8 @@ def figure_runs() -> list:
                                      fig6_mixed, golden)
 
     runs = [(f"golden/{n}", n, fixture(n)["regime"], True)
-            for n in golden.FIGURES if n != "fig7"]     # Fig. 7: phase 8
+            for n in golden.FIGURES
+            if n not in ("fig7", "fig7_churn")]     # phases 8 and 9
     for net, V, deg, n_tgt in fig2_convergence.NETS:
         for solver in FIG2_ENGINES:
             runs.append((f"paper/fig2/{net}/{solver}", "fig2",
@@ -1272,18 +1309,20 @@ def sweep_vs_serial(by_path: dict, seen: dict, cases: dict) -> None:
 # ---------------------------------------------------------------------------
 # phase 8: the online sessions of Fig. 7
 # ---------------------------------------------------------------------------
-def _session_run(path: str, by_path: dict, stage_iters: int, **kw):
-    """``fig7_online.stage_marks`` on the card, its launches counted from 0
-    just before and read just after, and the problems of each square
-    Gram launch.  Returns (marks, info, launches, Gram problems, wall)."""
+def _session_run(path: str, by_path: dict, stage_iters: int,
+                 runner=None, **kw):
+    """``fig7_online.stage_marks`` (or ``runner``, e.g. ``churn_marks``)
+    on the card, its launches counted from 0 just before and read just
+    after, and the problems of each square Gram launch.  Returns (marks,
+    info, launches, Gram problems, wall)."""
     from repro_torch.figures import fig7_online
     from repro_torch.kernels import ops
 
+    runner = runner or fig7_online.stage_marks
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     with captured(ops, "weighted_gram") as grams:
-        marks, info = fig7_online.stage_marks(stage_iters, device="cuda",
-                                              **kw)
+        marks, info = runner(stage_iters, device="cuda", **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     by_path[path] = launches = ops.launch_counts()
@@ -1525,6 +1564,349 @@ def session_operands(cases: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the communication fabric
+# ---------------------------------------------------------------------------
+def fabric(by_path: dict, seen: dict, cases: dict) -> None:
+    """Fig. 7's churn variant (golden regime and paper regime per engine,
+    card against CPU), BENCH_comms' error-feedback point, the identity
+    fabric at the large fit, a trace of one paper stage per exchange
+    mode, and the kernels at a churn session's own operands."""
+    from repro_torch.figures import fig7_online
+
+    phase_t0 = time.perf_counter()
+    runs = [("golden/fig7_churn", fixture("fig7_churn")["regime"], {})]
+    runs += [(f"paper/fig7_churn/{engine}", FIG7_PAPER,
+              {"qp_solver": engine}) for engine in FIG7_ENGINES]
+    # as phase 8: one build of the changed K slices per stage, live and
+    # replay; a node event changes no task mask and so replans nothing
+    builds = 2 * len(fig7_online.STAGES)
+    for label, reg, kw in runs:
+        r = dict(reg)
+        stage_iters = r.pop("stage_iters")
+        path = f"fabric/{label}"
+        marks, info, launches, problems, wall = _session_run(
+            path, by_path, stage_iters, runner=fig7_online.churn_marks,
+            **r, **kw)
+        t0 = time.perf_counter()
+        cpu, cpu_info = fig7_online.churn_marks(stage_iters, device="cpu",
+                                                **r, **kw)
+        cpu_wall = time.perf_counter() - t0
+        gap_cpu = _marks_gap(marks, cpu)
+        rep, cpu_rep = info["net_report"], cpu_info["net_report"]
+        rec = {"churn": label, **reg, **kw, "wall_s": wall,
+               "stage_s": info["stage_s"], "replay_s": info["replay_s"],
+               "cpu_wall_s": cpu_wall, "cpu_stage_s": cpu_info["stage_s"],
+               "replay_bitwise": True,
+               "alive": info["session"].node_status["alive"].tolist(),
+               "marks": {k: v.tolist() for k, v in marks.items()},
+               "derived": fig7_online.derived(marks),
+               "derived_cpu": fig7_online.derived(cpu),
+               "gap_to_cpu": gap_cpu, "limit_to_cpu": 1.0 / r["n_test"],
+               "bytes_per_round": rep["bytes_per_round"],
+               "msgs_sent": rep["msgs_sent"],
+               "delivery_rate": rep["delivery_rate"],
+               "warmfill_msgs": rep["warmfill_msgs"],
+               "max_silence": rep["max_silence"],
+               "counters_equal_cpu": all(
+                   rep[k] == cpu_rep[k] for k in
+                   ("msgs_sent", "msgs_delivered", "bytes_sent",
+                    "warmfill_msgs", "max_silence", "stale_edges"))}
+        if label.startswith("golden"):
+            rec["gap_to_fixture"] = _marks_gap(
+                marks, fixture("fig7_churn")["outputs"])
+            rec["limit_to_fixture"] = GOLDEN_ATOL
+        emit(rec)
+        check_replans(label, info)
+        check_launches(path, launches, session_launches(
+            info, problems, builds, stage_iters,
+            kw.get("qp_solver", "fista")))
+        if not gap_cpu <= 1.0 / r["n_test"] + 1e-6:
+            raise AssertionError(f"{label}: the card's risks differ from the "
+                                 f"CPU's by {gap_cpu} > 1/{r['n_test']}")
+        if "gap_to_fixture" in rec and \
+                not rec["gap_to_fixture"] <= GOLDEN_ATOL:
+            raise AssertionError(f"{label}: {rec['gap_to_fixture']} from the "
+                                 f"fixture, beyond {GOLDEN_ATOL}")
+    comms_error_feedback(by_path)
+    general_fabric(by_path)
+    identity_large(by_path)
+    trace_exchange(seen)
+    fabric_operands(cases)
+    emit({"phase": "fabric", "seconds": time.perf_counter() - phase_t0})
+
+
+def comms_error_feedback(by_path: dict) -> None:
+    """BENCH_comms' error-feedback point on the card and on the CPU:
+    float32 (vmap), int8 and int8 with error feedback; each card fit's
+    risks within 1/n_test of the CPU's, its counters and bytes equal;
+    the two int8 fits at identical bytes per round, error feedback no
+    worse in risk and closer to the float32 solution (the assertions of
+    bench_comms.py)."""
+    from repro_torch.api import DTSVM, LinkPolicy, NetConfig, SolverConfig
+    from repro_torch.figures.common import build
+    from repro_torch.kernels import ops
+
+    data, A = build(COMMS["V"], list(COMMS["n_per_task"]),
+                    degree=COMMS["degree"], seed=0, n_test=COMMS["n_test"])
+    cfg = SolverConfig(C=0.01, eps2=1.0, iters=COMMS["iters"],
+                       qp_iters=COMMS["qp_iters"])
+    nets = (("float32", None),
+            ("int8", NetConfig(policy=LinkPolicy(quant="int8"))),
+            ("int8+ef", NetConfig(policy=LinkPolicy(quant="int8"),
+                                  error_feedback=True)))
+    fits = {"cuda": {}, "cpu": {}}
+    for dev in ("cuda", "cpu"):
+        for label, net in nets:
+            if dev == "cuda":
+                ops.reset_launch_counts()
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit = DTSVM(cfg.replace(net=net), device=dev).fit(
+                data["X"], data["y"], mask=data["mask"], adj=A)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                by_path[f"fabric/comms/{label}"] = ops.launch_counts()
+            wall = time.perf_counter() - t0
+            fits[dev][label] = (fit, fit.risks(data["X_test"],
+                                               data["y_test"]).cpu(), wall)
+    counters = ("bytes_per_round", "bytes_sent", "msgs_sent",
+                "msgs_delivered")
+    recs = {}
+    for label, net in nets:
+        rec = {"comms": label}
+        for dev in ("cuda", "cpu"):
+            fit, risks, wall = fits[dev][label]
+            base_fit, base_risks, _ = fits[dev]["float32"]
+            rep = fit.net_report_ or {}
+            rec[dev] = {
+                "wall_s": wall, "mode": rep.get("mode", "vmap"),
+                **{k: rep[k] for k in counters if k in rep},
+                "final_risks_mean": risks.mean(0).tolist(),
+                "max_abs_risk_delta_vs_float32": float(
+                    (risks - base_risks).abs().max()),
+                "solution_gap_vs_float32": float(
+                    (fit.state_.r - base_fit.state_.r).abs().mean())}
+        errs = _state_errs(fits["cuda"][label][0].state_,
+                           fits["cpu"][label][0].state_, RTOL_FIT["f32"])
+        rec["state_rel_errs_to_cpu"] = {
+            k: e[0] / max(e[1], 1e-30) for k, e in errs.items()}
+        rec["risk_gap_to_cpu"] = float(
+            (fits["cuda"][label][1] - fits["cpu"][label][1]).abs().max())
+        rec["counters_equal_cpu"] = all(rec["cuda"].get(k) ==
+                                        rec["cpu"].get(k) for k in counters)
+        recs[label] = rec
+    # an int8 code rounds x / scale to an integer, so a last-bit
+    # difference between the card's products and the CPU's can move a
+    # mailbox entry by a whole step (max|x| / 127) and the run goes on
+    # from there: the int8 fits are held to the CPU within the int8
+    # wire's own effect on the risks (the CPU's int8-vs-float32 delta),
+    # the float32 fit within 1/n_test
+    wire = recs["int8"]["cpu"]["max_abs_risk_delta_vs_float32"]
+    for label, rec in recs.items():
+        rec["limit_to_cpu"] = (1.0 / COMMS["n_test"] if label == "float32"
+                               else max(1.0 / COMMS["n_test"], wire))
+        emit(rec)
+    for label, rec in recs.items():
+        if not rec["counters_equal_cpu"]:
+            raise AssertionError(f"{label}: the card's counters differ from "
+                                 f"the CPU's: {rec}")
+        if not rec["risk_gap_to_cpu"] <= rec["limit_to_cpu"] + 1e-6:
+            raise AssertionError(f"{label}: the card's risks differ from the "
+                                 f"CPU's by {rec['risk_gap_to_cpu']}")
+    ef, plain = recs["int8+ef"]["cuda"], recs["int8"]["cuda"]
+    if ef["bytes_per_round"] != plain["bytes_per_round"]:
+        raise AssertionError(f"error feedback changed the bytes per round: "
+                             f"{ef} vs {plain}")
+    if not (ef["max_abs_risk_delta_vs_float32"]
+            <= plain["max_abs_risk_delta_vs_float32"]
+            and ef["solution_gap_vs_float32"]
+            < plain["solution_gap_vs_float32"]):
+        raise AssertionError(f"error feedback is worse than plain int8: "
+                             f"{ef} vs {plain}")
+
+
+def general_fabric(by_path: dict) -> None:
+    """The exchange's general path on the card, with the step kernel and
+    the tiled Gram: BENCH_comms' data over links with a one-round delay
+    (the delay ring), a token bucket that binds (bandwidth 3/4 of a
+    round's bundle), drops and a partial schedule, ``pallas_fused`` under
+    a binding ``PlanBudget(tile=(8, 128))``.  Launches are counted from 0
+    just before the card fit and read just after; the state is held
+    within RTOL_FIT of the same fit on the CPU, the risks within
+    1/n_test, the counters equal."""
+    from repro_torch.api import DTSVM, LinkPolicy, NetConfig, SolverConfig
+    from repro_torch.engine.invariants import PlanBudget
+    from repro_torch.figures.common import build
+    from repro_torch.kernels import ops
+    from repro_torch.net.policies import bytes_per_message
+
+    data, A = build(COMMS["V"], list(COMMS["n_per_task"]),
+                    degree=COMMS["degree"], seed=0, n_test=COMMS["n_test"])
+    _, T, N, p = data["X"].shape
+    iters, qp_iters = GENERAL_FABRIC["iters"], GENERAL_FABRIC["qp_iters"]
+    budget = PlanBudget(tile=(8, 128))
+    bw = 0.75 * T * bytes_per_message("float32", 2 * p + 2)
+    cfg = SolverConfig(C=0.01, eps2=1.0, iters=iters, qp_iters=qp_iters,
+                       qp_solver="pallas_fused", budget=budget,
+                       net=NetConfig(policy=LinkPolicy(delay=1, bandwidth=bw,
+                                                       drop=0.1),
+                                     schedule="partial:0.9", seed=3))
+    path = "fabric/general/pallas_fused"
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = DTSVM(cfg, device="cuda").fit(data["X"], data["y"],
+                                         mask=data["mask"], adj=A)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_path[path] = launches = ops.launch_counts()
+    cpu = DTSVM(cfg, device="cpu").fit(data["X"], data["y"],
+                                       mask=data["mask"], adj=A)
+    errs = _state_errs(card.state_, cpu.state_, RTOL_FIT["f32"])
+    risks = [f.risks(data["X_test"], data["y_test"]).cpu()
+             for f in (card, cpu)]
+    counters = ("bytes_per_round", "bytes_sent", "msgs_sent",
+                "msgs_delivered", "delivery_rate", "max_silence")
+    rep, cpu_rep = card.net_report_, cpu.net_report_
+    rec = {"general_fabric": path, "N": N, "T": T, "D": 2 * p + 2,
+           "edges": rep["edges"],
+           "iters": iters, "qp_iters": qp_iters, "bandwidth": bw,
+           "wall_s": wall, "mode": rep["mode"],
+           **{k: rep[k] for k in counters},
+           "state_errs_to_cpu": {k: e[0] for k, e in errs.items()},
+           "risk_gap_to_cpu": float((risks[0] - risks[1]).abs().max()),
+           "limit_to_cpu": 1.0 / COMMS["n_test"],
+           "counters_equal_cpu": all(rep[k] == cpu_rep[k]
+                                     for k in counters)}
+    emit(rec)
+    check_launches(path, launches, expected_launches(
+        "pallas_fused", fits=1, iters=iters, qp_iters=qp_iters,
+        panels=-(-N // budget.row_chunk(1, N))))
+    # the bucket refills 3/4 of a bundle a round and holds at most one:
+    # no edge sends in two rounds running, so at most ceil(iters / 2)
+    # bundles an edge; the drops lose some of them
+    if not (rep["mode"] == "mailbox" and rep["delivery_rate"] < 1.0
+            and rep["msgs_sent"] <= rep["edges"] * T * -(-iters // 2)):
+        raise AssertionError(f"the general fabric did not bind: {rec}")
+    if not (rec["counters_equal_cpu"] and all(e[2] for e in errs.values())
+            and rec["risk_gap_to_cpu"] <= rec["limit_to_cpu"] + 1e-6):
+        raise AssertionError(f"the general fabric on the card differs from "
+                             f"the CPU: {rec}")
+
+
+def identity_large(by_path: dict) -> None:
+    """The identity fabric at phase 5's large fit: the async backend and
+    the vmap backend run one compiled plan FIT_REPS times each; the
+    async state must be ``torch.equal`` to the vmap state."""
+    from repro_torch.api import NetConfig, backends
+    from repro_torch.core import dtsvm, graph
+    from repro_torch.engine import plan as plan_lib
+    from repro_torch.kernels import ops
+
+    V, T, N, p = (LARGE_FIT[k] for k in ("V", "T", "N", "p"))
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(V, T, N, p)).astype(np.float32)
+    y = np.sign(rng.normal(size=(V, T, N))).astype(np.float32)
+    y = np.where(y == 0, 1.0, y).astype(np.float32)
+    prob = dtsvm.make_problem(X, y, adj=graph.make_graph("ring", V),
+                              C=0.01, device="cuda")
+    kw = dict(qp_iters=LARGE_FIT["qp_iters"], qp_solver="pallas_fused_multi")
+    torch.cuda.empty_cache()
+    plan = plan_lib.compile_problem(prob, **kw)
+    states, rec = {}, {"identity_large": {k: LARGE_FIT[k] for k in
+                                          ("V", "T", "N", "p", "iters",
+                                           "qp_iters")}}
+    for backend, extra in (("vmap", {}), ("async", {"net": NetConfig()})):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        fit_s = []
+        for _ in range(FIT_REPS):
+            t0 = time.perf_counter()
+            st, _ = backends.run(prob, LARGE_FIT["iters"], backend=backend,
+                                 plan=plan, **kw, **extra)
+            torch.cuda.synchronize()
+            fit_s.append(time.perf_counter() - t0)
+        by_path[f"fabric/large/{backend}"] = ops.launch_counts()
+        states[backend] = st
+        rec[backend] = {**_walls(fit_s),
+                        "peak_bytes": torch.cuda.max_memory_allocated(),
+                        "launches": by_path[f"fabric/large/{backend}"]}
+    rec["async_equal_vmap"] = all(torch.equal(a, b) for a, b in
+                                  zip(states["async"], states["vmap"]))
+    emit(rec)
+    if not rec["async_equal_vmap"]:
+        raise AssertionError("the identity fabric's large fit is not the "
+                             "vmap fit")
+    want = FIT_REPS * LARGE_FIT["iters"]
+    for backend in ("vmap", "async"):
+        if rec[backend]["launches"]["qp_pg_multi"] != want:
+            raise AssertionError(f"{backend}: {rec[backend]['launches']}, "
+                                 f"expected {want} multi launches")
+    del plan, states
+    torch.cuda.empty_cache()
+
+
+def trace_exchange(seen: dict) -> None:
+    """Launches per round and the busy share of one paper stage (stage 2,
+    30 rounds, ``pallas_fused_multi``) on the vmap backend, on the
+    identity fabric (buffer mode) and on the churn fabric (mailbox mode,
+    a node down): the exchange's own cost is the difference."""
+    from repro_torch.figures import fig7_online
+    from repro_torch.net import NetConfig
+
+    r = dict(FIG7_PAPER)
+    stage_iters = r.pop("stage_iters")
+    per_round = {}
+    for label, net in (("vmap", None), ("buffer", NetConfig()),
+                       ("mailbox", fig7_online.churn_net(r["seed"]))):
+        sess = fig7_online.make_session(device="cuda",
+                                        qp_solver="pallas_fused_multi",
+                                        net=net, **r)
+        for i, ((_, tasks, couple), event) in enumerate(
+                zip(fig7_online.STAGES[:2], fig7_online.CHURN_EVENTS)):
+            fig7_online.enter_stage(sess, tasks, couple)
+            if label == "mailbox" and event is not None:
+                getattr(sess, f"node_{event[0]}")(event[1])   # the crash
+            if i == 0:
+                sess.run(stage_iters)
+        per_kernel = _profile(f"fig7 stage 2/{label}",
+                              lambda: sess.run(stage_iters))
+        prof = RECORDS[-1]
+        for k in seen:
+            seen[k] += per_kernel[k]
+        per_round[label] = prof["device_launches"] / stage_iters
+        if label != "vmap" and sess._net_fabric.mode != label:
+            raise AssertionError(f"the {label} session ran a "
+                                 f"{sess._net_fabric.mode} fabric")
+    emit({"exchange_launches_per_round": per_round,
+          "fabric_overhead_per_round": {
+              k: per_round[k] - per_round["vmap"]
+              for k in ("buffer", "mailbox")}})
+
+
+def fabric_operands(cases: dict) -> None:
+    """The kernels at a churn session's own operands: the Gram build of
+    its compile (18 problems of N = 40) and the multi solve of its round
+    3 (absolute), node 3 down, each against its plain version."""
+    from repro_torch.figures import fig7_online
+    from repro_torch.kernels import ops
+
+    sess = fig7_online.make_session(
+        device="cuda", n_test=100, qp_solver="pallas_fused_multi",
+        net=fig7_online.churn_net(0))
+    with captured(ops, "weighted_gram") as grams:
+        sess.run(2)
+    sess.node_crash(3)
+    with captured(ops, "qp_pg_multi") as multis:
+        sess.run(2)
+    (Z, a), _ = grams[0]
+    hold_gram("fig7_churn_compile", Z, a, cases, built=sess._plan.inv.K)
+    args, kw = multis[1]
+    hold_multi("fig7_churn/round_3", args, kw, cases)
+
+
+# ---------------------------------------------------------------------------
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1544,7 +1926,7 @@ def main() -> int:
     ap.add_argument("--out", default=None,
                     help="also write every record to this JSON file")
     ap.add_argument("--only", choices=("large_fit", "multi_mid", "figures",
-                                       "sessions"),
+                                       "sessions", "fabric"),
                     help="run only this part, and print no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1568,8 +1950,9 @@ def main() -> int:
         build.extension()           # built before any timed region
         if args.only == "large_fit":
             large_fit({})
-        elif args.only in ("figures", "sessions"):
-            run = figures if args.only == "figures" else sessions
+        elif args.only in ("figures", "sessions", "fabric"):
+            run = {"figures": figures, "sessions": sessions,
+                   "fabric": fabric}[args.only]
             run({}, {k: 0 for k in PROFILED}, {k: [] for k in KERNELS})
         else:
             multi_mid(dev)
@@ -1595,6 +1978,7 @@ def main() -> int:
     profile_engines(traced)
     figures(by_path, traced, cases)
     sessions(by_path, traced, cases)
+    fabric(by_path, traced, cases)
     if not all(traced.values()):
         raise AssertionError(f"the profiler saw none of some kernels: "
                              f"{traced}")

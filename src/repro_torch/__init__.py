@@ -12,8 +12,10 @@ through ``repro_torch.api.DTSVM`` / ``DSVM`` / ``CSVM``; the large-n
 path (``PlanBudget``, the factored operator, ``Plan.replan``); the sweep
 engine and ``sweep_fit`` (a grid of configs as one batched fit);
 ``OnlineSession`` (tasks entering and leaving a live network) with the
-event log and its ``replay`` (``repro_torch.store``); and the runners of
-the paper's Figs. 2-7 (``repro_torch.figures``).  The
+event log and its ``replay`` (``repro_torch.store``); the communication
+fabric (``repro_torch.net``: lossy, delayed, quantized, metered links,
+node churn, the ``"async"`` backend); and the runners of the paper's
+Figs. 2-7 with Fig. 7's node-churn variant (``repro_torch.figures``).  The
 four TPU kernels (the square and the tiled weighted Gram build, the
 fused QP step and the fused multi-iteration QP solve) are CUDA C++
 kernels for ``sm_90a`` under ``repro_torch/kernels/csrc/``, built at
@@ -22,3 +24,7 @@ device of the tensors, and the caller chooses the device: entry points
 take ``device=None``, which means ``"cuda"``; pass ``device="cpu"`` to
 run the plain versions on the CPU.
 """
+from repro_torch.net import (LinkPolicy, Membership, MembershipEvent,
+                             NetConfig)
+
+__all__ = ["LinkPolicy", "Membership", "MembershipEvent", "NetConfig"]

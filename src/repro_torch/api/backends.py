@@ -6,11 +6,11 @@ A backend is a callable
     run(prob, iters, *, qp_iters, qp_solver, qp_precision, qp_operator,
         state, eval_fn, **options) -> (DTSVMState, history | None)
 
-The port has the single-host ``"vmap"`` backend: one compiled plan (under
-``budget``, the streamed large-n build), one loop.  The reference's other
-backends are still to be ported: ``"async"`` with the fabric (ROADMAP.md,
-"Modules to port", item 2), ``"shard_map"`` and ``"sample_shard"``
-(item 6).
+The port has the single-host ``"vmap"`` backend (one compiled plan, under
+``budget`` the streamed large-n build, one loop) and ``"async"``, the
+same plan stepped over the communication fabric (``repro_torch.net``).
+The reference's ``"shard_map"`` and ``"sample_shard"`` are still to be
+ported (ROADMAP.md, "Modules to port", item 6).
 
 A sweep backend runs a compiled ``engine.SweepPlan``:
 
@@ -27,11 +27,11 @@ from typing import Callable, Dict, Optional
 
 from repro_torch.core import dtsvm as core
 from repro_torch.engine import plan as engine_plan
+from repro_torch.net import async_admm
 
 _REGISTRY: Dict[str, Callable] = {}
 
 _NOT_PORTED = {
-    "async": "ROADMAP.md, 'Modules to port', item 2 (the fabric)",
     "shard_map": "ROADMAP.md, 'Modules to port', item 6 (multi-device "
                  "backends)",
     "sample_shard": "ROADMAP.md, 'Modules to port', item 6 (multi-device "
@@ -96,14 +96,58 @@ def _run_vmap(prob: core.DTSVMProblem, iters: int, *, qp_iters: int = 200,
     return plan.run(state=state, iters=iters, eval_fn=eval_fn)
 
 
+@register("async")
+def _run_async(prob: core.DTSVMProblem, iters: int, *, qp_iters: int = 200,
+               qp_solver: str = "fista",
+               state: Optional[core.DTSVMState] = None, eval_fn=None,
+               net=None, plan: Optional[engine_plan.Plan] = None,
+               fabric=None, fabric_state=None, round0: int = 0,
+               meter_out: Optional[dict] = None, budget=None,
+               telemetry=None, membership=None):
+    """The communication fabric (``repro_torch.net``): the same compiled
+    plan stepped against per-node mailboxes behind lossy, delayed,
+    quantized links, with byte metering.  ``net`` is a
+    ``repro_torch.net.NetConfig``; ``meter_out`` (a dict) receives the
+    byte report, the fabric and its final state; ``budget`` streams the
+    plan's K build when no ``plan`` is given; ``membership`` (a
+    ``repro_torch.net.Membership``) schedules node enter / leave / crash
+    / recover events over the run.  ``telemetry`` is not ported yet."""
+    if plan is not None and (plan.prob is not prob
+                             or plan.qp_iters != qp_iters
+                             or plan.qp_solver != qp_solver):
+        raise ValueError(
+            "prebuilt plan= disagrees with the call: pass prob=plan.prob "
+            "and matching qp_iters/qp_solver (or omit plan=)")
+    res = async_admm.run_async(
+        prob, iters, net=net, plan=plan, fabric=fabric,
+        fabric_state=fabric_state, qp_iters=qp_iters, qp_solver=qp_solver,
+        state=state, eval_fn=eval_fn, round0=round0, budget=budget,
+        telemetry=telemetry, membership=membership)
+    if meter_out is not None:
+        meter_out["report"] = res.report
+        meter_out["fabric"] = res.fabric
+        meter_out["fabric_state"] = res.fabric_state
+    return res.state, res.history
+
+
 def run(prob: core.DTSVMProblem, iters: int, *, backend: str = "vmap",
         qp_iters: int = 200, qp_solver: str = "fista",
         qp_precision: str = "f32", qp_operator: str = "materialized",
         state=None, eval_fn=None, **options):
     """Dispatch one fit through the named backend.  Returns
-    ``(state, history | None)``."""
+    ``(state, history | None)``.  The bf16 and factored QP modes are a
+    feature of the ``"vmap"`` backend: any other raises ``ValueError``
+    on a non-default ``qp_precision`` / ``qp_operator``, as in the
+    reference."""
+    if (qp_precision, qp_operator) != ("f32", "materialized"):
+        if backend != "vmap":
+            raise ValueError(
+                f"qp_precision/qp_operator are vmap-backend features; "
+                f"backend={backend!r} runs the exact materialized-f32 "
+                f"dual path only")
+        options = dict(options, qp_precision=qp_precision,
+                       qp_operator=qp_operator)
     return get(backend)(prob, iters, qp_iters=qp_iters, qp_solver=qp_solver,
-                        qp_precision=qp_precision, qp_operator=qp_operator,
                         state=state, eval_fn=eval_fn, **options)
 
 

@@ -33,11 +33,22 @@ membership event and ``run`` are recorded, every array as a numpy copy,
 so that ``repro_torch.store.replay`` rebuilds the session from its
 history alone, on any device.
 
-Not ported yet, and refused by the constructor: the communication fabric
-(``SolverConfig.net``, ``backend="async"``, and with it the node
-events; ROADMAP.md, 'Modules to port', item 2), telemetry (item 5) and
-the multi-device backends (item 6).  Snapshots (``SessionStore``) are
-item 3.
+With a communication model (``SolverConfig(net=NetConfig(...))`` or
+``backend="async"``) the session runs over the fabric
+(``repro_torch.net``): mailboxes, delay rings and byte counters carry
+across ``run`` calls, a task membership change warm-fills the changed
+tasks' mailboxes from the neighbors' current variables before the next
+round (the Fig. 7 join), metered as ``warmfill_msgs``, and
+``net_report_`` holds the cumulative byte accounting.  The identity
+``NetConfig()`` gives the vmap session bitwise, stage for stage.  The
+node set is elastic too: ``node_enter`` / ``node_leave`` /
+``node_crash`` / ``node_recover`` schedule membership events at the
+session's current absolute round, and ``node_recover(v,
+from_state=...)`` grafts node v's rows of a saved state.
+
+Not ported yet, and refused by the constructor: telemetry (ROADMAP.md,
+'Modules to port', item 5) and the multi-device backends (item 6).
+Snapshots (``SessionStore``) are item 3.
 """
 from __future__ import annotations
 
@@ -49,9 +60,11 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.api import backends, evaluate
 from repro_torch.api.solvers import (SolverConfig, _as_solver_config,
-                                     _check_ported)
+                                     _check_ported, effective_backend)
 from repro_torch.core import dtsvm as core
 from repro_torch.engine import plan as engine_plan
+from repro_torch.net import elastic
+from repro_torch.net import meter
 
 
 def _numpy(x, dtype=np.float32) -> np.ndarray:
@@ -98,8 +111,21 @@ class OnlineSession:
         self.history = []            # one (iters, V, T) risk block per run()
         self._plan: Optional[engine_plan.Plan] = None
         self._masks_dirty = False    # membership changed since last plan
-        #: the fabric's byte accounting (item 2); a vmap session has none
+        # node-level membership: the absolute-round event list; every run
+        # passes the whole list and the fabric replays past events into
+        # its starting status
+        self._node_events = []
+        # the async backend's live fabric, its state, and the per-round
+        # bytes across all stages
+        self._net_fabric = None
+        self._net_state = None
+        self._net_series = []
+        #: the fabric's cumulative byte accounting; a vmap session has none
         self.net_report_: Optional[dict] = None
+        if jit and self._effective_backend() == "async":
+            raise ValueError("jit=True is a vmap-session feature; the "
+                             "async fabric already scans its rounds — "
+                             "drop jit or the net config")
         self._log = log
         self._emit("init", X=_numpy(self._X), y=_numpy(self._y),
                    mask=_numpy(self._mask), adj=_numpy(self._adj, bool),
@@ -174,38 +200,86 @@ class OnlineSession:
         return self
 
     # ------------------------------------------------------------------
-    # node-level membership: a fabric feature (ROADMAP.md, item 2)
+    # node-level membership (repro_torch.net.elastic)
     # ------------------------------------------------------------------
-    def _node_event(self) -> None:
-        # the constructor admits the vmap backend only, where the
-        # reference refuses node events with this same error
-        raise ValueError(
-            "node membership events are a fabric feature — configure "
-            "a communication model (SolverConfig(net=NetConfig(...))) "
-            "or backend='async' first")
+    def _membership(self) -> Optional[elastic.Membership]:
+        if not self._node_events:
+            return None
+        return elastic.Membership(events=tuple(self._node_events))
+
+    def _node_event(self, kind: str, node: int) -> None:
+        if self._effective_backend() != "async":
+            raise ValueError(
+                "node membership events are a fabric feature — configure "
+                "a communication model (SolverConfig(net=NetConfig(...))) "
+                "or backend='async' first")
+        self._node_events.append(elastic.MembershipEvent(
+            round=self.iteration, kind=kind, node=int(node)))
+        # a buffer-mode (identity) fabric has no per-receiver mailboxes
+        # to collect or fill: drop it, so the next run builds a mailbox
+        # fabric warm from the current state (its byte counters restart)
+        if self._net_fabric is not None and self._net_fabric.mode == "buffer":
+            self._net_fabric = None
+            self._net_state = None
 
     def node_enter(self, node: int) -> "OnlineSession":
-        """A new node joins (a fabric session's event; refused here)."""
-        self._node_event()
+        """A new node joins at the current round: it starts computing and
+        its incident mailboxes warm-fill (metered as ``warmfill_msgs``).
+        A no-op on a live node."""
+        self._node_event("enter", node)
+        self._emit("node_enter", node=int(node))
+        return self
 
     def node_leave(self, node: int) -> "OnlineSession":
-        """A graceful departure (a fabric session's event; refused)."""
-        self._node_event()
+        """A graceful departure: the neighbors withdraw the node's links
+        and drop its mailbox contributions at once."""
+        self._node_event("leave", node)
+        self._emit("node_leave", node=int(node))
+        return self
 
     def node_crash(self, node: int) -> "OnlineSession":
-        """An abrupt death (a fabric session's event; refused here)."""
-        self._node_event()
+        """An abrupt death: the neighbors keep spending bytes into its
+        mailbox, and its stale values stay in theirs until the
+        bounded-staleness policy (``NetConfig.stale_limit``) ages them
+        out."""
+        self._node_event("crash", node)
+        self._emit("node_crash", node=int(node))
+        return self
 
     def node_recover(self, node: int, from_state=None) -> "OnlineSession":
-        """A crashed node rejoins (a fabric session's event; refused)."""
-        self._node_event()
+        """The crashed node rejoins; its incident mailboxes warm-fill like
+        an enter.  ``from_state`` (a ``DTSVMState`` of either package,
+        e.g. one saved before the crash) grafts its row ``node`` over
+        the session's: the node restarts from that state."""
+        if from_state is not None and self.state is None:
+            raise RuntimeError("run() the session before recovering "
+                               "a node from a snapshot state")
+        self._node_event("recover", node)
+        rows = None
+        if from_state is not None:
+            grafted = []
+            for cur, src in zip(self.state, from_state):
+                src = (src.to(cur.device) if isinstance(src, torch.Tensor)
+                       else torch.from_numpy(_numpy(src)).to(cur.device))
+                cur = cur.clone()
+                cur[node] = src[node]
+                grafted.append(cur)
+            self.state = core.DTSVMState(*grafted)
+            rows = {k: _numpy(v[node])
+                    for k, v in zip(core.DTSVMState._fields, from_state)}
+        self._emit("node_recover", node=int(node), rows=rows)
+        return self
 
     @property
     def node_status(self) -> dict:
         """Current per-node membership: ``{"alive": (V,) bool mask,
-        "events": [event dicts fired so far]}``; without a fabric every
-        node is alive and no event has fired."""
-        return {"alive": np.ones(self.V, bool), "events": []}
+        "events": [event dicts fired so far]}``."""
+        mem = self._membership()
+        alive = (np.ones(self.V, bool) if mem is None
+                 else mem.alive_at(self.V, self.iteration) > 0)
+        return {"alive": alive,
+                "events": [] if mem is None
+                else [e.to_dict() for e in mem.events]}
 
     # ------------------------------------------------------------------
     # execution
@@ -243,11 +317,40 @@ class OnlineSession:
         before the first ``run``)."""
         return {} if self._plan is None else dict(self._plan.stats)
 
+    def _effective_backend(self) -> str:
+        return effective_backend(self.config)
+
+    def _async_net_kwargs(self, was_dirty: bool, old_active,
+                          plan: engine_plan.Plan) -> dict:
+        """The carried fabric for the async backend, with the Fig. 7
+        warm-fill of the changed tasks when the task membership changed
+        since the last run."""
+        cfg = self.config
+        if (was_dirty and self._net_state is not None
+                and old_active is not None):
+            changed = plan.prob.active.cpu().numpy() != old_active
+            if changed.any():
+                payload = self.state.r * plan.prob.active[..., None]
+                self._net_state = self._net_fabric.warm_fill(
+                    self._net_state, payload,
+                    torch.as_tensor(changed, dtype=torch.float32,
+                                    device=self.device))
+        kw = dict(plan=plan, fabric=self._net_fabric,
+                  fabric_state=self._net_state, round0=self.iteration,
+                  meter_out={})
+        if cfg.net is not None:
+            kw["net"] = cfg.net
+        mem = self._membership()
+        if mem is not None:
+            kw["membership"] = mem
+        return kw
+
     def run(self, iters: Optional[int] = None, *, record: bool = True):
         """Advance the live network ``iters`` ADMM iterations under the
         CURRENT membership masks.  Returns the (iters, V, T) risk curve
         (numpy) when a test set was given (and ``record``), else None."""
         cfg = self.config
+        backend = self._effective_backend()
         iters = iters if iters is not None else cfg.iters
         self._emit("run", iters=int(iters), record=bool(record))
         ev = None
@@ -258,7 +361,7 @@ class OnlineSession:
             "f32", "materialized")
         # the legacy path runs the core loop, which only knows the
         # materialized f32 operator: other QP modes take the plan path
-        if self._jit and default_qp_mode:
+        if self._jit and backend == "vmap" and default_qp_mode:
             prob = self.problem()
             if self.state is None:
                 self.state = core.init_state(prob)
@@ -266,20 +369,44 @@ class OnlineSession:
                 prob, iters, cfg.qp_iters, state=self.state, eval_fn=ev,
                 qp_solver=cfg.qp_solver)
         else:
-            # the constructor admits the vmap backend only: the
-            # reference's plan-less branch (the other backends) and its
-            # "async" branch (fabric state carried across runs) come with
-            # ROADMAP.md items 6 and 2
+            # the constructor admits the vmap and async backends, which
+            # both run the session's plan; the reference's plan-less
+            # branch (the other backends) comes with ROADMAP.md item 6
+            was_dirty = self._masks_dirty
+            old_active = (None if self._plan is None
+                          else self._plan.prob.active.cpu().numpy())
             plan = self._current_plan()
             if self.state is None:
                 self.state = core.init_state(plan.prob)
             options = dict(cfg.backend_options, plan=plan)
+            if backend == "async":
+                options.update(self._async_net_kwargs(was_dirty,
+                                                      old_active, plan))
             self.state, hist = backends.run(
-                plan.prob, iters, backend="vmap", qp_iters=cfg.qp_iters,
+                plan.prob, iters, backend=backend, qp_iters=cfg.qp_iters,
                 qp_solver=cfg.qp_solver, qp_precision=cfg.qp_precision,
                 qp_operator=cfg.qp_operator, state=self.state, eval_fn=ev,
                 **options)
+            if backend == "async":
+                out = options["meter_out"]
+                self._net_fabric = out["fabric"]
+                self._net_state = out["fabric_state"]
+                self._net_series.extend(
+                    out["report"]["bytes_round_series"])
         self.iteration += iters
+        if backend == "async":
+            # cumulative accounting: the fabric counters carry across
+            # stages, so the report is made against the total rounds
+            self.net_report_ = meter.report(
+                self._net_fabric, self._net_state, rounds=self.iteration,
+                bytes_per_round=np.asarray(self._net_series))
+            mem = self._membership()
+            if mem is not None:
+                self.net_report_["membership"] = {
+                    "events": [e.to_dict() for e in mem.events],
+                    "final_alive": [float(a) for a in
+                                    mem.alive_at(self.V, self.iteration)],
+                }
         hist = evaluate.risk_curve(hist)
         if hist is None:
             return None

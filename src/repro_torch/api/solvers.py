@@ -13,7 +13,9 @@ to the solver's constructor or to ``fit`` (``None`` means ``"cuda"``;
 ``repro_torch.device``).  Options the port does not have yet raise
 ``NotImplementedError`` naming the ROADMAP.md item that brings them.
 A hyper-parameter grid runs as one batched fit through
-``repro_torch.api.sweep_fit``.
+``repro_torch.api.sweep_fit``.  ``SolverConfig(net=NetConfig(...))``
+routes a DTSVM or DSVM fit through the communication fabric
+(``repro_torch.net``).
 """
 from __future__ import annotations
 
@@ -32,9 +34,7 @@ from repro_torch.core import dsvm as dsvm_lib
 from repro_torch.core import dtsvm as core
 from repro_torch.engine import plan as engine_plan
 from repro_torch.engine.invariants import PlanBudget
-
-_NOT_PORTED_NET = ("SolverConfig.net (the communication fabric) is not "
-                   "ported yet: ROADMAP.md, 'Modules to port', item 2")
+from repro_torch.net.policies import NetConfig
 
 
 @dataclass(frozen=True)
@@ -51,9 +51,11 @@ class SolverConfig:
     applies it as Z (a (Z^T lam)); ``pallas_fused_multi`` and f32 only).
     budget: a ``PlanBudget`` that streams the K build through bounded row
     panels (the large-n path).  box_scale: the paper's multiplier on C
-    (auto: V*T).  backend: ``"vmap"`` (the only backend ported so far).
-    ``net`` and ``telemetry`` keep their reference meaning and are not
-    ported yet.
+    (auto: V*T).  backend: ``"vmap"`` or ``"async"`` (the ones ported so
+    far).  net: a ``repro_torch.net.NetConfig``, the communication model;
+    it routes the default backend to ``"async"`` (the identity
+    ``NetConfig()`` gives the vmap trajectory bitwise, metered).
+    ``telemetry`` keeps its reference meaning and is not ported yet.
     """
     C: float = 0.01
     eps1: float = 1.0
@@ -68,7 +70,7 @@ class SolverConfig:
     box_scale: Optional[float] = None
     backend: str = "vmap"
     backend_options: Dict[str, Any] = field(default_factory=dict)
-    net: Optional[Any] = None
+    net: Optional[NetConfig] = None
     budget: Optional[PlanBudget] = None
     telemetry: bool = False
 
@@ -77,9 +79,8 @@ class SolverConfig:
         return dataclasses.replace(self, **kw)
 
     def to_dict(self) -> dict:
-        """Plain-python form, key for key the reference's."""
-        if self.net is not None:
-            raise NotImplementedError(_NOT_PORTED_NET)
+        """Plain-python form, key for key the reference's (``net`` through
+        ``NetConfig.to_dict``)."""
         for k, v in self.backend_options.items():
             if not isinstance(v, (int, float, str, bool, type(None))):
                 raise TypeError(
@@ -96,7 +97,7 @@ class SolverConfig:
             else float(self.box_scale),
             "backend": self.backend,
             "backend_options": dict(self.backend_options),
-            "net": None,
+            "net": None if self.net is None else self.net.to_dict(),
             "budget": None if self.budget is None else
             {"max_elems": None if self.budget.max_elems is None
              else int(self.budget.max_elems),
@@ -110,7 +111,7 @@ class SolverConfig:
         """Rebuild a SolverConfig from ``to_dict``'s plain form."""
         d = dict(d)
         if d.get("net") is not None:
-            raise NotImplementedError(_NOT_PORTED_NET)
+            d["net"] = NetConfig.from_dict(d["net"])
         if d.get("budget") is not None:
             b = d["budget"]
             d["budget"] = PlanBudget(
@@ -144,15 +145,15 @@ def effective_backend(cfg: SolverConfig) -> str:
 
 
 def _check_ported(cfg: SolverConfig) -> None:
-    """Raise on the options the port does not have yet: ``net``,
-    ``telemetry`` and the backends other than ``"vmap"``."""
-    if cfg.net is not None:
-        raise NotImplementedError(_NOT_PORTED_NET)
+    """Raise on the options the port does not have yet: ``telemetry`` and
+    the backends other than ``"vmap"`` and ``"async"``."""
     if cfg.telemetry:
         raise NotImplementedError(
             "SolverConfig.telemetry is not ported yet: ROADMAP.md, "
             "'Modules to port', item 5 (observability)")
-    backends.get(cfg.backend)      # raises on the backends still to port
+    # raises on the backends still to port, and (effective_backend) on a
+    # net with a backend other than "async", as the reference does
+    backends.get(effective_backend(cfg))
 
 
 @runtime_checkable
@@ -191,6 +192,7 @@ class _ConsensusSolver:
         self.problem_: Optional[core.DTSVMProblem] = None
         self.state_: Optional[core.DTSVMState] = None
         self.history_ = None
+        self.net_report_: Optional[Dict[str, Any]] = None   # async backend
 
     # -- problem construction (the one subclass hook) ----------------------
     def make_problem(self, X, y, mask=None, adj=None, *, active=None,
@@ -212,13 +214,24 @@ class _ConsensusSolver:
     def fit(self, X, y, mask=None, adj=None, *, active=None, couple=None,
             iters: Optional[int] = None,
             state: Optional[core.DTSVMState] = None, eval_fn=None,
-            X_test=None, y_test=None, device=None):
+            X_test=None, y_test=None, membership=None, device=None):
         """Run ADMM on (X, y) on ``device`` (default: the constructor's,
         else ``"cuda"``).  Returns self; the state and history are on
-        ``state_`` / ``history_``.  ``state`` warm-starts; ``X_test`` /
-        ``y_test`` record a per-iteration risk curve."""
+        ``state_`` / ``history_``, and over the fabric the byte report
+        on ``net_report_``.  ``state`` warm-starts; ``X_test`` /
+        ``y_test`` record a per-iteration risk curve; ``membership`` (a
+        ``repro_torch.net.Membership``) schedules node enter / leave /
+        crash / recover events over the fit, an async-backend feature."""
         cfg = self.config
         _check_ported(cfg)
+        backend, options = effective_backend(cfg), dict(cfg.backend_options)
+        if membership is not None:
+            if backend != "async":
+                raise ValueError(
+                    "membership= models node churn over the communication "
+                    "fabric; configure SolverConfig(net=NetConfig(...)) "
+                    "or backend='async'")
+            options["membership"] = membership
         dev = device_lib.resolve(device if device is not None
                                  else self.device)
         prob = self.make_problem(X, y, mask, adj, active=active,
@@ -226,17 +239,21 @@ class _ConsensusSolver:
         if eval_fn is None and X_test is not None:
             eval_fn = evaluate.risk_eval_fn(prob.X.shape[0], X_test, y_test,
                                             dev)
-        # one options dict, as in the reference: cfg.budget fills in a
-        # budget that backend_options does not already name
-        options = dict(cfg.backend_options)
+        # one options dict, as in the reference: cfg.net and cfg.budget
+        # fill in what backend_options does not already name
+        if cfg.net is not None:
+            options.setdefault("net", cfg.net)
         if cfg.budget is not None:
             options.setdefault("budget", cfg.budget)
+        if backend == "async":
+            options.setdefault("meter_out", {})
         self.state_, self.history_ = backends.run(
             prob, iters if iters is not None else cfg.iters,
-            backend=cfg.backend, qp_iters=cfg.qp_iters,
+            backend=backend, qp_iters=cfg.qp_iters,
             qp_solver=cfg.qp_solver, qp_precision=cfg.qp_precision,
             qp_operator=cfg.qp_operator, state=state, eval_fn=eval_fn,
             **options)
+        self.net_report_ = options.get("meter_out", {}).get("report")
         self.problem_ = prob
         return self
 

@@ -56,13 +56,18 @@ def plan_step(prob: core.DTSVMProblem, inv: inv_lib.PlanInvariants,
               state: core.DTSVMState, *, qp_iters: int = 200,
               qp_solver: str = DEFAULT_QP_SOLVER,
               qp_precision: str = "f32",
-              qp_operator: str = "materialized") -> core.DTSVMState:
+              qp_operator: str = "materialized",
+              nbr_reduce: Optional[Callable] = None) -> core.DTSVMState:
     """One Prop.-1 iteration (eqs. 6-9) on precomputed invariants.  An
     engine with the ``supports_fold`` capability returns zl from the
     same launch as the dual solve; ``qp_operator="factored"`` solves with
-    K applied as Z (a (Z^T lam)) (``qp_engines.solve_factored_multi``)."""
+    K applied as Z (a (Z^T lam)) (``qp_engines.solve_factored_multi``).
+    ``nbr_reduce`` sums an array over each node's neighbors; it is
+    called twice, for the f-term and the beta update (the async fabric
+    passes its mailbox reduce; default: the dense-adjacency einsum)."""
     p = prob.X.shape[-1]
-    nbr_reduce = core._default_nbr_reduce(prob)
+    if nbr_reduce is None:
+        nbr_reduce = core._default_nbr_reduce(prob)
     ntp, nbr, u, Z = inv.ntp, inv.nbr, inv.u, inv.Z
 
     f = core._f_vec(prob, state, ntp, nbr, nbr_reduce)

@@ -15,6 +15,13 @@ reproducible from its event log alone.
 
 Claims: each target task's risk drops during its coupled stage and the
 gain persists after it leaves; the source task is never destroyed.
+
+``churn_marks`` runs the same five stages under node churn over a lossy
+fabric (``repro_torch.net``: int8 wire with error feedback, 10% drops,
+90% partial activation, bounded staleness): node 3 crashes while Task 1
+couples and recovers for Task 2's stage, node 5 leaves for the last.
+Its node events go through the same event log, and the replay audit
+holds it bitwise too.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from repro_torch.api import OnlineSession, SolverConfig
 from repro_torch.core import graph as graph_lib
 from repro_torch.data import synthetic
 from repro_torch.figures.common import _sync
+from repro_torch.net import LinkPolicy, NetConfig
 from repro_torch.store import EventLog, replay
 
 V, T = 6, 3
@@ -37,9 +45,11 @@ STAGES = [("s1_independent", (0, 1, 2), False),
           ("s3_t1_leaves", (1, 2), False),
           ("s4_t2_with_t3", (1, 2), True),
           ("s5_t2_leaves", (2,), False)]
-_NOT_PORTED_CHURN = ("the node-churn variant runs over the communication "
-                     "fabric, which is not ported yet: ROADMAP.md, "
-                     "'Modules to port', item 2")
+#: the churn variant's node event of each stage (None: no event): node 3
+#: crashes while Task 1 couples, comes back for Task 2's stage, and node 5
+#: leaves for the final solo stage
+CHURN_EVENTS = (None, ("crash", 3), None, ("recover", 3), ("leave", 5))
+CHURN_ALIVE = [True, True, True, True, True, False]
 
 
 def _assert_replay_matches(sess: OnlineSession,
@@ -138,7 +148,47 @@ def run(fast: bool = False, seed=0, device=None, **config):
     return marks, derived(marks)
 
 
+def churn_net(seed: int = 0) -> NetConfig:
+    """The churn variant's fabric (``benchmarks/fig7_online.py``)."""
+    return NetConfig(policy=LinkPolicy(drop=0.1, quant="int8"),
+                     schedule="partial:0.9", seed=seed, stale_limit=3,
+                     error_feedback=True)
+
+
 def churn_marks(stage_iters, *, seed=0, n_test=1800, qp_iters=100,
-                device=None):
-    """The protocol under node churn over a lossy fabric: not ported."""
-    raise NotImplementedError(_NOT_PORTED_CHURN)
+                device=None, **config):
+    """The five stages under node churn over the lossy fabric,
+    event-logged and replay-audited, on ``device`` (``None`` means
+    ``"cuda"``; ``config`` as for :func:`make_session`, e.g.
+    ``qp_solver``).  After the last stage the alive mask must be
+    :data:`CHURN_ALIVE`.
+
+    Returns ``(marks, info)`` as :func:`stage_marks` does; ``info`` also
+    holds the session's cumulative ``net_report_``."""
+    dev = device_lib.resolve(device)
+    log = EventLog()
+    sess = make_session(seed=seed, n_test=n_test, qp_iters=qp_iters,
+                        device=dev, log=log, net=churn_net(seed), **config)
+    marks, stage_s = {}, []
+    for (name, tasks, couple), event in zip(STAGES, CHURN_EVENTS):
+        enter_stage(sess, tasks, couple)
+        if event is not None:
+            kind, node = event
+            getattr(sess, f"node_{kind}")(node)
+        _sync(dev)
+        t0 = time.perf_counter()
+        hist = sess.run(stage_iters)
+        _sync(dev)
+        stage_s.append(time.perf_counter() - t0)
+        marks[name] = hist.mean(1)[-1]      # (T,) global risks
+    t0 = time.perf_counter()
+    twin = _assert_replay_matches(sess, log)
+    _sync(dev)
+    alive = np.asarray(sess.node_status["alive"]).tolist()
+    if alive != CHURN_ALIVE:
+        raise AssertionError(f"the churn session ends with alive mask "
+                             f"{alive}, expected {CHURN_ALIVE}")
+    return marks, {"stage_s": stage_s, "replay_s": time.perf_counter() - t0,
+                   "session": sess, "plan_stats": sess.plan_stats,
+                   "replay_plan_stats": twin.plan_stats,
+                   "net_report": sess.net_report_}

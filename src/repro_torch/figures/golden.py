@@ -1,7 +1,6 @@
 """The outputs the golden fixtures ``tests/golden/fig{2..7}.json`` hold,
 from the port's runners (twin of the ``_fig*_outputs`` functions of
-``tests/test_golden_figures.py``).  ``fig7_churn`` runs over the
-communication fabric, which is not ported yet.
+``tests/test_golden_figures.py``).
 
     outputs("fig3", fixture["regime"], device="cuda")
 
@@ -14,7 +13,7 @@ from repro_torch.figures import (fig2_convergence, fig3_eps_sweep,
                                  fig4_c_sweep, fig5_unbalanced, fig6_mixed,
                                  fig7_online)
 
-FIGURES = ("fig2", "fig3", "fig4", "fig5", "fig6", "fig7")
+FIGURES = ("fig2", "fig3", "fig4", "fig5", "fig6", "fig7", "fig7_churn")
 
 
 def outputs(name: str, regime: dict, device=None) -> dict:
@@ -50,5 +49,7 @@ def outputs(name: str, regime: dict, device=None) -> dict:
                                            device=device, **r)
         return marks
     if name == "fig7_churn":
-        fig7_online.churn_marks(r.pop("stage_iters"), device=device, **r)
+        marks, _ = fig7_online.churn_marks(r.pop("stage_iters"),
+                                           device=device, **r)
+        return marks
     raise ValueError(f"unknown figure {name!r}; expected one of {FIGURES}")

@@ -20,8 +20,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 # the event vocabulary; "init" is always record 0.  The node_* records
-# are a fabric session's (ROADMAP.md item 2): a vmap session refuses them
-# live and in a replay alike.
+# are a fabric session's: a vmap session refuses them live and in a
+# replay alike.
 EVENTS = ("init", "add_task", "drop_task", "set_active", "set_coupling",
           "run", "node_enter", "node_leave", "node_crash", "node_recover")
 
@@ -103,9 +103,21 @@ def replay(log: EventLog, upto: Optional[int] = None, *, device=None):
                               _nodes(rec))
         elif ev == "run":
             sess.run(int(rec["iters"]), record=bool(rec["record"]))
-        elif ev in ("node_enter", "node_leave", "node_crash",
-                    "node_recover"):
-            getattr(sess, ev)(int(rec["node"]))  # refused, as when live
+        elif ev in ("node_enter", "node_leave", "node_crash"):
+            getattr(sess, ev)(int(rec["node"]))
+        elif ev == "node_recover":
+            rows = rec.get("rows")
+            if rows is None:
+                sess.node_recover(int(rec["node"]))
+            else:
+                # the grafted rows are in the record (broadcast to whole
+                # state leaves: node_recover reads only its node's row)
+                from repro_torch.core.dtsvm import DTSVMState
+                v = int(rec["node"])
+                sess.node_recover(v, from_state=DTSVMState(*(
+                    np.broadcast_to(np.asarray(rows[k], np.float32)[None],
+                                    tuple(getattr(sess.state, k).shape))
+                    for k in DTSVMState._fields)))
         else:
             raise ValueError(f"cannot replay event {ev!r}")
     return sess

@@ -20,8 +20,10 @@ from repro.api import solvers as jsolvers
 from repro.core import graph as jgraph
 from repro.data import synthetic as jsynthetic
 from repro.engine.invariants import PlanBudget as JPlanBudget
+from repro.net import NetConfig as JNetConfig
 from repro_torch import quickstart
-from repro_torch.api import DSVM, DTSVM, PlanBudget, SolverConfig
+from repro_torch.api import (DSVM, DTSVM, LinkPolicy, NetConfig,
+                             PlanBudget, SolverConfig)
 from repro_torch.api import backends
 from repro_torch.engine import invariants
 
@@ -93,8 +95,8 @@ def test_solver_config_dicts_mean_the_same():
 
 
 @pytest.mark.parametrize("field", [
-    dict(telemetry=True), dict(backend="shard_map"), dict(backend="async"),
-    dict(backend="sample_shard"), dict(net=object()),
+    dict(telemetry=True), dict(backend="shard_map"),
+    dict(backend="sample_shard"),
 ])
 def test_options_not_ported_raise_naming_the_roadmap(field):
     data = _tiny_data()
@@ -115,7 +117,6 @@ def _roadmap_modules() -> dict:
 
 
 @pytest.mark.parametrize("field,item,title", [
-    (dict(net=object()), 2, "fabric"), (dict(backend="async"), 2, "fabric"),
     (dict(telemetry=True), 5, "observability"),
     (dict(backend="shard_map"), 6, "multi-device"),
     (dict(backend="sample_shard"), 6, "multi-device"),
@@ -258,11 +259,57 @@ def test_vmap_runner_refuses_a_mismatched_plan(mismatch):
             mod.run(prob, 1, plan=plan, **kw)
 
 
-def test_net_dicts_raise_naming_the_roadmap():
-    d = SolverConfig().to_dict()
-    d["net"] = {"links": "lossy"}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SolverConfig.from_dict(d)
+@pytest.mark.parametrize("field", [
+    dict(net=NetConfig()), dict(backend="async"),
+    dict(backend="async", net=NetConfig(policy=LinkPolicy(quant="int8"))),
+    dict(net=NetConfig(policy=LinkPolicy(drop=0.2, delay=1),
+                       schedule="partial:0.8", seed=3)),
+])
+def test_fabric_options_fit_as_the_reference(field):
+    """``net`` and ``backend="async"`` (the fabric, ROADMAP.md item 2)
+    fit through the API: an identity fabric bitwise the vmap fit, any
+    fabric within 1e-4 of each state leaf's largest magnitude of the
+    same JAX fit, its byte report the reference's."""
+    data = _tiny_data(N=8)
+    adj = np.array([[0, 1], [1, 0]], bool)
+    cfg = SolverConfig(iters=4, qp_iters=20, **field)
+    got = DTSVM(cfg, device="cpu").fit(data["X"], data["y"], adj=adj)
+    jfield = dict(field)
+    if "net" in field:
+        jfield["net"] = JNetConfig.from_dict(field["net"].to_dict())
+    want = jsolvers.DTSVM(jsolvers.SolverConfig(
+        iters=4, qp_iters=20, **jfield)).fit(data["X"], data["y"], adj=adj)
+    if cfg.net is None or cfg.net.is_identity:
+        vmap = DTSVM(cfg.replace(net=None, backend="vmap"),
+                     device="cpu").fit(data["X"], data["y"], adj=adj)
+        for name, a, b in zip(got.state_._fields, got.state_, vmap.state_):
+            assert torch.equal(a, b), name
+    for name, g, w in zip(got.state_._fields, got.state_, want.state_):
+        w = np.asarray(w)
+        assert float(np.abs(g.numpy() - w).max()) <= \
+            1e-4 * float(np.abs(w).max()), name
+    for k, v in want.net_report_.items():
+        if k != "bytes_round_series":
+            assert got.net_report_[k] == v, k
+
+
+def test_net_dicts_are_the_references():
+    """A net config's dict is key for key the reference's, and each
+    package's loads into the other."""
+    kw = dict(policy=dict(quant="int16", drop=0.1),
+              edge_policies={(1, 0): dict(delay=2)}, schedule="gossip",
+              seed=4, stale_limit=3)
+    net = NetConfig(policy=LinkPolicy(**kw["policy"]),
+                    edge_policies={(1, 0): LinkPolicy(delay=2)},
+                    **{k: kw[k] for k in ("schedule", "seed",
+                                          "stale_limit")})
+    d = SolverConfig(net=net, iters=3).to_dict()
+    jd = jsolvers.SolverConfig(net=JNetConfig.from_dict(net.to_dict()),
+                               iters=3).to_dict()
+    assert d == jd
+    assert SolverConfig.from_dict(jd) == SolverConfig(net=net, iters=3)
+    assert jsolvers.SolverConfig.from_dict(d).net.to_dict() == \
+        net.to_dict()
 
 
 def _tiny_data(N=6):

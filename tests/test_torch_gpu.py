@@ -715,10 +715,11 @@ def test_kernels_at_sweep_and_csvm_operands_match_plain(cuda, monkeypatch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["fig2", "fig3", "fig4", "fig5", "fig6",
-                                  "fig7"])
+                                  "fig7", "fig7_churn"])
 def test_golden_figures_on_the_card(cuda, name):
     """Each golden regime through the port on the card, within the
-    fixtures' ATOL = 0.015 of tests/golden/<fig>.json."""
+    fixtures' ATOL = 0.015 of tests/golden/<fig>.json (Fig. 7's churn
+    variant over the lossy fabric, its replay audit bitwise)."""
     import json
     import os
 
@@ -790,3 +791,98 @@ def test_session_on_the_card_matches_the_cpu(cuda, cfg):
         assert torch.equal(g, w), name
     for h, w in zip(twin.history, card.history):
         assert np.array_equal(h, w)
+
+
+def _fabric_fit_data(V=6, T=2, N=40, p=10, seed=0):
+    from repro_torch.core import graph as graph_lib
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(V, T, N, p)).astype(np.float32)
+    y = np.where(X[..., 0] + 0.3 * rng.normal(size=(V, T, N)) > 0, 1.0,
+                 -1.0).astype(np.float32)
+    return X, y, graph_lib.make_graph("random", V, degree=0.6, seed=seed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qp_solver", ["fista", "pallas_fused",
+                                       "pallas_fused_multi"])
+def test_identity_async_fit_on_the_card_is_the_vmap_fit(cuda, qp_solver):
+    """The identity fabric (``net=NetConfig()``) on CUDA tensors gives
+    the vmap fit's state bit for bit, per QP engine."""
+    from repro_torch.api import DTSVM, NetConfig, SolverConfig
+
+    X, y, A = _fabric_fit_data()
+    cfg = SolverConfig(iters=6, qp_iters=30, qp_solver=qp_solver)
+    vmap = DTSVM(cfg, device="cuda").fit(X, y, adj=A)
+    asy = DTSVM(cfg.replace(net=NetConfig()), device="cuda").fit(X, y, adj=A)
+    assert asy.net_report_["mode"] == "buffer"
+    for name, a, b in zip(vmap.state_._fields, asy.state_, vmap.state_):
+        assert a.is_cuda and torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qp_solver", ["fista", "pallas_fused",
+                                       "pallas_fused_multi"])
+def test_fabric_path_launches_the_kernels(cuda, qp_solver):
+    """A lossy async fit on the card (int8 wire, drops, partial
+    activation, a crash and a recovery) launches the Gram kernel and
+    its prescale once, and the QP engine's kernel as the vmap path
+    does: the step kernel qp_iters times per round, the multi kernel
+    once per round; its state within 1e-4 of each leaf's largest
+    magnitude of the same fit on the CPU."""
+    from repro_torch.api import (DTSVM, LinkPolicy, Membership,
+                                 MembershipEvent, NetConfig, SolverConfig)
+
+    X, y, A = _fabric_fit_data(seed=1)
+    iters, qp_iters = 8, 20
+    cfg = SolverConfig(iters=iters, qp_iters=qp_iters, qp_solver=qp_solver,
+                       net=NetConfig(policy=LinkPolicy(quant="int8",
+                                                       drop=0.1),
+                                     schedule="partial:0.9", seed=2,
+                                     stale_limit=3, error_feedback=True))
+    mem = Membership(events=(MembershipEvent(2, "crash", 3),
+                             MembershipEvent(5, "recover", 3)))
+    ops.reset_launch_counts()
+    card = DTSVM(cfg, device="cuda").fit(X, y, adj=A, membership=mem)
+    torch.cuda.synchronize()
+    got = ops.launch_counts()
+    want = {"weighted_gram": 1, "weighted_gram_tiled": 0,
+            "gram_prescale": 1,
+            "qp_pg_step": (iters * qp_iters if qp_solver == "pallas_fused"
+                           else 0),
+            "qp_pg_multi": iters if qp_solver == "pallas_fused_multi"
+            else 0}
+    assert got == want
+    cpu = DTSVM(cfg, device="cpu").fit(X, y, adj=A, membership=mem)
+    for name, g, w in zip(cpu.state_._fields, card.state_, cpu.state_):
+        assert float((g.cpu() - w).abs().max()) <= \
+            1e-4 * float(w.abs().max()), name
+    assert card.net_report_["msgs_sent"] == cpu.net_report_["msgs_sent"]
+    assert card.net_report_["membership"] == cpu.net_report_["membership"]
+
+
+@pytest.mark.gpu
+def test_async_refuses_the_bf16_and_factored_modes_on_the_card(cuda):
+    """The async fabric steps the materialized f32 dual path: a bf16 or
+    factored config raises the reference's ValueError, on CUDA tensors
+    as on the CPU."""
+    from repro_torch.api import DTSVM, NetConfig, SolverConfig, backends
+    from repro_torch.core import dtsvm as core
+    from repro_torch.engine import plan as engine_plan
+    from repro_torch.net import run_async
+
+    X, y, A = _fabric_fit_data()
+    for mode in (dict(qp_precision="bf16"), dict(qp_operator="factored")):
+        cfg = SolverConfig(iters=1, qp_iters=5, net=NetConfig(),
+                           qp_solver="pallas_fused_multi", **mode)
+        with pytest.raises(ValueError, match="vmap-backend features"):
+            DTSVM(cfg, device="cuda").fit(X, y, adj=A)
+    prob = core.make_problem(X, y, adj=A, device="cuda")
+    with pytest.raises(ValueError, match="vmap-backend features"):
+        backends.run(prob, 1, backend="async", qp_iters=5,
+                     qp_solver="pallas_fused_multi", qp_precision="bf16")
+    plan = engine_plan.compile_problem(prob, qp_iters=5,
+                                       qp_solver="pallas_fused_multi",
+                                       qp_precision="bf16")
+    with pytest.raises(ValueError, match="materialized f32"):
+        run_async(prob, 1, plan=plan)
+

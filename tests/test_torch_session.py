@@ -18,7 +18,8 @@ from repro.api import solvers as jsolvers
 from repro.core import dtsvm as jcore
 from repro.core import graph as jgraph
 from repro.data import synthetic as jsynthetic
-from repro_torch.api import OnlineSession, SolverConfig
+from repro.net import NetConfig as JNetConfig
+from repro_torch.api import NetConfig, OnlineSession, SolverConfig
 from repro_torch.api import solvers
 from repro_torch.core import dtsvm as core
 from repro_torch.engine import plan as engine_plan
@@ -329,7 +330,6 @@ def test_session_node_events_and_status_are_the_references():
 
 
 @pytest.mark.parametrize("field,item,title", [
-    (dict(net=object()), 2, "fabric"), (dict(backend="async"), 2, "fabric"),
     (dict(telemetry=True), 5, "observability"),
     (dict(backend="shard_map"), 6, "multi-device"),
 ])
@@ -343,14 +343,47 @@ def test_session_refuses_what_is_not_ported_at_once(field, item, title):
                       config=SolverConfig(**field))
 
 
-def test_churn_variant_refusal_names_the_fabric_item():
+@pytest.mark.parametrize("field", [dict(net=NetConfig()),
+                                   dict(backend="async")])
+def test_session_runs_the_fabric_configs(field):
+    """``net`` and ``backend="async"`` (the fabric, ROADMAP.md item 2,
+    done) run a session over an identity fabric: bitwise the vmap
+    session through a task event, within REL of the JAX session, and
+    metered as the reference meters it."""
     assert "fabric" in _roadmap_modules()[2].lower()
-    with pytest.raises(NotImplementedError, match=r"item 2\b"):
-        fig7_online.churn_marks(4, n_test=300, qp_iters=40, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 2\b"):
-        golden.outputs("fig7_churn", dict(stage_iters=4, seed=0,
-                                          n_test=300, qp_iters=40),
-                       device="cpu")
+    data, A = _make(V=4, T=2, n=6)
+    jfield = {k: (JNetConfig() if k == "net" else v)
+              for k, v in field.items()}
+    vmap, _ = _pair(data, A, dict(qp_iters=20))
+    sess = OnlineSession(data["X"], data["y"], mask=data["mask"], adj=A,
+                         device="cpu",
+                         config=SolverConfig(qp_iters=20, **field))
+    jsess = JOnlineSession(data["X"], data["y"], mask=data["mask"], adj=A,
+                           config=JSolverConfig(qp_iters=20, **jfield))
+    for s in (vmap, sess, jsess):
+        s.run(3)
+        s.drop_task(1)
+        s.run(3)
+    _assert_equal(sess.state, vmap.state)
+    _assert_near_reference(sess.state, jsess.state, f"async session {field}")
+    for k, v in jsess.net_report_.items():
+        if k != "bytes_round_series":
+            assert sess.net_report_[k] == v, k
+
+
+def test_churn_variant_is_the_golden_runner():
+    """``golden.outputs("fig7_churn")`` is ``churn_marks`` at the
+    fixture's regime (the node-churn variant, no longer refused)."""
+    assert "fabric" in _roadmap_modules()[2].lower()
+    regime = dict(stage_iters=4, seed=0, n_test=300, qp_iters=40)
+    marks, info = fig7_online.churn_marks(4, n_test=300, qp_iters=40,
+                                          device="cpu")
+    got = golden.outputs("fig7_churn", regime, device="cpu")
+    assert set(got) == set(marks) == {n for n, _, _ in fig7_online.STAGES}
+    for k in marks:
+        np.testing.assert_array_equal(got[k], marks[k])
+    assert info["session"].node_status["alive"].tolist() == \
+        fig7_online.CHURN_ALIVE
 
 
 def test_effective_backend_and_config_overrides_are_the_references():
