@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one GPU and check it.
 
-    python3 chip_smoke.py [--out FILE]
-                          [--only large_fit|multi_mid|figures|sessions|fabric]
+    python3 chip_smoke.py [--out FILE] [--only large_fit|multi_mid|figures|
+                                               sessions|fabric|store|serve]
 
 Runs from the root of a checkout, on a machine with one CUDA card, the
 CUDA toolkit and ninja; it builds the hand kernels itself into
@@ -132,7 +132,38 @@ any failure raises and exits non-zero:
    fabric: launches per round and the device's busy share; then the
    Gram kernel at the churn session's compile and the multi solve at
    one of its rounds, against their plain versions;
-10. the ``kernels`` line, the card line, and the result line.
+10. the store (``repro_torch.store``): tests/test_store.py's five
+   in-process configs (vmap dense and under a binding budget; the async
+   fabric's identity, lossy and stale/error-feedback wires, the last with
+   Fig. 7's churn events) at Fig. 7's size, 15 ADMM iterations a stage
+   with ``pallas_fused_multi``: each session saved to disk after stage 1,
+   and again with stage 2's membership events pending, restored with
+   ``load_session(device="cuda")`` and continued through stage 5,
+   ``torch.equal`` to the uninterrupted run in state, risk history and
+   fabric state; its event log saved, loaded and replayed, bitwise; a
+   snapshot the CPU port wrote in the same run restored on the card,
+   refused with ``SchemaError`` without ``check_fingerprint=False``
+   where the two plans' fingerprints differ, and continued within 1/n_test
+   in risk of the same session continued on the CPU (and, where the wire
+   does not quantize, within RTOL_FIT f32 in state); then a session at
+   the large fit's widths saved after one ADMM iteration, restored and
+   continued one more, ``torch.equal`` to the uninterrupted two, with the
+   seconds of the save, the restore and one plan fingerprint and the
+   file's bytes;
+11. serving (``repro_torch.serve``): the quickstart's fitted DTSVM
+   (V=10, T=2, p=10) and the large fit's model (p=256) each served for
+   1 s by 4 closed-loop clients (``benchmarks/bench_serve.py``'s load) at
+   a 1 ms window, then held to the bucket contract (rows 0-7 through
+   ``gemm_rows`` bitwise ``decide_rows`` in buckets 8 to 1024, at row
+   offsets 0 and 3), with ``gemm_rows`` against its plain version at 1024
+   rows and timed beside ``torch.addmm``, and whether ``addmm`` keeps the
+   contract printed; then a Fig. 7 session's model served for 3 s at
+   each window of 0 and 1 ms, its next stage run and published
+   (``publish_session``) mid-stream; every answer is checked bitwise
+   against ``decide_rows`` of the model that answered it, with p50/p99
+   latency, requests/s, rows per batch, pad ratio and the kernel's
+   launches;
+12. the ``kernels`` line, the card line, and the result line.
 
 ``--only`` runs one part and prints no result line, to compare two
 trees' ``src/`` under one script (a copy of this file at each tree's
@@ -140,7 +171,7 @@ root): ``large_fit`` phase 5's large fits, ``multi_mid`` the multi
 solve at N between the paper's and the large fit's (B in {2, 20, 300},
 N in {328, 329, 515, 1000}, 100 iterations with the fold), each against
 its plain version and timed, ``figures`` phase 7, ``sessions`` phase 8,
-``fabric`` phase 9.
+``fabric`` phase 9, ``store`` phase 10, ``serve`` phase 11.
 
 Without a CUDA device, or without the rest of the repository beside it,
 it exits non-zero and prints no result.
@@ -182,6 +213,10 @@ KERNELS = {
                    "src/repro/kernels/qp_step.py:76"),
     "qp_pg_multi": ("src/repro_torch/kernels/csrc/qp_multi.cu",
                     "src/repro/kernels/qp_step.py:238"),
+    # no TPU kernel: the reference's jitted X @ Wf.T + bf, which XLA
+    # lowers; the port needs a fixed order of the sum (the bucket contract)
+    "gemm_rows": ("src/repro_torch/kernels/csrc/rows.cu",
+                  "src/repro/serve/model.py:124"),
 }
 # the quickstart's engine runs: (label, SolverConfig overrides)
 ENGINE_RUNS = [
@@ -252,6 +287,26 @@ COMMS = dict(V=6, n_per_task=(40, 200), degree=0.8, n_test=1800, iters=60,
              qp_iters=100)
 # the exchange's general path (delay ring, token bucket) on that data
 GENERAL_FABRIC = dict(iters=30, qp_iters=50)
+
+# the store phase: tests/test_store.py's five in-process configs, each at
+# Fig. 7's size (benchmarks/fig7_online.py: V=6, T=3, p=10, 10/10/40
+# samples a node, 1800 test samples, seed 0) through its five stages, cut
+# to the reference's fast regime of 15 ADMM iterations a stage, with the
+# multi engine; the stale-ef config also takes the churn variant's node
+# events.  A CPU-written snapshot continues on the card within the
+# sessions' limits: risks within 1/n_test of the same session continued on
+# the CPU, and, where the wire does not quantize, state within RTOL_FIT
+# f32 of each leaf's largest magnitude (over a quantizing wire one
+# last-bit difference can move a code, as phase 9's int8 fits show)
+STORE_FIG7 = dict(stage_iters=15, n_test=1800, qp_iters=100, seed=0,
+                  qp_solver="pallas_fused_multi")
+QUANTIZED_STORE_CONFIGS = ("async-lossy", "async-stale-ef")
+# the serve phase: bench_serve.py's closed-loop load (4 clients, 1-16 rows
+# a request, 3 s a batching window) on a Fig. 7 session's model with a
+# hot swap to its next stage mid-stream, then 1 s each on the quickstart's
+# and the large fit's models; rows 0-7 held bitwise across these buckets
+SERVE = dict(clients=4, max_rows=16, stream_s=3.0, model_s=1.0,
+             windows=(0.0, 1.0), buckets=(8, 16, 32, 256, 1024))
 
 RECORDS = []
 
@@ -589,6 +644,9 @@ def expected_launches(qp_solver: str, fits: int, iters: int,
 
 
 def check_launches(path: str, launches: dict, want: dict) -> None:
+    """Each kernel's launches on ``path`` must be ``want``'s; a kernel
+    ``want`` does not name must not have launched."""
+    want = {k: want.get(k, 0) for k in launches}
     emit({"path_launches": path, "launches": launches, "expected": want})
     if launches != want:
         raise AssertionError(f"{path}: kernel launches {launches}, "
@@ -676,21 +734,29 @@ def _state_errs(got, want, rtol):
             for name, g, w in zip(want._fields, got, want)}
 
 
-def large_fit(by_path: dict) -> None:
-    """The large fit: dense per precision against the CPU (the only path
-    that takes the multi kernel's cooperative grid), then the streamed and
-    the factored f32 fits against the dense card fit."""
-    from repro_torch.api import DTSVM, SolverConfig
-    from repro_torch.core import dtsvm, graph
-    from repro_torch.engine import invariants, plan
-    from repro_torch.engine.invariants import PlanBudget
+def large_data():
+    """The large fit's data (bench_scale's widths, seeded) and graph."""
+    from repro_torch.core import graph
 
     V, T, N, p = (LARGE_FIT[k] for k in ("V", "T", "N", "p"))
     rng = np.random.default_rng(0)
     X = rng.normal(size=(V, T, N, p)).astype(np.float32)
     y = np.sign(rng.normal(size=(V, T, N))).astype(np.float32)
     y = np.where(y == 0, 1.0, y).astype(np.float32)
-    adj = graph.make_graph("ring", V, seed=0)
+    return X, y, graph.make_graph("ring", V, seed=0)
+
+
+def large_fit(by_path: dict) -> None:
+    """The large fit: dense per precision against the CPU (the only path
+    that takes the multi kernel's cooperative grid), then the streamed and
+    the factored f32 fits against the dense card fit."""
+    from repro_torch.api import DTSVM, SolverConfig
+    from repro_torch.core import dtsvm
+    from repro_torch.engine import invariants, plan
+    from repro_torch.engine.invariants import PlanBudget
+
+    V, T, N, p = (LARGE_FIT[k] for k in ("V", "T", "N", "p"))
+    X, y, adj = large_data()
     base = SolverConfig(C=0.01, iters=LARGE_FIT["iters"],
                         qp_iters=LARGE_FIT["qp_iters"],
                         qp_solver="pallas_fused_multi")
@@ -1907,6 +1973,465 @@ def fabric_operands(cases: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the store (snapshots, restores, event logs)
+# ---------------------------------------------------------------------------
+def store_configs() -> dict:
+    """tests/test_store.py's five in-process configs, as config fields."""
+    from repro_torch.engine.invariants import PlanBudget
+    from repro_torch.net import LinkPolicy, NetConfig
+
+    return {
+        "vmap-dense": {},
+        "vmap-budgeted": {"budget": PlanBudget(max_elems=256)},
+        "async-identity": {"net": NetConfig()},
+        "async-lossy": {"net": NetConfig(
+            policy=LinkPolicy(drop=0.25, delay=1, quant="int16"),
+            schedule="partial:0.75", seed=3)},
+        "async-stale-ef": {"net": NetConfig(
+            policy=LinkPolicy(drop=0.2, quant="int8"),
+            schedule="partial:0.75", seed=3, stale_limit=2,
+            error_feedback=True)},
+    }
+
+
+def _stage_events(sess, stage: int, churn: bool) -> None:
+    """Fig. 7's membership events of ``stage``, with ``churn`` the churn
+    variant's node event too."""
+    from repro_torch.figures import fig7_online
+
+    _, tasks, couple = fig7_online.STAGES[stage]
+    fig7_online.enter_stage(sess, tasks, couple)
+    event = fig7_online.CHURN_EVENTS[stage]
+    if churn and event is not None:
+        getattr(sess, f"node_{event[0]}")(event[1])
+
+
+def _advance(sess, stages, churn: bool, iters: int, pending: bool = False):
+    """Each of ``stages``: its events, then ``iters`` ADMM iterations.
+    ``pending``: the first stage's events were applied before a snapshot,
+    so only its run is left."""
+    for n, stage in enumerate(stages):
+        if not (pending and n == 0):
+            _stage_events(sess, stage, churn)
+        sess.run(iters)
+    return sess
+
+
+def _store_equal(a, b) -> bool:
+    """Bitwise: state, iteration, risk history, fabric state and byte
+    series."""
+    same = (a.iteration == b.iteration and len(a.history) == len(b.history)
+            and all(torch.equal(x, z) for x, z in zip(a.state, b.state))
+            and all(np.array_equal(x, z)
+                    for x, z in zip(a.history, b.history))
+            and (a._net_state is None) == (b._net_state is None))
+    if same and a._net_state is not None:
+        same = (all(torch.equal(x, z)
+                    for x, z in zip(a._net_state, b._net_state))
+                and np.array_equal(np.asarray(a._net_series),
+                                   np.asarray(b._net_series)))
+    return bool(same)
+
+
+def _session_marks(sess) -> dict:
+    """Each run's final (T,) network-average risks, by stage."""
+    return {i: h.mean(1)[-1] for i, h in enumerate(sess.history)}
+
+
+def store(by_path: dict, seen: dict, cases: dict) -> None:
+    """Phase 10: each of the five configs on the card through disk: saved
+    after stage 1 (and again with stage 2's events pending), restored with
+    ``load_session(device="cuda")`` and continued, ``torch.equal`` to the
+    uninterrupted run; its event log saved, loaded and replayed, bitwise;
+    a snapshot the CPU port wrote restored on the card (refused without
+    ``check_fingerprint=False`` where the fingerprints differ) and
+    continued against the same session continued on the CPU.  Then the
+    large fit's save, restore and continue."""
+    import tempfile
+
+    from repro_torch import checkpoint
+    from repro_torch.figures import fig7_online
+    from repro_torch.kernels import ops
+    from repro_torch.store import (EventLog, SchemaError, load_session,
+                                   replay, save_session)
+
+    phase_t0 = time.perf_counter()
+    r = dict(STORE_FIG7)
+    iters = r.pop("stage_iters")
+    stages = range(len(fig7_online.STAGES))
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fields in store_configs().items():
+            churn = name == "async-stale-ef"
+
+            def make(dev, log=None):
+                return fig7_online.make_session(device=dev, log=log, **r,
+                                                **fields)
+
+            path = os.path.join(tmp, f"{name}.msgpack")
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            log = EventLog()
+            ref = _advance(make("cuda", log), stages, churn, iters)
+            torch.cuda.synchronize()
+            ref_s = time.perf_counter() - t0
+
+            twin = _advance(make("cuda"), stages[:1], churn, iters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_session(path, twin)
+            save_s = time.perf_counter() - t0
+            nbytes = os.path.getsize(path)
+            t0 = time.perf_counter()
+            back = load_session(path, device="cuda")
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            equal = _store_equal(_advance(back, stages[1:], churn, iters),
+                                 ref)
+
+            twin = _advance(make("cuda"), stages[:1], churn, iters)
+            _stage_events(twin, 1, churn)
+            save_session(path, twin)
+            back = load_session(path, device="cuda")
+            equal_pending = back._masks_dirty and _store_equal(
+                _advance(back, stages[1:], churn, iters, pending=True), ref)
+
+            log_path = os.path.join(tmp, f"{name}.events")
+            log.save(log_path)
+            t0 = time.perf_counter()
+            twin = replay(EventLog.load(log_path), device="cuda")
+            torch.cuda.synchronize()
+            replay_s = time.perf_counter() - t0
+            equal_replay = _store_equal(twin, ref)
+
+            # a snapshot the CPU port wrote, continued on the card
+            cpu = _advance(make("cpu"), stages[:1], churn, iters)
+            cpu_path = os.path.join(tmp, f"{name}.cpu.msgpack")
+            save_session(cpu_path, cpu)
+            cross = load_session(cpu_path, device="cuda",
+                                 check_fingerprint=False)
+            fp_differ = (cross._plan.fingerprint()
+                         != checkpoint.load(cpu_path)["plan"]["fingerprint"])
+            try:
+                load_session(cpu_path, device="cuda")
+                refused = False
+            except SchemaError:
+                refused = True
+            _advance(cross, stages[1:], churn, iters)
+            torch.cuda.synchronize()
+            by_path[f"store/{name}"] = launches = ops.launch_counts()
+            _advance(cpu, stages[1:], churn, iters)
+            gap = _marks_gap(_session_marks(cross), _session_marks(cpu))
+            errs = _state_errs(cross.state, cpu.state, RTOL_FIT["f32"])
+            state_held = name not in QUANTIZED_STORE_CONFIGS
+            rec = {"store": name, **{k: v for k, v in r.items()},
+                   "stage_iters": iters, "churn_events": churn,
+                   "uninterrupted_s": ref_s, "save_s": save_s,
+                   "restore_s": restore_s, "replay_s": replay_s,
+                   "file_bytes": nbytes, "equal_after_restore": equal,
+                   "equal_with_pending_events": equal_pending,
+                   "replay_from_disk_equal": equal_replay,
+                   "cpu_fingerprint_differs": fp_differ,
+                   "refused_without_flag": refused,
+                   "cpu_snapshot_risk_gap": gap,
+                   "limit": 1.0 / r["n_test"],
+                   "cpu_snapshot_state_errs": {k: e[0]
+                                               for k, e in errs.items()},
+                   "cpu_max_abs": {k: e[1] for k, e in errs.items()},
+                   "state_held_to_rtol": (RTOL_FIT["f32"] if state_held
+                                          else None),
+                   "launches": launches}
+            emit(rec)
+            if not (equal and equal_pending and equal_replay):
+                raise AssertionError(f"store/{name}: a restored or replayed "
+                                     f"session left the uninterrupted run")
+            if refused != fp_differ:
+                raise AssertionError(f"store/{name}: fingerprints differ "
+                                     f"{fp_differ}, restore refused "
+                                     f"{refused}")
+            if not gap <= 1.0 / r["n_test"] + 1e-6:
+                raise AssertionError(f"store/{name}: the CPU snapshot "
+                                     f"continued on the card is {gap} from "
+                                     f"the CPU's risks")
+            if state_held and not all(e[2] for e in errs.values()):
+                raise AssertionError(f"store/{name}: the CPU snapshot "
+                                     f"continued on the card differs from "
+                                     f"the CPU's state: {errs}")
+            if not (launches["qp_pg_multi"] and launches["gram_prescale"]):
+                raise AssertionError(f"store/{name}: the kernels did not "
+                                     f"launch: {launches}")
+        store_large(by_path, tmp)
+    emit({"phase": "store", "seconds": time.perf_counter() - phase_t0})
+
+
+def store_large(by_path: dict, tmp: str) -> None:
+    """A session at the large fit's widths: one ADMM iteration, saved,
+    restored on the card and continued one more, ``torch.equal`` to two
+    uninterrupted iterations; the seconds of the save, the restore and
+    one fingerprint (K, 3.2 GB, copied to the host and hashed), and the
+    file's bytes."""
+    from repro_torch.api import OnlineSession, SolverConfig
+    from repro_torch.kernels import ops
+    from repro_torch.store import load_session, save_session
+
+    X, y, adj = large_data()
+    cfg = SolverConfig(C=0.01, qp_iters=LARGE_FIT["qp_iters"],
+                       qp_solver="pallas_fused_multi")
+    path = os.path.join(tmp, "large_fit.msgpack")
+    ops.reset_launch_counts()
+    ref = OnlineSession(X, y, adj=adj, config=cfg, device="cuda")
+    ref.run(2)
+    twin = OnlineSession(X, y, adj=adj, config=cfg, device="cuda")
+    twin.run(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    twin._plan.fingerprint()
+    fingerprint_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_session(path, twin)
+    save_s = time.perf_counter() - t0
+    del twin
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    back = load_session(path, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    back.run(1)
+    torch.cuda.synchronize()
+    by_path["store/large_fit"] = launches = ops.launch_counts()
+    equal = all(torch.equal(a, b) for a, b in zip(back.state, ref.state))
+    emit({"store": "large_fit", **LARGE_FIT, "qp_solver": cfg.qp_solver,
+          "save_s": save_s, "restore_s": restore_s,
+          "fingerprint_s": fingerprint_s, "file_bytes": os.path.getsize(path),
+          "k_bytes": back._plan.inv.K.numel() * 4,
+          "equal_after_restore": equal, "launches": launches})
+    if not equal:
+        raise AssertionError("store/large_fit: the restored session left "
+                             "the uninterrupted run")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: serving (the predict server and the gemm_rows kernel)
+# ---------------------------------------------------------------------------
+def hold_rows(label: str, regime: str, model, cases: dict) -> None:
+    """The bucket contract on the card: rows 0-7 through ``gemm_rows`` in
+    every bucket of SERVE, at offsets 0 and 3 with random rows beside
+    them, bitwise ``decide_rows``; whether ``torch.addmm`` keeps it too
+    (printed, never used); and the kernel against its plain version at
+    the largest bucket, with its times."""
+    from repro_torch.kernels import ops, ref
+
+    Wf, bf = model.flat()
+    K, p = Wf.shape
+    dev = Wf.device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(8, p, generator=gen, device=dev)
+    want = torch.from_numpy(model.decide_rows(x.cpu().numpy())).to(dev)
+    lib_want = torch.addmm(bf, x, Wf.T)
+    same, lib_same = [], []
+    for bucket in SERVE["buckets"]:
+        for off in (0, 3):
+            if off + 8 > bucket:
+                continue
+            X = torch.randn(bucket, p, generator=gen, device=dev)
+            X[off:off + 8] = x
+            same.append(torch.equal(ops.gemm_rows(Wf, bf, X)[off:off + 8],
+                                    want))
+            lib_same.append(torch.equal(
+                torch.addmm(bf, X, Wf.T)[off:off + 8], lib_want))
+    M = SERVE["buckets"][-1]
+    X = torch.randn(M, p, generator=gen, device=dev)
+    got, plain = ops.gemm_rows(Wf, bf, X), ref.gemm_rows(Wf, bf, X)
+    torch.cuda.synchronize()
+    err, scale, ok = max_err(got, plain, RTOL["f32"])
+    b_ms, b_by = bound(4 * (M * p + K * p + K + M * K), 2 * M * K * p)
+    rec = {"regime": regime, "model": label, "M": M, "K": K, "p": p,
+           "max_abs_err": err,
+           "max_abs_plain": scale, "rtol": RTOL["f32"],
+           "bucket_contract": all(same), "cases": len(same),
+           "addmm_keeps_contract": all(lib_same),
+           "addmm_max_abs_diff": float(
+               (torch.addmm(bf, X, Wf.T) - got).abs().max()),
+           "ms": cuda_ms(lambda: ops.gemm_rows(Wf, bf, X), 200),
+           "graph_ms": graph_ms(lambda: ops.gemm_rows(Wf, bf, X), 200),
+           "plain_ms": cuda_ms(lambda: ref.gemm_rows(Wf, bf, X), 10),
+           "library_ms": cuda_ms(lambda: torch.addmm(bf, X, Wf.T), 200),
+           "bound_ms": b_ms, "bound_by": b_by}
+    emit({"kernel_check": "gemm_rows", **rec})
+    if not (ok and rec["bucket_contract"]):
+        raise AssertionError(f"gemm_rows at {label}: {rec}")
+    cases["gemm_rows"].append(rec)
+
+
+def _serve_load(srv, shape, duration_s: float, seed: int, swap=None):
+    """bench_serve.py's closed-loop clients against ``srv`` for
+    ``duration_s``: each of SERVE["clients"] threads submits 1 to
+    max_rows random rows for a random (node, task) and waits for the
+    answer.  ``swap``, if given, runs in this thread at half time.
+    Returns the responses ``(x, v, t, out, t_submit, t_answer)`` and the
+    swap's (start, end) on the same clock."""
+    import threading
+
+    V, T, P = shape
+    stop_at = time.perf_counter() + duration_s
+    out = [[] for _ in range(SERVE["clients"])]
+    errs = []
+
+    def client(i):
+        rng = np.random.default_rng(seed * 101 + i)
+        try:
+            while time.perf_counter() < stop_at:
+                x = rng.normal(size=(int(rng.integers(
+                    1, SERVE["max_rows"] + 1)), P)).astype(np.float32)
+                v, t = int(rng.integers(V)), int(rng.integers(T))
+                t0 = time.perf_counter()
+                got = srv.predict(x, node=v, task=t)
+                out[i].append((x, v, t, got, t0, time.perf_counter()))
+        except Exception as e:          # raised below, in this thread
+            errs.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVE["clients"])]
+    for th in threads:
+        th.start()
+    swapped = None
+    if swap is not None:
+        time.sleep(duration_s / 2)
+        t0 = time.perf_counter()
+        swap()
+        swapped = (t0, time.perf_counter())
+    for th in threads:
+        th.join(duration_s + 60)
+    if errs or any(th.is_alive() for th in threads):
+        raise AssertionError(f"a serve client failed: {errs[:3]}")
+    return [r for rs in out for r in rs], swapped
+
+
+def _check_responses(responses, old, new=None, swapped=None) -> dict:
+    """Every response bitwise ``decide_rows`` of the model that answered
+    it: ``old`` before the swap began, ``new`` once it had ended, either
+    in between."""
+    T = old.shape[1]
+    counts = {"old": 0, "new": 0}
+    for x, v, t, got, t0, t1 in responses:
+        col = v * T + t
+        if swapped is None or t1 < swapped[0]:
+            ok = np.array_equal(got, old.decide_rows(x)[:, col])
+            counts["old"] += 1
+        elif t0 > swapped[1]:
+            ok = np.array_equal(got, new.decide_rows(x)[:, col])
+            counts["new"] += 1
+        else:
+            ok = any(np.array_equal(got, m.decide_rows(x)[:, col])
+                     for m in (old, new))
+        if not ok:
+            raise AssertionError(f"a served answer is not decide_rows' "
+                                 f"bits: node {v}, task {t}, {len(x)} rows")
+    return counts
+
+
+def _serve_record(label: str, window_ms: float, srv, launches: dict,
+                  responses, counts: dict, stream_s: float) -> dict:
+    from repro_torch.obs import spans
+
+    stats = srv.stats()
+    # each batch's host span: concatenate and pad the rows, copy them to
+    # the card, one launch, copy the answers back, resolve the futures
+    batch_us = [e["dur"] for e in spans.iter_spans()
+                if e["name"] == "serve_batch"]
+    batch_spans = len(batch_us)
+    rec = {"serve": label, "window_ms": window_ms, "stream_s": stream_s,
+           **{k: stats[k] for k in ("requests", "rows", "batches",
+                                    "rows_per_batch", "pad_ratio", "p50_ms",
+                                    "p99_ms", "rps", "devices")},
+           "batch_span_us_p50": float(np.median(batch_us)),
+           "batch_span_us_p99": float(np.percentile(batch_us, 99)),
+           "responses_checked": len(responses), "bitwise": True,
+           "checked_by_model": counts, "serve_batch_spans": batch_spans,
+           "gemm_rows_launched": launches["gemm_rows"] > 0,
+           "launches": launches}
+    emit(rec)
+    if not (launches["gemm_rows"] >= stats["batches"] > 0
+            and len(responses) == stats["requests"]
+            and batch_spans == stats["batches"]):
+        raise AssertionError(f"serve/{label}: launches, requests or spans "
+                             f"disagree with the server's stats: {rec}")
+    return rec
+
+
+def serve(by_path: dict, seen: dict, cases: dict) -> None:
+    """Phase 11: the quickstart's fitted DTSVM and the large fit's model,
+    each held to the bucket contract (and ``gemm_rows`` to its plain
+    version) and served for SERVE["model_s"]; then a Fig. 7 session's
+    model served at each batching window for SERVE["stream_s"], its next
+    stage run and published mid-stream; every answer bitwise
+    ``decide_rows``."""
+    from repro_torch import quickstart
+    from repro_torch.api import DTSVM, SolverConfig
+    from repro_torch.figures import fig7_online
+    from repro_torch.kernels import ops
+    from repro_torch.obs import spans
+    from repro_torch.serve import PredictModel, PredictServer
+    from repro_torch.store import restore_session, snapshot_session
+
+    phase_t0 = time.perf_counter()
+    data, adj = quickstart.data_and_graph()
+    large_X, large_y, large_adj = large_data()
+    fits = [("quickstart", "paper", lambda: DTSVM(SolverConfig(
+        C=0.01, eps1=1.0, eps2=1.0, iters=60, qp_iters=100,
+        qp_solver="pallas_fused_multi"), device="cuda").fit(
+        data["X"], data["y"], mask=data["mask"], adj=adj)),
+        ("large_fit", "large", lambda: DTSVM(SolverConfig(
+            C=0.01, iters=LARGE_FIT["iters"],
+            qp_iters=LARGE_FIT["qp_iters"],
+            qp_solver="pallas_fused_multi"), device="cuda").fit(
+            large_X, large_y, adj=large_adj))]
+    for label, regime, fit in fits:
+        ops.reset_launch_counts()
+        spans.clear_spans()
+        model = PredictModel.from_solver(fit())
+        with PredictServer(model, window_ms=1.0) as srv:
+            responses, _ = _serve_load(srv, model.shape, SERVE["model_s"],
+                                       seed=1)
+            torch.cuda.synchronize()
+            by_path[f"serve/{label}"] = launches = ops.launch_counts()
+            counts = _check_responses(responses, model)
+            _serve_record(label, 1.0, srv, launches, responses, counts,
+                          SERVE["model_s"])
+        hold_rows(label, regime, model, cases)
+
+    r = dict(STORE_FIG7)
+    iters = r.pop("stage_iters")
+    sess = _advance(fig7_online.make_session(device="cuda", **r), range(1),
+                    False, iters)
+    stage1 = snapshot_session(sess)
+    for window in SERVE["windows"]:
+        label = f"fig7/window{window:g}"
+        sess = restore_session(stage1, device="cuda")
+        old = PredictModel.from_session(sess)
+
+        def next_stage():
+            _advance(sess, range(1, 2), False, iters)
+            srv.publish_session(sess)
+
+        ops.reset_launch_counts()
+        spans.clear_spans()
+        with PredictServer(old, window_ms=window) as srv:
+            responses, swapped = _serve_load(srv, old.shape,
+                                             SERVE["stream_s"], seed=2,
+                                             swap=next_stage)
+            torch.cuda.synchronize()
+            by_path[f"serve/{label}"] = launches = ops.launch_counts()
+            new = PredictModel.from_session(sess)
+            counts = _check_responses(responses, old, new, swapped)
+            rec = _serve_record(label, window, srv, launches, responses,
+                                counts, SERVE["stream_s"])
+        if not (counts["old"] and counts["new"]):
+            raise AssertionError(f"serve/{label}: the hot swap did not split "
+                                 f"the stream: {rec}")
+    emit({"phase": "serve", "seconds": time.perf_counter() - phase_t0})
+
+
+# ---------------------------------------------------------------------------
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1926,7 +2451,8 @@ def main() -> int:
     ap.add_argument("--out", default=None,
                     help="also write every record to this JSON file")
     ap.add_argument("--only", choices=("large_fit", "multi_mid", "figures",
-                                       "sessions", "fabric"),
+                                       "sessions", "fabric", "store",
+                                       "serve"),
                     help="run only this part, and print no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1950,9 +2476,11 @@ def main() -> int:
         build.extension()           # built before any timed region
         if args.only == "large_fit":
             large_fit({})
-        elif args.only in ("figures", "sessions", "fabric"):
+        elif args.only in ("figures", "sessions", "fabric", "store",
+                           "serve"):
             run = {"figures": figures, "sessions": sessions,
-                   "fabric": fabric}[args.only]
+                   "fabric": fabric, "store": store,
+                   "serve": serve}[args.only]
             run({}, {k: 0 for k in PROFILED}, {k: [] for k in KERNELS})
         else:
             multi_mid(dev)
@@ -1979,6 +2507,8 @@ def main() -> int:
     figures(by_path, traced, cases)
     sessions(by_path, traced, cases)
     fabric(by_path, traced, cases)
+    store(by_path, traced, cases)
+    serve(by_path, traced, cases)
     if not all(traced.values()):
         raise AssertionError(f"the profiler saw none of some kernels: "
                              f"{traced}")
@@ -1997,7 +2527,7 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(per_path.values()),
             "launches_by_path": per_path,
-            "profiler_launches": traced[kname],
+            "profiler_launches": traced.get(kname),
             "max_abs_err": large["max_abs_err"],
             "ms": large["ms"], "plain_ms": large["plain_ms"],
             "bound_ms": large["bound_ms"], "bound_by": large["bound_by"],

@@ -14,10 +14,13 @@ engine and ``sweep_fit`` (a grid of configs as one batched fit);
 ``OnlineSession`` (tasks entering and leaving a live network) with the
 event log and its ``replay`` (``repro_torch.store``); the communication
 fabric (``repro_torch.net``: lossy, delayed, quantized, metered links,
-node churn, the ``"async"`` backend); and the runners of the paper's
-Figs. 2-7 with Fig. 7's node-churn variant (``repro_torch.figures``).  The
-four TPU kernels (the square and the tiled weighted Gram build, the
-fused QP step and the fused multi-iteration QP solve) are CUDA C++
+node churn, the ``"async"`` backend); the runners of the paper's
+Figs. 2-7 with Fig. 7's node-churn variant (``repro_torch.figures``);
+durable sessions (``repro_torch.store`` on ``repro_torch.checkpoint``,
+the reference's file format); and the batching predict server
+(``repro_torch.serve``).  The four TPU kernels (the square and the tiled
+weighted Gram build, the fused QP step and the fused multi-iteration QP
+solve) and the server's fixed-order product (``gemm_rows``) are CUDA C++
 kernels for ``sm_90a`` under ``repro_torch/kernels/csrc/``, built at
 first use.  A kernel or its plain PyTorch version is chosen by the
 device of the tensors, and the caller chooses the device: entry points

@@ -46,9 +46,12 @@ node set is elastic too: ``node_enter`` / ``node_leave`` /
 session's current absolute round, and ``node_recover(v,
 from_state=...)`` grafts node v's rows of a saved state.
 
+``repro_torch.store`` snapshots a session to disk and restores it
+(``save_session``/``load_session``, ``SessionStore``); on one device the
+restored session continues bitwise.
+
 Not ported yet, and refused by the constructor: telemetry (ROADMAP.md,
 'Modules to port', item 5) and the multi-device backends (item 6).
-Snapshots (``SessionStore``) are item 3.
 """
 from __future__ import annotations
 
@@ -105,7 +108,8 @@ class OnlineSession:
         self._jit = jit
         self._test = None
         if X_test is not None:
-            self._test = evaluate.broadcast_test_set(X_test, y_test, V, dev)
+            self._test = evaluate.broadcast_test_set(
+                _numpy(X_test), _numpy(y_test), V, dev)
         self.state: Optional[core.DTSVMState] = None
         self.iteration = 0
         self.history = []            # one (iters, V, T) risk block per run()

@@ -6,6 +6,8 @@ It is the T=1, no-task-coupling special case of DTSVM's Problem (4):
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
 from repro_torch.core import dtsvm as core
@@ -28,3 +30,12 @@ def make_dsvm_problem(X, y, mask=None, adj=None, *, C=0.01, eps2=1.0,
     return core.make_problem(X, y, mask, adj, C=C, eps2=eps2, eta2=eta2,
                              active=active, device=device,
                              **dsvm_problem_fields(V))
+
+
+def run_dsvm(prob: core.DTSVMProblem, iters: int, qp_iters: int = 200,
+             state: Optional[core.DTSVMState] = None, eval_fn=None):
+    """``iters`` ADMM iterations of a DSVM problem: ``core.run_dtsvm`` on
+    it (the baseline is a DTSVM problem with its own fields).  Returns
+    ``(state, history)``."""
+    return core.run_dtsvm(prob, iters, qp_iters, state=state,
+                          eval_fn=eval_fn)

@@ -66,6 +66,13 @@ def solve_box_qp_fista(K: torch.Tensor, q: torch.Tensor, hi: torch.Tensor,
     return lam
 
 
+def qp_objective(K: torch.Tensor, q: torch.Tensor,
+                 lam: torch.Tensor) -> torch.Tensor:
+    """The dual objective -1/2 lam^T K lam + q^T lam per problem:
+    K (..., N, N), q/lam (..., N) -> (...)."""
+    return -0.5 * (lam * _matvec(K, lam)).sum(-1) + (q * lam).sum(-1)
+
+
 def kkt_residual(K, q, hi, lam) -> torch.Tensor:
     """max |lam - proj(lam + grad)| per problem: zero iff lam is optimal."""
     grad = q - _matvec(K, lam)

@@ -18,6 +18,7 @@ makes a K-sized temporary.
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Callable, Optional
 
 import torch
@@ -152,6 +153,27 @@ class Plan:
         if eval_fn is None:
             return state, None
         return state, (torch.stack(hist) if hist else None)
+
+    def fingerprint(self) -> str:
+        """A content hash of everything that determines the plan's
+        execution: every problem and invariant leaf, in field order
+        (dtype, shape and raw bytes; a factored plan's absent K is
+        skipped), then the QP configuration.  Two plans with equal
+        fingerprints step bitwise alike, so the durable session layer
+        (``repro_torch.store``) stores this hash instead of the large,
+        rebuildable invariants and checks the rebuilt plan against it.
+        The hash reads the port's own leaves, so it differs from the
+        reference's and between devices whose K differs in a bit."""
+        h = hashlib.sha256()
+        for leaf in (*self.prob, *self.inv):
+            if leaf is None:
+                continue
+            t = leaf.detach().cpu().contiguous()
+            h.update(f"{t.dtype}|{tuple(t.shape)}|".encode())
+            h.update(t.reshape(-1).view(torch.uint8).numpy())
+        h.update(f"|{self.qp_iters}|{self.qp_solver}"
+                 f"|{self.qp_precision}|{self.qp_operator}".encode())
+        return h.hexdigest()
 
     def replan(self, *, active=None, couple=None) -> "Plan":
         """A new Plan for changed membership masks, reusing every

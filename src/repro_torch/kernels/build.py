@@ -22,7 +22,7 @@ import pathlib
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bindings.cpp", "gram.cu", "qp_step.cu", "qp_multi.cu")
+SOURCES = ("bindings.cpp", "gram.cu", "qp_step.cu", "qp_multi.cu", "rows.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")

@@ -50,6 +50,11 @@ cudaError_t repro_qp_multi_launch(int k_bf16, int fold, const void* K,
                                   cudaStream_t stream);
 cudaError_t repro_qp_multi_attributes(int which, cudaFuncAttributes* attr,
                                       const char** name);
+cudaError_t repro_rows_launch(const float* W, const float* b, const float* X,
+                              float* out, int M, int K, int p,
+                              cudaStream_t stream);
+cudaError_t repro_rows_attributes(int which, cudaFuncAttributes* attr,
+                                  const char** name);
 
 namespace {
 
@@ -246,13 +251,35 @@ std::tuple<int, int, int, int> qp_multi_shape(bool k_bf16, bool fold,
   return {path, blocks, slots, smem};
 }
 
+// Wf (K, p), bf (K,), X (M, p) -> G (M, K), each element one fixed-order
+// fmaf chain (rows.cu)
+torch::Tensor gemm_rows(torch::Tensor Wf, torch::Tensor bf, torch::Tensor X) {
+  check(Wf, "Wf", at::kFloat, 2);
+  check(bf, "bf", at::kFloat, 1);
+  check(X, "X", at::kFloat, 2);
+  const int64_t K = Wf.size(0), p = Wf.size(1), M = X.size(0);
+  TORCH_CHECK_VALUE(bf.size(0) == K, "bf must be (K,) for Wf (K, p)");
+  TORCH_CHECK_VALUE(X.size(1) == p, "X must be (M, ", p, ")");
+  TORCH_CHECK_VALUE(X.device() == Wf.device() && bf.device() == Wf.device(),
+                    "operands must be on one device");
+  TORCH_CHECK_VALUE(M * K <= std::numeric_limits<int>::max(), M, " rows of ",
+                    K, " values exceed the grid");
+  const c10::cuda::CUDAGuard guard(X.device());
+  auto out = torch::empty({M, K}, X.options());
+  C10_CUDA_CHECK(repro_rows_launch(
+      Wf.data_ptr<float>(), bf.data_ptr<float>(), X.data_ptr<float>(),
+      out.data_ptr<float>(), as_int(M, "M"), as_int(K, "K"), as_int(p, "p"),
+      c10::cuda::getCurrentCUDAStream()));
+  return out;
+}
+
 // Registers, shared and local (spill) memory of every kernel instance, as
 // the compiler left them.
 std::vector<std::tuple<std::string, int, int64_t, int64_t, int>>
 kernel_info() {
   using Query = cudaError_t (*)(int, cudaFuncAttributes*, const char**);
   const Query queries[] = {repro_gram_attributes, repro_qp_step_attributes,
-                           repro_qp_multi_attributes};
+                           repro_qp_multi_attributes, repro_rows_attributes};
   std::vector<std::tuple<std::string, int, int64_t, int64_t, int>> out;
   for (Query query : queries) {
     for (int which = 0;; ++which) {
@@ -289,6 +316,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("qp_multi_shape", &qp_multi_shape,
         "(path, CTAs, problems per CTA, dynamic shared bytes) of the multi "
         "solve's launch");
+  m.def("gemm_rows", &gemm_rows,
+        "decision values of rows against every hyperplane, fixed order");
   m.def("kernel_info", &kernel_info,
         "(name, registers, static shared bytes, local bytes, max threads)");
 }

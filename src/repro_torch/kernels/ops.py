@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels import gram as gram_kernel
 from repro_torch.kernels import qp_step as qp_kernel
 from repro_torch.kernels import ref
+from repro_torch.kernels import rows as rows_kernel
 
 
 def _on_card(*tensors) -> bool:
@@ -30,11 +31,11 @@ def _on_card(*tensors) -> bool:
 
 def launch_counts() -> dict:
     """Launches of every hand kernel since the last reset."""
-    return {**gram_kernel.COUNTS, **qp_kernel.COUNTS}
+    return {**gram_kernel.COUNTS, **qp_kernel.COUNTS, **rows_kernel.COUNTS}
 
 
 def reset_launch_counts() -> None:
-    for counts in (gram_kernel.COUNTS, qp_kernel.COUNTS):
+    for counts in (gram_kernel.COUNTS, qp_kernel.COUNTS, rows_kernel.COUNTS):
         for name in counts:
             counts[name] = 0
 
@@ -133,3 +134,13 @@ def qp_pg_multi(lam0, K, q, hi, gamma, *, iters: int,
         return out.reshape(lam0.shape)
     lam, zl = out
     return lam.reshape(lam0.shape), zl.reshape(batch + zl.shape[-1:])
+
+
+def gemm_rows(Wf: torch.Tensor, bf: torch.Tensor,
+              X: torch.Tensor) -> torch.Tensor:
+    """Decision values of rows X (M, p) against every hyperplane Wf (K, p)
+    with biases bf (K,): (M, K), each element in a fixed order, so a row's
+    values do not depend on the batch it came in."""
+    if not _on_card(Wf, bf, X):
+        return ref.gemm_rows(Wf, bf, X)
+    return rows_kernel.gemm_rows(Wf, bf, X)

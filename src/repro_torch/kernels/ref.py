@@ -81,3 +81,17 @@ def qp_pg_multi(lam0: torch.Tensor, K: torch.Tensor, q: torch.Tensor,
     if Z is None:
         return lam
     return lam, torch.einsum("...n,...nd->...d", lam, Z)
+
+
+def gemm_rows(Wf: torch.Tensor, bf: torch.Tensor,
+              X: torch.Tensor) -> torch.Tensor:
+    """Decision values of rows against every hyperplane: Wf (K, p),
+    bf (K,), X (M, p) -> (M, K), ``bf + X @ Wf.T`` summed over the
+    features one at a time, in order.  Every element is its own chain of
+    elementwise operations, so a row's values are bitwise the same in any
+    batch (a matrix product promises no such thing).  Each step rounds
+    twice where the kernel's ``fmaf`` rounds once."""
+    acc = bf.expand(X.shape[0], bf.shape[0]).clone()
+    for j in range(X.shape[1]):
+        acc = acc + X[:, j:j + 1] * Wf[:, j]
+    return acc

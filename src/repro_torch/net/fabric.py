@@ -417,7 +417,9 @@ def restore_state(tree, device=None) -> FabricState:
     def leaf(k, v):
         if isinstance(v, torch.Tensor):
             v = v.detach().cpu().numpy()
-        return torch.as_tensor(np.asarray(v), device=dev).to(
+        # a copy: a decoded snapshot's arrays are read-only views of the
+        # file's bytes
+        return torch.as_tensor(np.array(v), device=dev).to(
             dtypes.get(k, torch.float32))
 
     return FabricState(**{k: leaf(k, v) for k, v in tree.items()})

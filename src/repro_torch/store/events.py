@@ -8,10 +8,10 @@ rebuilds the exact session from the log alone (tests/test_torch_store.py;
 ``figures.fig7_online`` audits its figure by a replay).  Records are
 plain dicts whose arrays are numpy, so a log is independent of the
 framework and the device: a log the reference recorded replays here too,
-within the tolerance between the two packages.
-
-Not ported yet: ``save``/``load``, which need the checkpoint codec
-(ROADMAP.md, 'Modules to port', item 3).
+within the tolerance between the two packages.  ``save``/``load`` put a
+log on disk in the reference's format (``repro_torch.checkpoint``,
+stamped with the store schema), so a log crosses between the packages
+as a file too.
 """
 from __future__ import annotations
 
@@ -19,15 +19,14 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from repro_torch import checkpoint
+from repro_torch.store import schema
+
 # the event vocabulary; "init" is always record 0.  The node_* records
 # are a fabric session's: a vmap session refuses them live and in a
 # replay alike.
 EVENTS = ("init", "add_task", "drop_task", "set_active", "set_coupling",
           "run", "node_enter", "node_leave", "node_crash", "node_recover")
-
-_NOT_PORTED_CODEC = ("EventLog.save/load (the log's on-disk form) is not "
-                     "ported yet: ROADMAP.md, 'Modules to port', item 3 "
-                     "(store and checkpoint)")
 
 
 class EventLog:
@@ -54,13 +53,19 @@ class EventLog:
         return len(self.records)
 
     def save(self, path: str) -> None:
-        """Serialize the log: not ported yet (see module doc)."""
-        raise NotImplementedError(_NOT_PORTED_CODEC)
+        """Serialize the log (atomic write, versioned schema)."""
+        checkpoint.save(path, schema.stamp("event_log",
+                                           {"records": self.records}))
 
     @classmethod
     def load(cls, path: str) -> "EventLog":
-        """Read a saved log: not ported yet (see module doc)."""
-        raise NotImplementedError(_NOT_PORTED_CODEC)
+        """Read a log written by ``save`` (schema-migrated)."""
+        tree = schema.migrate(checkpoint.load(path))
+        if tree.get("kind") != "event_log":
+            raise schema.SchemaError(
+                f"expected an 'event_log' artifact, got kind="
+                f"{tree.get('kind')!r}")
+        return cls(records=tree["records"])
 
 
 def _nodes(rec: Dict[str, Any]):

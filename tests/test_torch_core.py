@@ -203,3 +203,49 @@ def test_solvers_converge_to_kkt_point():
     K, q, hi, _ = (torch.from_numpy(x) for x in _qp_batch(3))
     lam = qp.solve_box_qp_fista(K, q, hi, iters=3000)
     assert float(qp.kkt_residual(K, q, hi, lam).max()) < 1e-4
+
+
+def test_qp_objective_matches():
+    """The dual objective, batched in the port, against the reference's
+    one-problem form mapped over the batch; PG never lowers it."""
+    K, q, hi, lam0 = _qp_batch(4)
+    lam = np.clip(lam0, 0, hi)
+    want = jax.vmap(jqp.qp_objective)(jnp.asarray(K), jnp.asarray(q),
+                                      jnp.asarray(lam))
+    got = qp.qp_objective(*(torch.from_numpy(x) for x in (K, q, lam)))
+    assert got.shape == (K.shape[0],)
+    _close(got, want)
+    Kt, qt, ht = (torch.from_numpy(x) for x in (K, q, hi))
+    lam_pg = qp.solve_box_qp_pg(Kt, qt, ht, iters=20,
+                                lam0=torch.from_numpy(lam))
+    assert bool((qp.qp_objective(Kt, qt, lam_pg) >= got - 1e-6).all())
+
+
+def test_run_dsvm_matches():
+    """``run_dsvm`` on the same DSVM problem and warm state in both
+    packages: the state within 3e-5 of each leaf's largest magnitude, the
+    risk history within float32 rounding of a mean over 12 samples (the
+    same samples misclassified)."""
+    arrs = _problem_arrays(7)
+    args = (arrs["X"], arrs["y"], arrs["mask"], arrs["adj"])
+    jprob = jdsvm.make_dsvm_problem(*args, C=0.02, eps2=0.5, eta2=2.0)
+    tprob = dsvm.make_dsvm_problem(*args, C=0.02, eps2=0.5, eta2=2.0,
+                                   device="cpu")
+    jstate = _random_state(jprob, seed=8)
+    tstate = dtsvm.DTSVMState(*(torch.from_numpy(np.array(x))
+                                for x in jstate))
+    jout, jhist = jdsvm.run_dsvm(
+        jprob, 4, qp_iters=25, state=jstate,
+        eval_fn=lambda st: jcore.risks(st.r, jnp.asarray(arrs["X"]),
+                                       jnp.asarray(arrs["y"])))
+    tout, thist = dsvm.run_dsvm(
+        tprob, 4, qp_iters=25, state=tstate,
+        eval_fn=lambda st: dtsvm.risks(st.r, tprob.X, tprob.y))
+    for name, got, want in zip(tout._fields, tout, jout):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=3e-5 * float(np.abs(want).max()),
+                                   err_msg=name)
+    assert tuple(thist.shape) == tuple(jhist.shape) == (4, 4, 2)
+    np.testing.assert_allclose(thist.numpy(), np.asarray(jhist), rtol=0,
+                               atol=1e-6)

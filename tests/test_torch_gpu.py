@@ -19,8 +19,12 @@ kernel's rows (each element in the roles the square kernel gives it),
 and a budgeted fit to the dense fit.  The multi kernel is held on each
 of its launch paths, bitwise to a second launch and to itself on a K
 converted to bf16 beforehand, and with its iterate staged in chunks
-(N = 26000 f32, 51300 bf16).  Every binding refuses a CPU tensor, an
-operand of another N and a float64 operand with ValueError.
+(N = 26000 f32, 51300 bf16).  The serving product ``gemm_rows``
+(``csrc/rows.cu``) is held to its plain version at 3e-5, and a row's
+values bitwise across buckets 8-1024 and row offsets, with the
+hyperplanes staged in shared memory and read from device memory.  Every
+binding refuses a CPU tensor, an operand of another N and a float64
+operand with ValueError.
 """
 import numpy as np
 import pytest
@@ -432,12 +436,14 @@ def _binding_operands(ext, dev, binding):
             "weighted_gram": [Zs],
             "weighted_gram_tiled": [Zs, 0, f32(1, 4, 8)],
             "qp_pg_step": [lam, K, lam, lam, one],
-            "qp_pg_multi": [lam, K, lam, lam, one, None, 3]}[binding]
+            "qp_pg_multi": [lam, K, lam, lam, one, None, 3],
+            "gemm_rows": [f32(6, 3), f32(6), f32(8, 3)]}[binding]
     wrong_n = {"gram_prescale": (1, f32(1, 8)),
                "weighted_gram": (0, Zs[..., :3]),     # rows 8 apart, not 4
                "weighted_gram_tiled": (2, f32(1, 4, 9)),
                "qp_pg_step": (1, f32(1, 9, 9)),
-               "qp_pg_multi": (1, f32(1, 9, 9))}[binding]
+               "qp_pg_multi": (1, f32(1, 9, 9)),
+               "gemm_rows": (2, f32(8, 4))}[binding]
 
     def spoil(i, t):
         return good[:i] + [t] + good[i + 1:]
@@ -451,7 +457,7 @@ def _binding_operands(ext, dev, binding):
 @pytest.mark.parametrize("bad", ["cpu", "wrong_n", "wrong_dtype"])
 @pytest.mark.parametrize("binding", ["gram_prescale", "weighted_gram",
                                      "weighted_gram_tiled", "qp_pg_step",
-                                     "qp_pg_multi"])
+                                     "qp_pg_multi", "gemm_rows"])
 def test_binding_checks_raise_value_errors(cuda, binding, bad):
     """An operand a kernel does not take raises ValueError from the
     binding's own checks (TORCH_CHECK_VALUE; several messages format
@@ -846,7 +852,7 @@ def test_fabric_path_launches_the_kernels(cuda, qp_solver):
     torch.cuda.synchronize()
     got = ops.launch_counts()
     want = {"weighted_gram": 1, "weighted_gram_tiled": 0,
-            "gram_prescale": 1,
+            "gram_prescale": 1, "gemm_rows": 0,
             "qp_pg_step": (iters * qp_iters if qp_solver == "pallas_fused"
                            else 0),
             "qp_pg_multi": iters if qp_solver == "pallas_fused_multi"
@@ -886,3 +892,77 @@ def test_async_refuses_the_bf16_and_factored_modes_on_the_card(cuda):
     with pytest.raises(ValueError, match="materialized f32"):
         run_async(prob, 1, plan=plan)
 
+
+
+GEMM_ROWS_SHAPES = [(1, 1, 1), (8, 20, 10), (1024, 2, 256), (37, 20, 257),
+                    (1024, 20, 784), (16, 60, 784)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,p", GEMM_ROWS_SHAPES)
+def test_gemm_rows_kernel_matches_plain(cuda, M, K, p):
+    """The serving product against its plain version (the kernel's fmaf
+    rounds once a step where the plain sum rounds twice); the last two
+    shapes do not fit the shared-memory stage (K (p + 1) floats over
+    48 KB), so their hyperplanes are read from device memory."""
+    rng = np.random.default_rng(M * 7 + K * 3 + p)
+    Wf, bf, X = _on(cuda, rng.normal(size=(K, p)).astype(np.float32),
+                    rng.normal(size=(K,)).astype(np.float32),
+                    rng.normal(size=(M, p)).astype(np.float32))
+    before = ops.launch_counts()["gemm_rows"]
+    got = ops.gemm_rows(Wf, bf, X)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["gemm_rows"] == before + 1
+    assert got.shape == (M, K)
+    _close(got, ref.gemm_rows(Wf, bf, X), REL["f32"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,p", [(20, 10), (2, 256), (20, 784)])
+def test_gemm_rows_bucket_contract_on_the_card(cuda, K, p):
+    """Rows 0-7 give the same bits in buckets 8 to 1024, at row offset 0
+    and 3, with other rows beside them, and on a second launch."""
+    rng = np.random.default_rng(K + p)
+    Wf, bf, x = _on(cuda, rng.normal(size=(K, p)).astype(np.float32),
+                    rng.normal(size=(K,)).astype(np.float32),
+                    rng.normal(size=(8, p)).astype(np.float32))
+    want = ops.gemm_rows(Wf, bf, x)
+    for bucket in (8, 16, 32, 256, 1024):
+        for off in (0, 3):
+            if off + 8 > bucket:
+                continue
+            X = torch.randn(bucket, p, device=cuda)
+            X[off:off + 8] = x
+            assert torch.equal(ops.gemm_rows(Wf, bf, X)[off:off + 8],
+                               want), (bucket, off)
+    assert torch.equal(ops.gemm_rows(Wf, bf, x), want)
+
+
+@pytest.mark.gpu
+def test_serving_on_the_card_is_exact(cuda):
+    """A card server's answers are bitwise ``decide_rows`` on the card,
+    and within 3e-5 of the CPU model's; every batch launches the
+    kernel."""
+    from repro_torch.serve import PredictModel, PredictServer
+
+    rng = np.random.default_rng(11)
+    r = rng.normal(size=(4, 3, 2 * 10 + 2)).astype(np.float32)
+    m = PredictModel.from_r(r)
+    assert m.W.device.type == "cuda"
+    before = ops.launch_counts()["gemm_rows"]
+    with PredictServer(m, window_ms=1.0) as srv:
+        reqs = []
+        for _ in range(40):
+            x = rng.normal(size=(int(rng.integers(1, 9)), 10)) \
+                .astype(np.float32)
+            v, t = int(rng.integers(4)), int(rng.integers(3))
+            reqs.append((x, v, t, srv.submit(x, node=v, task=t)))
+        for x, v, t, fut in reqs:
+            np.testing.assert_array_equal(
+                fut.result(30), m.decide_rows(x)[:, v * 3 + t])
+        batches = srv.stats()["batches"]
+    assert ops.launch_counts()["gemm_rows"] >= before + batches
+    x = rng.normal(size=(5, 10)).astype(np.float32)
+    cpu = PredictModel.from_r(r, device="cpu").decide_rows(x)
+    _close(torch.from_numpy(m.decide_rows(x)), torch.from_numpy(cpu),
+           REL["f32"])

@@ -21,6 +21,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import gram as gram_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import qp_step as qp_kernel
+from repro_torch.kernels import rows as rows_kernel
 
 TOL = dict(rtol=3e-5, atol=3e-5)
 BF16_REL = 1e-2
@@ -191,6 +192,9 @@ def test_kernel_wrappers_take_only_cuda_tensors():
         qp_kernel.qp_pg_step(lam, K, q, hi, g)
     with pytest.raises(ValueError):
         qp_kernel.qp_pg_multi(lam, K, q, hi, g, iters=1)
+    with pytest.raises(ValueError):
+        rows_kernel.gemm_rows(torch.zeros(2, 3), torch.zeros(2),
+                              torch.zeros(8, 3))
 
 
 def test_launch_counts_reset():
@@ -198,4 +202,5 @@ def test_launch_counts_reset():
     assert ops.launch_counts() == {"weighted_gram": 0,
                                    "weighted_gram_tiled": 0,
                                    "gram_prescale": 0,
-                                   "qp_pg_step": 0, "qp_pg_multi": 0}
+                                   "qp_pg_step": 0, "qp_pg_multi": 0,
+                                   "gemm_rows": 0}
