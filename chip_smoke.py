@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's main path on one GPU and check it.
 
     python3 chip_smoke.py [--out FILE] [--only large_fit|multi_mid|figures|
-                                               sessions|fabric|store|serve]
+                                               sessions|fabric|store|serve|
+                                               obs]
 
 Runs from the root of a checkout, on a machine with one CUDA card, the
 CUDA toolkit and ninja; it builds the hand kernels itself into
@@ -163,7 +164,33 @@ any failure raises and exits non-zero:
    against ``decide_rows`` of the model that answered it, with p50/p99
    latency, requests/s, rows per batch, pad ratio and the kernel's
    launches;
-12. the ``kernels`` line, the card line, and the result line.
+12. observability (``repro_torch.obs``): (a) the quickstart's DTSVM
+   (V=10, T=2, N=60, p=10, 60 ADMM iterations of 100 QP iterations) per
+   engine (fista, pg, pallas_fused, pallas_fused_multi and the factored
+   operator), FIT_REPS fits each with telemetry off and on in turns:
+   the state ``torch.equal`` on and off, the kernel launches the same,
+   the streams within the bounds of OBS_RTOL / OBS_ATOL / OBS_FRAC_GAP
+   of the same fit on the CPU port (the largest gaps printed), the
+   engine's spans recorded, and its loop run under
+   ``torch.cuda.set_sync_debug_mode("warn")`` with as many warnings on
+   as off; the median walls on and off, and a profiler trace of the
+   multi engine's fit on and off; (b) the large fit (V=2, T=1, N=20000,
+   p=256, ``pallas_fused_multi`` f32, 2 x 10 iterations) on and off,
+   ``torch.equal``, its streams and walls; (e) ``obs.timeit`` of its
+   ``Plan.run``, whose best time may not be below the device time of
+   the same call (CUDA events while a spin kernel holds the card, so no
+   host gap counts); (c) Fig. 7's churn session (``churn_marks``, the
+   multi engine) with telemetry on the card and the CPU: the fabric's
+   ``bytes_round``, ``staleness`` and ``nodes_alive`` equal, the other
+   streams within OBS_WIRE_REL of each stream's largest value over the
+   int8 wire and within (a)'s bounds over a float32 wire with the same
+   drops, schedule, staleness limit and node events; the int8 session
+   saved after stage 2, restored on the card and continued, its
+   ``telemetry_`` and state equal to the uninterrupted session's;
+   (d) ``python -m repro_torch.obs demo`` in a
+   subprocess on the card, its trace valid and holding the engine's
+   spans, its registry loaded and rendered;
+13. the ``kernels`` line, the card line, and the result line.
 
 ``--only`` runs one part and prints no result line, to compare two
 trees' ``src/`` under one script (a copy of this file at each tree's
@@ -171,7 +198,8 @@ root): ``large_fit`` phase 5's large fits, ``multi_mid`` the multi
 solve at N between the paper's and the large fit's (B in {2, 20, 300},
 N in {328, 329, 515, 1000}, 100 iterations with the fold), each against
 its plain version and timed, ``figures`` phase 7, ``sessions`` phase 8,
-``fabric`` phase 9, ``store`` phase 10, ``serve`` phase 11.
+``fabric`` phase 9, ``store`` phase 10, ``serve`` phase 11, ``obs``
+phase 12.
 
 Without a CUDA device, or without the rest of the repository beside it,
 it exits non-zero and prints no result.
@@ -180,6 +208,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -307,6 +336,27 @@ QUANTIZED_STORE_CONFIGS = ("async-lossy", "async-stale-ef")
 # and the large fit's models; rows 0-7 held bitwise across these buckets
 SERVE = dict(clients=4, max_rows=16, stream_s=3.0, model_s=1.0,
              windows=(0.0, 1.0), buckets=(8, 16, 32, 256, 1024))
+# the obs phase: the quickstart's DTSVM per engine with telemetry on and
+# off; the card's streams against the same fit's on the CPU port: the
+# residual streams within OBS_RTOL of each value plus OBS_ATOL of the
+# stream's largest value, the box-face fraction within OBS_FRAC_GAP, the
+# fabric's counting streams exactly
+OBS_ENGINES = [("fista", {"qp_solver": "fista"}),
+               ("pg", {"qp_solver": "pg"}),
+               ("pallas_fused", {"qp_solver": "pallas_fused"}),
+               ("pallas_fused_multi", {"qp_solver": "pallas_fused_multi"}),
+               ("factored", {"qp_solver": "pallas_fused_multi",
+                             "qp_operator": "factored"})]
+OBS_RTOL, OBS_ATOL, OBS_FRAC_GAP = 1e-3, 1e-5, 0.01
+OBS_EXACT = ("bytes_round", "staleness", "nodes_alive")
+# Fig. 7's churn wire is int8 with error feedback: a last-bit difference
+# between the card's and the CPU's state can move an int8 code, and the
+# moved code carries into every later round (phase 9's risks hold to
+# 1/n_test for the same reason); over it the residual streams are held to
+# OBS_WIRE_REL of the stream's largest value, and the same protocol over
+# a float32 wire (drops, partial schedule, staleness, the same node
+# events) to (a)'s bounds
+OBS_WIRE_REL = 1e-2
 
 RECORDS = []
 
@@ -330,6 +380,21 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn) -> float:
+    """Device time of one call of ``fn``: a spin kernel holds the card
+    while the host enqueues the call, so the events between its launches
+    see no host gap (``fn`` must not synchronize)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)          # ~0.1 s at the H100's clock
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -979,6 +1044,10 @@ def multi_mid(dev) -> None:
 
 #: the hand kernels by a fragment of their device names, as the profiler
 #: lists them
+# the span taxonomy (repro_torch/obs/spans.py) and the demo's own span
+SPAN_NAMES = {"invariant_build", "plan_compile", "plan_replan",
+              "scan_execute", "store_snapshot", "store_restore",
+              "serve_batch", "demo_fit"}
 PROFILED = {"weighted_gram": "gram_kernel",
             "weighted_gram_tiled": "gram_tiled_kernel",
             "gram_prescale": "gram_prescale_kernel",
@@ -1003,6 +1072,10 @@ def _profile(label: str, fn) -> dict:
     top = []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        # a span is a record_function range: the profiler lists its
+        # device-side projection, which is no kernel
+        if getattr(ev, "is_user_annotation", False) or ev.key in SPAN_NAMES:
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -2432,6 +2505,355 @@ def serve(by_path: dict, seen: dict, cases: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: observability (telemetry streams, spans, registry, timeit)
+# ---------------------------------------------------------------------------
+def _stream_gaps(got: dict, want: dict) -> dict:
+    """Per stream: (largest gap, whether it is within the phase's bounds).
+    The residual streams are held to OBS_RTOL of each value plus OBS_ATOL
+    of the stream's largest value, the box-face fraction to
+    OBS_FRAC_GAP, the fabric's counting streams exactly."""
+    out = {}
+    for k, w in want.items():
+        g, w = np.asarray(got[k], np.float64), np.asarray(w, np.float64)
+        gap = float(np.abs(g - w).max(initial=0.0))
+        if k in OBS_EXACT:
+            ok = g.shape == w.shape and bool(np.array_equal(g, w))
+        elif k == "qp_active_frac":
+            ok = g.shape == w.shape and gap <= OBS_FRAC_GAP
+        else:
+            limit = (OBS_RTOL * np.abs(w)
+                     + OBS_ATOL * float(np.abs(w).max(initial=0.0)))
+            ok = g.shape == w.shape and bool((np.abs(g - w) <= limit).all())
+        out[k] = (gap, ok)
+    return out
+
+
+def _check_streams(label: str, got: dict, want: dict,
+                   wire_rel: float = None) -> dict:
+    """Raise unless ``got`` holds ``want``'s streams within the phase's
+    bounds (with ``wire_rel``: the residual streams within that share of
+    each stream's largest value instead); returns the largest gaps."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: streams {sorted(got)} against "
+                             f"{sorted(want)}")
+    gaps = _stream_gaps(got, want)
+    if wire_rel is not None:
+        gaps = {k: (g, ok if k in OBS_EXACT or k == "qp_active_frac" else
+                    g <= wire_rel * float(np.abs(want[k]).max()))
+                for k, (g, ok) in gaps.items()}
+    bad = {k: g for k, (g, ok) in gaps.items() if not ok}
+    if bad:
+        raise AssertionError(f"{label}: streams leave the CPU port's "
+                             f"bounds: {bad}")
+    return {k: g for k, (g, _) in gaps.items()}
+
+
+def _summary(streams: dict) -> dict:
+    """First and last value of each stream (max over a trailing axis)."""
+    from repro_torch.obs import summarize
+
+    return {k: {"first": s["first"], "last": s["last"]}
+            for k, s in summarize(streams).items()}
+
+
+def _sync_warnings(fn) -> list:
+    """Synchronizing CUDA calls ``fn`` makes: torch's sync-debug mode
+    warns on each; returns the caller's file:line of each warning."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+            for w in caught if "synchronizing" in str(w.message)]
+
+
+def _on_off_fits(cfg, X, y, mask, adj, path: str, by_path: dict) -> dict:
+    """FIT_REPS DTSVM fits on the card with telemetry off and on, in
+    turns; each fit's launches counted from 0 just before it and read
+    just after.  Returns the last states, the on fit's streams and spans,
+    the walls and both launch totals."""
+    from repro_torch import obs
+    from repro_torch.api import DTSVM
+    from repro_torch.kernels import ops
+
+    out = {"wall": {False: [], True: []},
+           "launches": {False: None, True: None}}
+    for _ in range(FIT_REPS):
+        for on in (False, True):
+            obs.clear_spans()
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit = DTSVM(cfg.replace(telemetry=on), device="cuda").fit(
+                X, y, mask=mask, adj=adj)
+            torch.cuda.synchronize()
+            out["wall"][on].append(time.perf_counter() - t0)
+            n = ops.launch_counts()
+            tot = out["launches"][on]
+            out["launches"][on] = (n if tot is None else
+                                   {k: tot[k] + v for k, v in n.items()})
+            out[on] = fit
+            if on:
+                out["spans"] = [e["name"] for e in obs.iter_spans()]
+    by_path[path] = out["launches"][True]
+    if out["launches"][True] != out["launches"][False]:
+        raise AssertionError(f"{path}: kernel launches with telemetry "
+                             f"{out['launches'][True]} differ from without "
+                             f"{out['launches'][False]}")
+    if not all(torch.equal(a, b) for a, b in zip(out[True].state_,
+                                                 out[False].state_)):
+        raise AssertionError(f"{path}: telemetry changed the state")
+    return out
+
+
+def obs_quickstart(by_path: dict) -> None:
+    """(a) The quickstart's DTSVM per engine with telemetry on and off."""
+    from repro_torch import obs, quickstart
+    from repro_torch.api import DTSVM, SolverConfig
+    from repro_torch.core import dtsvm
+    from repro_torch.engine import plan as engine_plan
+
+    data, adj = quickstart.data_and_graph()
+    X, y, mask = data["X"], data["y"], data["mask"]
+    base = SolverConfig(C=0.01, eps1=1.0, eps2=1.0, iters=60, qp_iters=100)
+    _sync_warnings(lambda: None)    # the mode's first switch warns itself
+    for label, kw in OBS_ENGINES:
+        cfg = base.replace(**kw)
+        runs = _on_off_fits(cfg, X, y, mask, adj, f"obs/quickstart/{label}",
+                            by_path)
+        got = runs[True].telemetry_
+        cpu = DTSVM(cfg.replace(telemetry=True), device="cpu").fit(
+            X, y, mask=mask, adj=adj).telemetry_
+        gaps = _check_streams(f"obs/quickstart/{label}", got, cpu)
+        # the loop alone under the sync-debug mode, off then on, after one
+        # warm iteration of each (first calls may sync once to set up);
+        # the streams' one copy to the host comes after the loop
+        plan = engine_plan.compile_problem(dtsvm.make_problem(
+            X, y, mask, adj, C=0.01, device="cuda"), cfg)
+        syncs = {}
+        for tel in (None, obs.Telemetry()):
+            plan.run(iters=1, telemetry=tel)
+        for on in (False, True):
+            tel = obs.Telemetry() if on else None
+            syncs[on] = _sync_warnings(
+                lambda: plan.run(iters=cfg.iters, telemetry=tel))
+        rec = {"obs": "quickstart", "engine": label, "reps": FIT_REPS,
+               "fit_s_off": runs["wall"][False],
+               "fit_s_on": runs["wall"][True],
+               "fit_s_median_off": float(np.median(runs["wall"][False])),
+               "fit_s_median_on": float(np.median(runs["wall"][True])),
+               "launches": runs["launches"][True],
+               "spans_per_fit": len(runs["spans"]), "spans": runs["spans"],
+               "state_equal_on_off": True,
+               "stream_gaps_vs_cpu": gaps,
+               "sync_warnings_loop_off": len(syncs[False]),
+               "sync_warnings_loop_on": len(syncs[True]),
+               "sync_sites": sorted(set(syncs[False] + syncs[True])),
+               "streams": _summary(got)}
+        rec["on_over_off"] = rec["fit_s_median_on"] / rec["fit_s_median_off"]
+        emit(rec)
+        if kw.get("qp_operator") == "factored":
+            # L through discarded row panels: tiled launches, no K, no
+            # multi solve (the factored matvec is plain torch)
+            n = runs["launches"][True]
+            if not (n["weighted_gram_tiled"] and n["gram_prescale"]) or \
+                    n["weighted_gram"] or n["qp_pg_multi"]:
+                raise AssertionError(f"obs/quickstart/{label}: launches {n}")
+        else:
+            check_launches(f"obs/quickstart/{label}",
+                           runs["launches"][True], expected_launches(
+                               kw["qp_solver"], fits=FIT_REPS,
+                               iters=cfg.iters, qp_iters=cfg.qp_iters))
+        if len(syncs[True]) > len(syncs[False]):
+            raise AssertionError(f"obs/quickstart/{label}: telemetry adds "
+                                 f"synchronizations to the loop: {syncs}")
+        missing = {"invariant_build", "plan_compile",
+                   "scan_execute"} - set(runs["spans"])
+        if missing:
+            raise AssertionError(f"obs/quickstart/{label}: no {missing} "
+                                 f"span in a fit")
+
+
+def obs_profile(seen: dict) -> None:
+    """Launches and busy share of one multi-engine quickstart fit with
+    telemetry off and on (the collector's own launches)."""
+    from repro_torch import quickstart
+    from repro_torch.api import DTSVM, SolverConfig
+
+    data, adj = quickstart.data_and_graph()
+    cfg = SolverConfig(C=0.01, iters=60, qp_iters=100,
+                       qp_solver="pallas_fused_multi")
+    for on in (False, True):
+        per_kernel = _profile(
+            f"obs/quickstart/pallas_fused_multi/telemetry={on}",
+            lambda: DTSVM(cfg.replace(telemetry=on), device="cuda").fit(
+                data["X"], data["y"], mask=data["mask"], adj=adj))
+        for k in seen:
+            seen[k] += per_kernel[k]
+
+
+def obs_large(by_path: dict) -> None:
+    """(b) The large fit with telemetry on and off; (e) ``timeit`` of its
+    ``Plan.run`` against CUDA events around the same call."""
+    from repro_torch import obs
+    from repro_torch.api import SolverConfig
+    from repro_torch.core import dtsvm
+    from repro_torch.engine import plan as engine_plan
+
+    X, y, adj = large_data()
+    cfg = SolverConfig(C=0.01, iters=LARGE_FIT["iters"],
+                       qp_iters=LARGE_FIT["qp_iters"],
+                       qp_solver="pallas_fused_multi")
+    runs = _on_off_fits(cfg, X, y, None, adj, "obs/large_fit", by_path)
+    emit({"obs": "large_fit", **LARGE_FIT, "reps": FIT_REPS,
+          "fit_s_off": runs["wall"][False], "fit_s_on": runs["wall"][True],
+          "fit_s_median_off": float(np.median(runs["wall"][False])),
+          "fit_s_median_on": float(np.median(runs["wall"][True])),
+          "state_equal_on_off": True, "launches": runs["launches"][True],
+          "streams": {k: v.tolist() for k, v in
+                      runs[True].telemetry_.items()}})
+
+    plan = engine_plan.compile_problem(
+        dtsvm.make_problem(X, y, None, adj, C=0.01, device="cuda"), cfg)
+    timing = obs.timeit(plan.run, iters=cfg.iters, repeats=5, warmup=1)
+    event_ms = [device_ms(lambda: plan.run(iters=cfg.iters))
+                for _ in range(5)]
+    rec = {"obs": "timeit", "call": "Plan.run(iters=2), large fit",
+           "best_s": timing.best_s, "mean_s": timing.mean_s,
+           "times_s": timing.times_s, "device_ms": event_ms}
+    emit(rec)
+    if not timing.best_s * 1e3 >= min(event_ms):
+        raise AssertionError(f"timeit reports less than the card's time "
+                             f"for the same call: {rec}")
+
+
+def obs_churn(by_path: dict) -> None:
+    """(c) Fig. 7's churn session with telemetry on the card and the CPU,
+    over its int8 wire and over a float32 one, then snapshot -> restore
+    -> continue on the card."""
+    import tempfile
+
+    from repro_torch.figures import fig7_online
+    from repro_torch.kernels import ops
+    from repro_torch.net import LinkPolicy
+    from repro_torch.store import load_session, save_session
+
+    r = dict(FIG7_PAPER)
+    iters = r.pop("stage_iters")
+    kw = dict(r, qp_solver="pallas_fused_multi", telemetry=True)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, info = fig7_online.churn_marks(iters, device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_path["obs/fig7_churn"] = launches = ops.launch_counts()
+    card = info["session"]
+    _, cpu_info = fig7_online.churn_marks(iters, device="cpu", **kw)
+    gaps = _check_streams("obs/fig7_churn", card.telemetry_,
+                          cpu_info["session"].telemetry_,
+                          wire_rel=OBS_WIRE_REL)
+
+    stages = range(len(fig7_online.STAGES))
+    net = fig7_online.churn_net(r["seed"])
+    f32_net = dataclasses.replace(net, policy=LinkPolicy(
+        drop=net.policy.drop), error_feedback=False)
+    f32 = {}
+    for dev in ("cuda", "cpu"):
+        ops.reset_launch_counts()
+        f32[dev] = _advance(fig7_online.make_session(
+            device=dev, net=f32_net, **kw), stages, True, iters)
+        if dev == "cuda":
+            by_path["obs/fig7_churn_f32_wire"] = ops.launch_counts()
+    f32_gaps = _check_streams("obs/fig7_churn_f32_wire",
+                              f32["cuda"].telemetry_, f32["cpu"].telemetry_)
+    twin = _advance(fig7_online.make_session(
+        device="cuda", net=fig7_online.churn_net(r["seed"]), **kw),
+        stages[:2], True, iters)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "churn.msgpack")
+        save_session(path, twin)
+        back = _advance(load_session(path, device="cuda"), stages[2:], True,
+                        iters)
+    restored = (set(back.telemetry_) == set(card.telemetry_)
+                and all(np.array_equal(back.telemetry_[k], v)
+                        for k, v in card.telemetry_.items())
+                and all(torch.equal(a, b)
+                        for a, b in zip(back.state, card.state)))
+    emit({"obs": "fig7_churn", **FIG7_PAPER, "wall_s": wall,
+          "stage_s": info["stage_s"], "launches": launches,
+          "stream_gaps_vs_cpu": gaps, "wire_rel": OBS_WIRE_REL,
+          "stream_maxima": {k: float(np.abs(v).max())
+                            for k, v in card.telemetry_.items()},
+          "f32_wire_stream_gaps_vs_cpu": f32_gaps,
+          "shapes": {k: list(v.shape) for k, v in card.telemetry_.items()},
+          "nodes_alive": card.telemetry_["nodes_alive"].tolist()[::iters],
+          "restored_streams_equal": restored,
+          "streams": _summary(card.telemetry_)})
+    if not restored:
+        raise AssertionError("obs/fig7_churn: the restored session's "
+                             "telemetry or state left the uninterrupted "
+                             "session's")
+
+
+def obs_demo() -> None:
+    """(d) ``python -m repro_torch.obs demo`` in a subprocess on the card:
+    its trace validates and holds the engine's spans, its registry loads
+    and renders."""
+    import tempfile
+
+    from repro_torch import obs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "trace.json")
+        metrics = os.path.join(tmp, "metrics.json")
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs", "demo", "--iters",
+             "5", "--trace", trace, "--registry", metrics],
+            capture_output=True, text=True, env=env, timeout=300)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"obs demo failed: {proc.stdout}"
+                                 f"{proc.stderr}")
+        with open(trace) as f:
+            tree = json.load(f)
+        obs.validate_chrome_trace(tree)
+        names = [e["name"] for e in tree["traceEvents"]]
+        reg = obs.MetricsRegistry.load(metrics)
+        rendered = reg.render()
+    emit({"obs": "demo", "wall_s": wall, "spans": names,
+          "sections": reg.sections(),
+          "telemetry": reg.get("telemetry")["primal_residual"],
+          "stdout_head": proc.stdout.splitlines()[0]})
+    missing = {"invariant_build", "plan_compile", "scan_execute"} - set(names)
+    if missing or "on cuda" not in proc.stdout or "[telemetry]" not in \
+            rendered:
+        raise AssertionError(f"obs demo: spans {names}, missing {missing}; "
+                             f"stdout {proc.stdout[:200]}")
+
+
+def observability(by_path: dict, seen: dict, cases: dict) -> None:
+    """Phase 12: telemetry on the card (bitwise invisible, no added
+    synchronization, streams within bounds of the CPU port's), the demo
+    CLI, and ``timeit``."""
+    phase_t0 = time.perf_counter()
+    obs_quickstart(by_path)
+    obs_profile(seen)
+    obs_large(by_path)
+    obs_churn(by_path)
+    obs_demo()
+    emit({"phase": "obs", "seconds": time.perf_counter() - phase_t0})
+
+
+# ---------------------------------------------------------------------------
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2452,7 +2874,7 @@ def main() -> int:
                     help="also write every record to this JSON file")
     ap.add_argument("--only", choices=("large_fit", "multi_mid", "figures",
                                        "sessions", "fabric", "store",
-                                       "serve"),
+                                       "serve", "obs"),
                     help="run only this part, and print no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2477,10 +2899,10 @@ def main() -> int:
         if args.only == "large_fit":
             large_fit({})
         elif args.only in ("figures", "sessions", "fabric", "store",
-                           "serve"):
+                           "serve", "obs"):
             run = {"figures": figures, "sessions": sessions,
                    "fabric": fabric, "store": store,
-                   "serve": serve}[args.only]
+                   "serve": serve, "obs": observability}[args.only]
             run({}, {k: 0 for k in PROFILED}, {k: [] for k in KERNELS})
         else:
             multi_mid(dev)
@@ -2509,6 +2931,7 @@ def main() -> int:
     fabric(by_path, traced, cases)
     store(by_path, traced, cases)
     serve(by_path, traced, cases)
+    observability(by_path, traced, cases)
     if not all(traced.values()):
         raise AssertionError(f"the profiler saw none of some kernels: "
                              f"{traced}")

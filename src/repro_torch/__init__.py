@@ -17,8 +17,10 @@ fabric (``repro_torch.net``: lossy, delayed, quantized, metered links,
 node churn, the ``"async"`` backend); the runners of the paper's
 Figs. 2-7 with Fig. 7's node-churn variant (``repro_torch.figures``);
 durable sessions (``repro_torch.store`` on ``repro_torch.checkpoint``,
-the reference's file format); and the batching predict server
-(``repro_torch.serve``).  The four TPU kernels (the square and the tiled
+the reference's file format); the batching predict server
+(``repro_torch.serve``); and observability (``repro_torch.obs``:
+convergence telemetry, spans of the engine's phases, the metrics
+registry, the timing helper).  The four TPU kernels (the square and the tiled
 weighted Gram build, the fused QP step and the fused multi-iteration QP
 solve) and the server's fixed-order product (``gemm_rows``) are CUDA C++
 kernels for ``sm_90a`` under ``repro_torch/kernels/csrc/``, built at

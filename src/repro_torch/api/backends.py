@@ -28,6 +28,7 @@ from typing import Callable, Dict, Optional
 from repro_torch.core import dtsvm as core
 from repro_torch.engine import plan as engine_plan
 from repro_torch.net import async_admm
+from repro_torch.obs import telemetry as obs_telemetry
 
 _REGISTRY: Dict[str, Callable] = {}
 
@@ -71,14 +72,20 @@ def _run_vmap(prob: core.DTSVMProblem, iters: int, *, qp_iters: int = 200,
               qp_operator: str = "materialized",
               state: Optional[core.DTSVMState] = None, eval_fn=None,
               plan: Optional[engine_plan.Plan] = None, budget=None,
+              telemetry=None, telemetry_out: Optional[dict] = None,
               **_ignored):
     """Single-host backend: one compiled plan, one loop of ADMM steps.
 
     ``plan`` is a prebuilt plan (e.g. one ``Plan.replan`` made); it must
     agree with ``prob`` and the QP configuration of the call.  ``budget``
     streams the plan's K build through bounded row panels (ignored when
-    ``plan`` is given).  Options of the other backends (e.g.
-    ``topology``) are ignored, as in the reference."""
+    ``plan`` is given).  ``telemetry`` (a ``repro_torch.obs.Telemetry``)
+    collects the per-iteration convergence streams in the same loop (the
+    state stays bitwise), and ``telemetry_out`` (a dict) receives them as
+    ``{"streams": {name: float32 numpy}}``, copied to the host after the
+    loop: the ``(state, history)`` return leaves no slot for them.
+    Options of the other backends (e.g. ``topology``) are ignored, as in
+    the reference."""
     if plan is None:
         plan = engine_plan.compile_problem(prob, qp_iters=qp_iters,
                                            qp_solver=qp_solver,
@@ -93,7 +100,13 @@ def _run_vmap(prob: core.DTSVMProblem, iters: int, *, qp_iters: int = 200,
             "prebuilt plan= disagrees with the call: pass prob=plan.prob "
             "and matching qp_iters/qp_solver/qp_precision/qp_operator "
             "(or omit plan=)")
-    return plan.run(state=state, iters=iters, eval_fn=eval_fn)
+    if telemetry is None:
+        return plan.run(state=state, iters=iters, eval_fn=eval_fn)
+    st, hist, streams = plan.run(state=state, iters=iters, eval_fn=eval_fn,
+                                 telemetry=telemetry)
+    if telemetry_out is not None:
+        telemetry_out["streams"] = obs_telemetry.materialize(streams)
+    return st, hist
 
 
 @register("async")
@@ -103,7 +116,8 @@ def _run_async(prob: core.DTSVMProblem, iters: int, *, qp_iters: int = 200,
                net=None, plan: Optional[engine_plan.Plan] = None,
                fabric=None, fabric_state=None, round0: int = 0,
                meter_out: Optional[dict] = None, budget=None,
-               telemetry=None, membership=None):
+               telemetry=None, telemetry_out: Optional[dict] = None,
+               membership=None):
     """The communication fabric (``repro_torch.net``): the same compiled
     plan stepped against per-node mailboxes behind lossy, delayed,
     quantized links, with byte metering.  ``net`` is a
@@ -111,7 +125,10 @@ def _run_async(prob: core.DTSVMProblem, iters: int, *, qp_iters: int = 200,
     byte report, the fabric and its final state; ``budget`` streams the
     plan's K build when no ``plan`` is given; ``membership`` (a
     ``repro_torch.net.Membership``) schedules node enter / leave / crash
-    / recover events over the run.  ``telemetry`` is not ported yet."""
+    / recover events over the run; ``telemetry`` / ``telemetry_out``
+    collect the per-round convergence streams (plus ``bytes_round``,
+    ``staleness`` and, under a membership, ``nodes_alive``) from the same
+    loop."""
     if plan is not None and (plan.prob is not prob
                              or plan.qp_iters != qp_iters
                              or plan.qp_solver != qp_solver):
@@ -127,6 +144,8 @@ def _run_async(prob: core.DTSVMProblem, iters: int, *, qp_iters: int = 200,
         meter_out["report"] = res.report
         meter_out["fabric"] = res.fabric
         meter_out["fabric_state"] = res.fabric_state
+    if telemetry_out is not None and res.telemetry is not None:
+        telemetry_out["streams"] = res.telemetry
     return res.state, res.history
 
 

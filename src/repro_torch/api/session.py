@@ -50,8 +50,13 @@ from_state=...)`` grafts node v's rows of a saved state.
 (``save_session``/``load_session``, ``SessionStore``); on one device the
 restored session continues bitwise.
 
-Not ported yet, and refused by the constructor: telemetry (ROADMAP.md,
-'Modules to port', item 5) and the multi-device backends (item 6).
+With ``SolverConfig(telemetry=True)`` every ``run`` collects the
+per-iteration convergence streams (``repro_torch.obs``), and
+``telemetry_`` accumulates them across runs; the state stays bitwise the
+telemetry-off session's.
+
+Not ported yet, and refused by the constructor: the multi-device
+backends (ROADMAP.md, 'Modules to port', item 6).
 """
 from __future__ import annotations
 
@@ -68,6 +73,7 @@ from repro_torch.core import dtsvm as core
 from repro_torch.engine import plan as engine_plan
 from repro_torch.net import elastic
 from repro_torch.net import meter
+from repro_torch.obs import telemetry as obs_telemetry
 
 
 def _numpy(x, dtype=np.float32) -> np.ndarray:
@@ -126,6 +132,9 @@ class OnlineSession:
         self._net_series = []
         #: the fabric's cumulative byte accounting; a vmap session has none
         self.net_report_: Optional[dict] = None
+        #: the convergence streams of every run so far, when
+        #: config.telemetry (the iteration axis counts rounds)
+        self.telemetry_: Optional[dict] = None
         if jit and self._effective_backend() == "async":
             raise ValueError("jit=True is a vmap-session feature; the "
                              "async fabric already scans its rounds — "
@@ -364,8 +373,10 @@ class OnlineSession:
         default_qp_mode = (cfg.qp_precision, cfg.qp_operator) == (
             "f32", "materialized")
         # the legacy path runs the core loop, which only knows the
-        # materialized f32 operator: other QP modes take the plan path
-        if self._jit and backend == "vmap" and default_qp_mode:
+        # materialized f32 operator: other QP modes and telemetry take
+        # the plan path, which threads them through
+        if self._jit and backend == "vmap" and default_qp_mode \
+                and not cfg.telemetry:
             prob = self.problem()
             if self.state is None:
                 self.state = core.init_state(prob)
@@ -386,6 +397,9 @@ class OnlineSession:
             if backend == "async":
                 options.update(self._async_net_kwargs(was_dirty,
                                                       old_active, plan))
+            if cfg.telemetry:
+                options["telemetry"] = obs_telemetry.Telemetry()
+                options["telemetry_out"] = {}
             self.state, hist = backends.run(
                 plan.prob, iters, backend=backend, qp_iters=cfg.qp_iters,
                 qp_solver=cfg.qp_solver, qp_precision=cfg.qp_precision,
@@ -397,6 +411,11 @@ class OnlineSession:
                 self._net_state = out["fabric_state"]
                 self._net_series.extend(
                     out["report"]["bytes_round_series"])
+            if cfg.telemetry:
+                streams = options["telemetry_out"].get("streams")
+                if streams is not None:
+                    self.telemetry_ = obs_telemetry.concat_streams(
+                        self.telemetry_, streams)
         self.iteration += iters
         if backend == "async":
             # cumulative accounting: the fabric counters carry across

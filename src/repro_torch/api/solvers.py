@@ -35,6 +35,7 @@ from repro_torch.core import dtsvm as core
 from repro_torch.engine import plan as engine_plan
 from repro_torch.engine.invariants import PlanBudget
 from repro_torch.net.policies import NetConfig
+from repro_torch.obs.telemetry import Telemetry
 
 
 @dataclass(frozen=True)
@@ -55,7 +56,9 @@ class SolverConfig:
     far).  net: a ``repro_torch.net.NetConfig``, the communication model;
     it routes the default backend to ``"async"`` (the identity
     ``NetConfig()`` gives the vmap trajectory bitwise, metered).
-    ``telemetry`` keeps its reference meaning and is not ported yet.
+    telemetry: collect the per-iteration convergence streams
+    (``repro_torch.obs``) into ``telemetry_``; the state stays bitwise
+    the telemetry-off fit's.
     """
     C: float = 0.01
     eps1: float = 1.0
@@ -145,12 +148,8 @@ def effective_backend(cfg: SolverConfig) -> str:
 
 
 def _check_ported(cfg: SolverConfig) -> None:
-    """Raise on the options the port does not have yet: ``telemetry`` and
-    the backends other than ``"vmap"`` and ``"async"``."""
-    if cfg.telemetry:
-        raise NotImplementedError(
-            "SolverConfig.telemetry is not ported yet: ROADMAP.md, "
-            "'Modules to port', item 5 (observability)")
+    """Raise on the options the port does not have yet: the backends
+    other than ``"vmap"`` and ``"async"``."""
     # raises on the backends still to port, and (effective_backend) on a
     # net with a backend other than "async", as the reference does
     backends.get(effective_backend(cfg))
@@ -193,6 +192,8 @@ class _ConsensusSolver:
         self.state_: Optional[core.DTSVMState] = None
         self.history_ = None
         self.net_report_: Optional[Dict[str, Any]] = None   # async backend
+        #: {stream: float32 numpy} when config.telemetry (repro_torch.obs)
+        self.telemetry_: Optional[Dict[str, np.ndarray]] = None
 
     # -- problem construction (the one subclass hook) ----------------------
     def make_problem(self, X, y, mask=None, adj=None, *, active=None,
@@ -218,10 +219,12 @@ class _ConsensusSolver:
         """Run ADMM on (X, y) on ``device`` (default: the constructor's,
         else ``"cuda"``).  Returns self; the state and history are on
         ``state_`` / ``history_``, and over the fabric the byte report
-        on ``net_report_``.  ``state`` warm-starts; ``X_test`` /
-        ``y_test`` record a per-iteration risk curve; ``membership`` (a
-        ``repro_torch.net.Membership``) schedules node enter / leave /
-        crash / recover events over the fit, an async-backend feature."""
+        on ``net_report_``, with ``config.telemetry`` the per-iteration
+        convergence streams on ``telemetry_``.  ``state`` warm-starts;
+        ``X_test`` / ``y_test`` record a per-iteration risk curve;
+        ``membership`` (a ``repro_torch.net.Membership``) schedules node
+        enter / leave / crash / recover events over the fit, an
+        async-backend feature."""
         cfg = self.config
         _check_ported(cfg)
         backend, options = effective_backend(cfg), dict(cfg.backend_options)
@@ -247,6 +250,9 @@ class _ConsensusSolver:
             options.setdefault("budget", cfg.budget)
         if backend == "async":
             options.setdefault("meter_out", {})
+        if cfg.telemetry:
+            options.setdefault("telemetry", Telemetry())
+            options.setdefault("telemetry_out", {})
         self.state_, self.history_ = backends.run(
             prob, iters if iters is not None else cfg.iters,
             backend=backend, qp_iters=cfg.qp_iters,
@@ -254,6 +260,7 @@ class _ConsensusSolver:
             qp_operator=cfg.qp_operator, state=state, eval_fn=eval_fn,
             **options)
         self.net_report_ = options.get("meter_out", {}).get("report")
+        self.telemetry_ = options.get("telemetry_out", {}).get("streams")
         self.problem_ = prob
         return self
 

@@ -43,6 +43,7 @@ import torch
 from repro_torch.core import dtsvm as core
 from repro_torch.core import qp as qp_lib
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import spans as obs_spans
 
 #: default row chunk of the K-less Lipschitz pass when no budget binds:
 #: the transient panel is chunk*N elements, small against the O(N D)
@@ -211,16 +212,21 @@ def compute_invariants(prob: core.DTSVMProblem, *,
     ``Z`` may be passed in when the caller already holds it.  ``budget``
     streams the K build (see :func:`gram_and_lipschitz`).
     ``materialize_k=False`` is the factored-operator build: K stays
-    ``None`` and only L is computed, through discarded row panels.
+    ``None`` and only L is computed, through discarded row panels.  The
+    build is an ``invariant_build`` span (host time only: the span never
+    waits for the card).
     """
-    ntp, nbr, u, a, hi = _masks_part(prob)
-    if Z is None:
-        Z = compute_z(prob)
-    if materialize_k:
-        K, L = gram_and_lipschitz(Z, a, budget)
-    else:
-        K, L = None, streamed_lipschitz(Z, a, budget)
-    return PlanInvariants(ntp=ntp, nbr=nbr, u=u, a=a, Z=Z, K=K, hi=hi, L=L)
+    with obs_spans.span("invariant_build", budgeted=budget is not None,
+                        materialize_k=materialize_k):
+        ntp, nbr, u, a, hi = _masks_part(prob)
+        if Z is None:
+            Z = compute_z(prob)
+        if materialize_k:
+            K, L = gram_and_lipschitz(Z, a, budget)
+        else:
+            K, L = None, streamed_lipschitz(Z, a, budget)
+        return PlanInvariants(ntp=ntp, nbr=nbr, u=u, a=a, Z=Z, K=K, hi=hi,
+                              L=L)
 
 
 def update_invariants(prob: core.DTSVMProblem, inv: PlanInvariants, *,

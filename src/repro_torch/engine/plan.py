@@ -6,8 +6,11 @@ Z, K, u, a, counts, box, L) into a ``Plan``; ``Plan.step`` / ``Plan.run``
 execute the state-dependent part of eqs. 6-9: the linear term q, the
 dual solve with the chosen engine (``qp_engines``), zl = Z^T lam and the
 primal/multiplier updates.  The reference's ``lax.scan`` is a Python
-loop here.  ``Plan.replan`` is the incremental path for membership
-changes: it rebuilds only the invariants they touch.
+loop here; with a ``repro_torch.obs.Telemetry`` it also collects the
+per-iteration convergence streams, without a sync.  ``Plan.replan`` is
+the incremental path for membership changes: it rebuilds only the
+invariants they touch.  The build, the loop and a replan are spans
+(``plan_compile``, ``scan_execute``, ``plan_replan``).
 
 A plan with ``qp_precision="bf16"`` and a materialized K converts K to
 bf16 once, when it is built, and hands that K to every solve
@@ -27,6 +30,8 @@ from repro_torch.core import dtsvm as core
 from repro_torch.engine import invariants as inv_lib
 from repro_torch.engine import qp_engines
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import spans as obs_spans
+from repro_torch.obs import telemetry as obs_telemetry
 
 DEFAULT_QP_SOLVER = "fista"
 
@@ -139,20 +144,42 @@ class Plan:
                          qp_operator=self.qp_operator)
 
     def run(self, state: Optional[core.DTSVMState] = None, iters: int = 1,
-            eval_fn: Optional[Callable] = None):
+            eval_fn: Optional[Callable] = None, telemetry=None):
         """Run ``iters`` iterations.  Returns (state, history), where
         history stacks ``eval_fn(state)`` after every iteration (or is
-        None)."""
+        None).
+
+        With ``telemetry`` (a ``repro_torch.obs.Telemetry``) the loop
+        also collects the per-iteration convergence diagnostics and the
+        return becomes ``(state, history, streams)``.  The collector
+        reads each step's input and output and writes nothing into the
+        state, so the model outputs are bitwise the telemetry-None
+        call's; it reads nothing back to the host, and the streams are
+        still on the device (``repro_torch.obs.materialize`` copies
+        them after the loop).  The loop is a ``scan_execute`` span."""
         if state is None:
             state = self.init_state()
-        hist = []
-        for _ in range(iters):
-            state = self.step(state)
-            if eval_fn is not None:
-                hist.append(eval_fn(state))
-        if eval_fn is None:
-            return state, None
-        return state, (torch.stack(hist) if hist else None)
+        hist, rows = [], []
+        attrs = {"iters": int(iters)}
+        if telemetry is not None:
+            attrs["telemetry"] = True
+            terms = obs_telemetry.problem_terms(self.prob)
+        with obs_spans.span("scan_execute", **attrs):
+            for _ in range(iters):
+                new = self.step(state)
+                if eval_fn is not None:
+                    hist.append(eval_fn(new))
+                if telemetry is not None:
+                    rows.append(telemetry.collect(self.prob, self.inv.hi,
+                                                  new, state, terms=terms))
+                state = new
+        hist = torch.stack(hist) if hist else None
+        if telemetry is None:
+            return state, hist
+        streams = obs_telemetry.stack_rows(rows, telemetry.streams,
+                                           self.prob.X.shape[1],
+                                           state.r.device)
+        return state, hist, streams
 
     def fingerprint(self) -> str:
         """A content hash of everything that determines the plan's
@@ -179,10 +206,12 @@ class Plan:
         """A new Plan for changed membership masks, reusing every
         invariant the change does not touch
         (``invariants.update_invariants``).  The budget carries over, so
-        rebuilt K slices stream through the same row panels."""
-        prob, inv, n = inv_lib.update_invariants(
-            self.prob, self.inv, active=active, couple=couple,
-            budget=self.budget)
+        rebuilt K slices stream through the same row panels.  The rebuild
+        is a ``plan_replan`` span."""
+        with obs_spans.span("plan_replan"):
+            prob, inv, n = inv_lib.update_invariants(
+                self.prob, self.inv, active=active, couple=couple,
+                budget=self.budget)
         V, T = prob.X.shape[:2]
         stats = dict(self.stats)
         stats["replans"] += 1
@@ -211,7 +240,8 @@ def compile_problem(prob: core.DTSVMProblem, cfg=None, *,
     (``Plan.solve_K``).  ``qp_operator="factored"`` builds no K
     (``K=None``; L streams through discarded row panels) and needs
     ``qp_solver="pallas_fused_multi"`` and f32.  ``budget`` streams the
-    K build through bounded row panels (the large-n path).
+    K build through bounded row panels (the large-n path).  The build is
+    a ``plan_compile`` span around the ``invariant_build`` one.
     """
     if qp_iters is None:
         qp_iters = getattr(cfg, "qp_iters", 200)
@@ -245,8 +275,11 @@ def compile_problem(prob: core.DTSVMProblem, cfg=None, *,
             raise ValueError("qp_operator='factored' is f32-only "
                              "(the low-rank matvec never streams K "
                              "tiles, so bf16 K has nothing to apply to)")
-    inv = inv_lib.compute_invariants(
-        prob, budget=budget, materialize_k=(qp_operator != "factored"))
-    return Plan(prob, inv, qp_iters=qp_iters, qp_solver=qp_solver,
-                qp_precision=qp_precision, qp_operator=qp_operator,
-                budget=budget)
+    with obs_spans.span("plan_compile", qp_solver=qp_solver,
+                        qp_operator=qp_operator,
+                        budgeted=budget is not None):
+        inv = inv_lib.compute_invariants(
+            prob, budget=budget, materialize_k=(qp_operator != "factored"))
+        return Plan(prob, inv, qp_iters=qp_iters, qp_solver=qp_solver,
+                    qp_precision=qp_precision, qp_operator=qp_operator,
+                    budget=budget)

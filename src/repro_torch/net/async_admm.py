@@ -39,10 +39,7 @@ from repro_torch.net import fabric as fabric_lib
 from repro_torch.net import meter as meter_lib
 from repro_torch.net import schedule as schedule_lib
 from repro_torch.net.policies import NetConfig
-
-_NOT_PORTED_TELEMETRY = ("run_async(telemetry=) is not ported yet: "
-                         "ROADMAP.md, 'Modules to port', item 5 "
-                         "(observability)")
+from repro_torch.obs import telemetry as obs_telemetry
 
 
 class AsyncResult(NamedTuple):
@@ -51,8 +48,8 @@ class AsyncResult(NamedTuple):
     fabric_state: fabric_lib.FabricState
     report: dict                      # byte/message accounting (meter)
     fabric: fabric_lib.Fabric
-    #: the per-round convergence streams of the reference's telemetry
-    #: (not ported: always None)
+    #: the per-round convergence streams (float32 numpy; None without a
+    #: telemetry spec)
     telemetry: Optional[dict] = None
 
 
@@ -126,11 +123,16 @@ def run_async(prob: core.DTSVMProblem, iters: int, *,
     activations, its gone mask withdraws a graceful leaver's links, and
     its gc/fill masks fire ``Fabric.apply_membership`` before the event
     round's exchange.  A trivial membership is exactly ``None``; any
-    real event forces mailbox mode.  ``telemetry`` is not ported yet
-    (ROADMAP.md, 'Modules to port', item 5).
+    real event forces mailbox mode.
+
+    ``telemetry`` (a ``repro_torch.obs.Telemetry``) collects its streams
+    from every round's committed state, plus ``bytes_round`` (the bytes
+    series the loop keeps anyway), ``staleness`` ((rounds, V): each
+    node's largest incoming-edge silence after the round) and, under a
+    membership, ``nodes_alive``.  The rounds' rows stay on the device and
+    are copied to the host once after the loop (``AsyncResult.telemetry``);
+    nothing the collector makes enters the carried state.
     """
-    if telemetry is not None:
-        raise NotImplementedError(_NOT_PORTED_TELEMETRY)
     net = net if net is not None else NetConfig()
     if plan is None:
         plan = engine_plan.compile_problem(prob, qp_iters=qp_iters,
@@ -183,22 +185,30 @@ def run_async(prob: core.DTSVMProblem, iters: int, *,
         gc = torch.as_tensor(mm["gc"], device=dev)
         fill = torch.as_tensor(mm["fill"], device=dev)
 
+    if telemetry is not None:
+        terms = obs_telemetry.problem_terms(plan.prob)
+
     st, fst = state, fabric_state
-    hist, bytes_rounds = [], []
+    hist, bytes_rounds, rows, stale_rounds = [], [], [], []
     for i in range(iters):
         if mem is not None:
             # fires before the round's exchange: GC a leaver's columns,
             # warm-fill a joiner's edges from the current variables
             payload = st.r * plan.prob.active[..., None]
             fst = fabric.apply_membership(fst, gc[i], fill[i], payload)
-        st, fst, bytes_now = _fabric_step(
+        new, fst, bytes_now = _fabric_step(
             plan, fabric, st, fst, acts[i],
             links[i] if has_links else None, task_counts,
             rnd=None if k0 is None else k0 + i,
             keep=None if keeps is None else keeps[i])
         if eval_fn is not None:
-            hist.append(eval_fn(st))
+            hist.append(eval_fn(new))
         bytes_rounds.append(bytes_now)
+        if telemetry is not None:
+            rows.append(telemetry.collect(plan.prob, plan.inv.hi, new, st,
+                                          terms=terms))
+            stale_rounds.append(fst.silence.amax(dim=1))
+        st = new
 
     series = (torch.stack(bytes_rounds) if bytes_rounds
               else torch.zeros(0, dtype=torch.float32))
@@ -215,5 +225,16 @@ def run_async(prob: core.DTSVMProblem, iters: int, *,
     history = None
     if eval_fn is not None:
         history = torch.stack(hist) if hist else None
+    tel_out = None
+    if telemetry is not None:
+        streams = obs_telemetry.stack_rows(rows, telemetry.streams,
+                                           prob.X.shape[1], dev)
+        streams["bytes_round"] = series
+        streams["staleness"] = (torch.stack(stale_rounds) if stale_rounds
+                                else torch.zeros((0, V), device=dev))
+        tel_out = obs_telemetry.materialize(streams)
+        if mem is not None:
+            tel_out["nodes_alive"] = mm["alive"].sum(axis=1).astype(
+                np.float32)
     return AsyncResult(state=st, history=history, fabric_state=fst,
-                       report=report, fabric=fabric)
+                       report=report, fabric=fabric, telemetry=tel_out)

@@ -16,7 +16,9 @@ What is stored, and what is rebuilt:
   (``SolverConfig.to_dict``), the membership masks, the node-churn event
   list, the ADMM state, the iteration counter, the recorded history
   blocks, the fabric state and per-round byte series of an async session,
-  and the compiled plan's content FINGERPRINT (``Plan.fingerprint``).
+  the accumulated telemetry streams (the ``obs`` block, when the session
+  collects them), and the compiled plan's content FINGERPRINT
+  (``Plan.fingerprint``).
 - rebuilt: the plan's invariants (K dominates a snapshot's would-be
   size), by a fresh ``compile_problem`` on restore.  A fresh build equals
   the one the session ran, so the stored fingerprint is checked against
@@ -98,9 +100,10 @@ def _snapshot_session(sess: OnlineSession) -> dict:
         "history": [np.asarray(h) for h in sess.history],
         "plan": plan,
         "net": net,
-        # the port runs no telemetry (ROADMAP.md item 5): the v2 block is
-        # always empty
-        "obs": None,
+        # v2: the accumulated telemetry streams (float32 numpy), or None
+        "obs": (None if sess.telemetry_ is None else {"telemetry": {
+            k: np.asarray(v, np.float32)
+            for k, v in sess.telemetry_.items()}}),
         # v3: the absolute-round node event list IS the membership state;
         # restore replays it, so the staleness and EF arrays of the fabric
         # state line up with it
@@ -203,6 +206,12 @@ def _restore_session(tree: Any, *, check_fingerprint: bool,
         sess.net_report_ = meter_lib.report(
             fab, sess._net_state, rounds=sess.iteration,
             bytes_per_round=np.asarray(sess._net_series))
+
+    obs = tree.get("obs")
+    if obs is not None:
+        # host-side diagnostics: float32 numpy copies, never tensors
+        sess.telemetry_ = {k: np.array(v, np.float32)
+                           for k, v in obs["telemetry"].items()}
     return sess
 
 

@@ -95,8 +95,7 @@ def test_solver_config_dicts_mean_the_same():
 
 
 @pytest.mark.parametrize("field", [
-    dict(telemetry=True), dict(backend="shard_map"),
-    dict(backend="sample_shard"),
+    dict(backend="shard_map"), dict(backend="sample_shard"),
 ])
 def test_options_not_ported_raise_naming_the_roadmap(field):
     data = _tiny_data()
@@ -117,7 +116,6 @@ def _roadmap_modules() -> dict:
 
 
 @pytest.mark.parametrize("field,item,title", [
-    (dict(telemetry=True), 5, "observability"),
     (dict(backend="shard_map"), 6, "multi-device"),
     (dict(backend="sample_shard"), 6, "multi-device"),
 ])
@@ -129,6 +127,30 @@ def test_refusals_name_the_item_roadmap_gives_them(field, item, title):
     with pytest.raises(NotImplementedError, match=rf"item {item}\b"):
         DTSVM(SolverConfig(iters=1, **field), device="cpu").fit(
             data["X"], data["y"])
+
+
+@pytest.mark.parametrize("solver", ["DTSVM", "DSVM"])
+@pytest.mark.parametrize("backend", ["vmap", "async"])
+def test_telemetry_fits_return_the_reference_streams(solver, backend):
+    """``SolverConfig(telemetry=True)`` (ROADMAP.md item 5,
+    observability, done) fits and sets ``telemetry_`` with the reference
+    fit's keys, shapes and float32; the state is bitwise the
+    telemetry-off fit's."""
+    assert "observability" in _roadmap_modules()[5].lower()
+    data = _tiny_data()
+    A = np.ones((2, 2), bool) & ~np.eye(2, dtype=bool)
+    kw = dict(iters=3, qp_iters=10, backend=backend)
+    port = {"DTSVM": DTSVM, "DSVM": DSVM}[solver]
+    on = port(SolverConfig(telemetry=True, **kw), device="cpu").fit(
+        data["X"], data["y"], adj=A)
+    off = port(SolverConfig(**kw), device="cpu").fit(data["X"], data["y"],
+                                                      adj=A)
+    want = getattr(jsolvers, solver)(jsolvers.SolverConfig(
+        telemetry=True, **kw)).fit(data["X"], data["y"], adj=A).telemetry_
+    assert off.telemetry_ is None
+    assert all(torch.equal(a, b) for a, b in zip(on.state_, off.state_))
+    assert {k: (v.shape, v.dtype) for k, v in on.telemetry_.items()} == \
+        {k: (v.shape, v.dtype) for k, v in want.items()}
 
 
 @pytest.mark.parametrize("field", [

@@ -47,6 +47,7 @@ from repro_torch.net import (Fabric, build_fabric, bytes_per_message, meter,
                              policies, prng, restore_state, run_async,
                              snapshot_state)
 from repro_torch.net import schedule as schedule_lib
+from repro_torch.obs import STREAMS, Telemetry
 
 REL = 1e-4
 
@@ -690,8 +691,11 @@ def test_async_backend_registered_and_plan_validated():
                                        qp_precision="bf16")
     with pytest.raises(ValueError, match="materialized f32"):
         run_async(tprob, 1, plan=bf16)
-    with pytest.raises(NotImplementedError, match=r"item 5\b"):
-        run_async(tprob, 1, telemetry=object())
+    # telemetry (ROADMAP.md item 5, done): the reference's stream keys
+    res = run_async(tprob, 2, qp_iters=5, telemetry=Telemetry())
+    assert set(res.telemetry) == set(STREAMS) | {"bytes_round",
+                                                 "staleness"}
+    assert res.telemetry["staleness"].shape == (2, tprob.X.shape[0])
 
 
 def test_net_is_rejected_where_unsupported():

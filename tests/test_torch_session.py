@@ -330,7 +330,6 @@ def test_session_node_events_and_status_are_the_references():
 
 
 @pytest.mark.parametrize("field,item,title", [
-    (dict(telemetry=True), 5, "observability"),
     (dict(backend="shard_map"), 6, "multi-device"),
 ])
 def test_session_refuses_what_is_not_ported_at_once(field, item, title):
@@ -341,6 +340,27 @@ def test_session_refuses_what_is_not_ported_at_once(field, item, title):
     with pytest.raises(NotImplementedError, match=rf"item {item}\b"):
         OnlineSession(data["X"], data["y"], adj=A, device="cpu",
                       config=SolverConfig(**field))
+
+
+@pytest.mark.parametrize("jit", [False, True])
+def test_session_collects_telemetry(jit):
+    """``telemetry=True`` (ROADMAP.md item 5, observability, done) runs a
+    session, ``jit=True`` too, with the reference session's stream keys,
+    shapes and float32 accumulated across a task event, and the state
+    bitwise the telemetry-off session's."""
+    assert "observability" in _roadmap_modules()[5].lower()
+    data, A = _make(V=4, T=2, n=6)
+    sess, jsess = _pair(data, A, dict(qp_iters=20, telemetry=True), jit=jit)
+    off, _ = _pair(data, A, dict(qp_iters=20), jit=jit)
+    for s in (sess, jsess, off):
+        s.run(3)
+        s.drop_task(1, nodes=[0])
+        s.run(2)
+    _assert_equal(sess.state, off.state)
+    assert off.telemetry_ is None
+    assert {k: (v.shape, v.dtype) for k, v in sess.telemetry_.items()} == \
+        {k: (v.shape, v.dtype) for k, v in jsess.telemetry_.items()}
+    assert sess.telemetry_["dual_residual"].shape == (5,)
 
 
 @pytest.mark.parametrize("field", [dict(net=NetConfig()),
