@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out FILE] [--only large_fit|multi_mid|figures|
                                                sessions|fabric|store|serve|
-                                               obs]
+                                               obs|dist]
 
 Runs from the root of a checkout, on a machine with one CUDA card, the
 CUDA toolkit and ninja; it builds the hand kernels itself into
@@ -190,7 +190,29 @@ any failure raises and exits non-zero:
    (d) ``python -m repro_torch.obs demo`` in a
    subprocess on the card, its trace valid and holding the engine's
    spans, its registry loaded and rendered;
-13. the ``kernels`` line, the card line, and the result line.
+13. the ``"shard_map"`` backend (``repro_torch.core.dtsvm_dist``): one
+   rank per network node, every rank a spawned process on the card in one
+   gloo world (``repro_torch.dist.World``), building its node's K and
+   running its QP engine there, the neighbor sums collectives through
+   pinned host buffers: (a) the paper regime of
+   ``examples/dtsvm_decentralized.py`` (V=8, T=2, p=10, 5/60 samples a
+   task, a random graph of degree 0.7, C=0.01, 25 ADMM x 80 QP
+   iterations, 600 test points) on 8 ranks with ``graph`` and with
+   ``ring`` (over ``graph.ring(8)``), under ``fista``, ``pallas_fused``
+   and ``pallas_fused_multi``, each held to the ``vmap`` fit on the card
+   (state within 1e-5, every risk within 1/600; whether it came out
+   bitwise is printed), DIST_REPS fits each side with the median wall;
+   (c) a 5-round history with telemetry on 8 ranks against ``vmap``'s
+   (history within 1/600, streams within phase 12's bounds); (b) the
+   large fit (V=2, T=1, N=20000, p=256, 2 x 10 iterations, multi f32)
+   on 2 ranks, DIST_REPS fits against the ``vmap`` fit within RTOL_FIT,
+   then once under ``PlanBudget(max_elems=2**27)`` (the tiled kernel in
+   the ranks); each rank's device, launch counts (counted from 0 just
+   before a case's fits and read just after, each equal to what the
+   config implies for one node), peak device memory, neighbor sums and
+   host copies per ADMM iteration, and the worlds' start times; then a
+   rank that dies must make the world raise and leave no rank alive;
+14. the ``kernels`` line, the card line, and the result line.
 
 ``--only`` runs one part and prints no result line, to compare two
 trees' ``src/`` under one script (a copy of this file at each tree's
@@ -199,7 +221,7 @@ solve at N between the paper's and the large fit's (B in {2, 20, 300},
 N in {328, 329, 515, 1000}, 100 iterations with the fold), each against
 its plain version and timed, ``figures`` phase 7, ``sessions`` phase 8,
 ``fabric`` phase 9, ``store`` phase 10, ``serve`` phase 11, ``obs``
-phase 12.
+phase 12, ``dist`` phase 13.
 
 Without a CUDA device, or without the rest of the repository beside it,
 it exits non-zero and prints no result.
@@ -357,6 +379,15 @@ OBS_EXACT = ("bytes_round", "staleness", "nodes_alive")
 # a float32 wire (drops, partial schedule, staleness, the same node
 # events) to (a)'s bounds
 OBS_WIRE_REL = 1e-2
+
+# phase 13: examples/dtsvm_decentralized.py's paper regime, one rank a node
+DIST_PAPER = dict(V=8, T=2, p=10, n=(5, 60), degree=0.7, C=0.01, iters=25,
+                  qp_iters=80, n_test=600)
+DIST_ENGINES = ("fista", "pallas_fused", "pallas_fused_multi")
+DIST_REPS = 3
+# the reference's bar for this backend (tests/test_api.py:137-141): state
+DIST_STATE_TOL = 1e-5
+DIST_HISTORY = 5
 
 RECORDS = []
 
@@ -2854,6 +2885,218 @@ def observability(by_path: dict, seen: dict, cases: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the shard_map backend, one rank per node on the card
+# ---------------------------------------------------------------------------
+def _dist_case(label: str, world, fit, by_path: dict, want: dict,
+               nbr_sums: int) -> dict:
+    """``want["reps"]`` fits through ``fit()`` on ``world``, the ranks'
+    counters set to 0 just before and read just after: every rank on the
+    card, with ``want``'s launches and ``nbr_sums`` neighbor sums.
+    Returns the last fit, the walls and the ranks' records."""
+    from repro_torch.core import dtsvm_dist
+
+    dtsvm_dist.world_stats(world, reset=True)
+    walls = []
+    for _ in range(want.pop("reps")):
+        t0 = time.perf_counter()
+        m = fit()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    ranks = dtsvm_dist.world_stats(world)
+    by_path[label] = {k: sum(r["launches"][k] for r in ranks)
+                      for k in ranks[0]["launches"]}
+    want = {k: want.get(k, 0) for k in ranks[0]["launches"]}
+    for r in ranks:
+        if not r["device"].startswith("cuda"):
+            raise AssertionError(f"{label}: rank {r['rank']} ran on "
+                                 f"{r['device']}")
+        if r["launches"] != want or r["nbr_sums"] != nbr_sums:
+            raise AssertionError(
+                f"{label}: rank {r['rank']} made {r['launches']} launches "
+                f"and {r['nbr_sums']} neighbor sums, expected {want} and "
+                f"{nbr_sums}")
+    return {"fit": m, "walls": walls, "launches_per_rank": want,
+            "ranks": [{k: r[k] for k in ("rank", "device", "launches",
+                                         "peak_mem_bytes", "nbr_sums",
+                                         "host_copies")} for r in ranks]}
+
+
+def _vmap_walls(fit) -> tuple:
+    walls = []
+    for _ in range(DIST_REPS):
+        t0 = time.perf_counter()
+        m = fit()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return m, walls
+
+
+def dist_paper(by_path: dict) -> None:
+    """(a) the paper regime per topology and engine, (c) a history with
+    telemetry, on one world of 8 ranks."""
+    from repro_torch.api import DTSVM, SolverConfig
+    from repro_torch.core import dtsvm_dist, graph
+    from repro_torch.data import synthetic
+
+    cfg0 = DIST_PAPER
+    V, T = cfg0["V"], cfg0["T"]
+    n = np.zeros((V, T), int)
+    n[:, 0], n[:, 1] = cfg0["n"]
+    data = synthetic.make_multitask_data(
+        V=V, T=T, p=cfg0["p"], n_train=n, n_test=cfg0["n_test"],
+        relatedness=0.9, seed=0)
+    X, y, mask = data["X"], data["y"], data["mask"]
+    Xte, yte = data["X_test"], data["y_test"]
+    base = SolverConfig(C=cfg0["C"], iters=cfg0["iters"],
+                        qp_iters=cfg0["qp_iters"])
+    risk_tol = 1.0 / cfg0["n_test"]
+    world = dtsvm_dist.make_node_world(V, "cuda")
+    try:
+        emit({"dist": "world", "ranks": V, "start_s": world.start_seconds,
+              "devices": world.devices})
+        graphs = {"graph": graph.make_graph("random", V, cfg0["degree"]),
+                  "ring": graph.ring(V)}
+        for topology, adj in graphs.items():
+            for engine in DIST_ENGINES:
+                label = f"dist/{topology}/{engine}"
+                cfg = base.replace(qp_solver=engine)
+                fit = lambda c: DTSVM(c, device="cuda").fit(  # noqa: E731
+                    X, y, mask=mask, adj=adj)
+                ref, ref_walls = _vmap_walls(lambda: fit(cfg))
+                want = dict(expected_launches(
+                    engine, fits=DIST_REPS, iters=cfg.iters,
+                    qp_iters=cfg.qp_iters), reps=DIST_REPS)
+                out = _dist_case(label, world, lambda: fit(cfg.replace(
+                    backend="shard_map", backend_options={
+                        "topology": topology, "world": world})),
+                    by_path, want, 2 * DIST_REPS * cfg.iters)
+                m = out["fit"]
+                err = max(float((a - b).abs().max())
+                          for a, b in zip(m.state_, ref.state_))
+                risk_gap = float((m.risks(Xte, yte)
+                                  - ref.risks(Xte, yte)).abs().max())
+                rounds = DIST_REPS * cfg.iters
+                emit({"dist": label, **cfg0, "reps": DIST_REPS,
+                      "fit_s": out["walls"],
+                      "fit_s_median": float(np.median(out["walls"])),
+                      "vmap_fit_s": ref_walls,
+                      "vmap_fit_s_median": float(np.median(ref_walls)),
+                      "vs_vmap_max_abs_err": err,
+                      "bitwise_vmap": all(torch.equal(a, b) for a, b in
+                                          zip(m.state_, ref.state_)),
+                      "risk_gap": risk_gap,
+                      "launches_per_rank": out["launches_per_rank"],
+                      "nbr_sums_per_iter": out["ranks"][0]["nbr_sums"]
+                      / rounds,
+                      "host_copies_per_iter": out["ranks"][0]["host_copies"]
+                      / rounds,
+                      "ranks": out["ranks"]})
+                if not (err < DIST_STATE_TOL and risk_gap <= risk_tol):
+                    raise AssertionError(f"{label}: state {err} or risks "
+                                         f"{risk_gap} off the vmap fit")
+
+        # (c) a history with telemetry, held to vmap's
+        adj = graphs["graph"]
+        cfg = base.replace(qp_solver="pallas_fused_multi",
+                           iters=DIST_HISTORY, telemetry=True)
+        ref = DTSVM(cfg, device="cuda").fit(X, y, mask=mask, adj=adj,
+                                            X_test=Xte, y_test=yte)
+        want = dict(expected_launches("pallas_fused_multi", fits=1,
+                                      iters=DIST_HISTORY,
+                                      qp_iters=cfg.qp_iters), reps=1)
+        out = _dist_case("dist/history", world, lambda: DTSVM(cfg.replace(
+            backend="shard_map", backend_options={"world": world}),
+            device="cuda").fit(X, y, mask=mask, adj=adj, X_test=Xte,
+                               y_test=yte), by_path, want, 2 * DIST_HISTORY)
+        m = out["fit"]
+        hist_gap = float((m.history_ - ref.history_).abs().max())
+        gaps = _check_streams("dist/history", m.telemetry_, ref.telemetry_)
+        emit({"dist": "history", "rounds": DIST_HISTORY,
+              "history_shape": list(m.history_.shape),
+              "history_gap": hist_gap, "stream_gaps": gaps,
+              "fit_s": out["walls"], "ranks": out["ranks"]})
+        if not (tuple(m.history_.shape) == (DIST_HISTORY, V, T)
+                and hist_gap <= risk_tol):
+            raise AssertionError(f"dist history off vmap's: {hist_gap}")
+    finally:
+        world.close()
+
+
+def dist_large(by_path: dict) -> None:
+    """(b) the large fit on 2 ranks, dense and budgeted, against the vmap
+    fit; then a rank that dies."""
+    from repro_torch.api import DTSVM, SolverConfig
+    from repro_torch.core import dtsvm_dist
+    from repro_torch.dist import RankError
+    from repro_torch.engine import invariants
+    from repro_torch.engine.invariants import PlanBudget
+
+    V, T, N = (LARGE_FIT[k] for k in ("V", "T", "N"))
+    X, y, adj = large_data()
+    cfg = SolverConfig(C=0.01, iters=LARGE_FIT["iters"],
+                       qp_iters=LARGE_FIT["qp_iters"],
+                       qp_solver="pallas_fused_multi")
+    torch.cuda.empty_cache()
+    ref, ref_walls = _vmap_walls(
+        lambda: DTSVM(cfg, device="cuda").fit(X, y, adj=adj))
+    world = dtsvm_dist.make_node_world(V, "cuda")
+    try:
+        emit({"dist": "world", "ranks": V, "start_s": world.start_seconds,
+              "devices": world.devices})
+        budget = PlanBudget(max_elems=LARGE_BUDGET)
+        chunk = budget.row_chunk(T, N)           # one node's batch: T
+        panels = len(invariants._row_starts(N, chunk))
+        expect = dict(iters=cfg.iters, qp_iters=cfg.qp_iters)
+        for label, reps, kw, pan in (
+                ("dist/large_fit", DIST_REPS, {}, None),
+                ("dist/large_fit/budget", 1, {"budget": budget}, panels)):
+            dcfg = cfg.replace(backend="shard_map",
+                               backend_options={"world": world}, **kw)
+            want = dict(expected_launches("pallas_fused_multi", fits=reps,
+                                          panels=pan, **expect), reps=reps)
+            out = _dist_case(label, world, lambda: DTSVM(
+                dcfg, device="cuda").fit(X, y, adj=adj), by_path, want,
+                2 * reps * cfg.iters)
+            errs = _state_errs(out["fit"].state_, ref.state_,
+                               RTOL_FIT["f32"])
+            emit({"dist": label, **LARGE_FIT, "reps": reps,
+                  "row_chunk": chunk if pan else None, "panels": pan,
+                  "fit_s": out["walls"],
+                  "fit_s_median": float(np.median(out["walls"])),
+                  "vmap_fit_s": ref_walls,
+                  "vmap_fit_s_median": float(np.median(ref_walls)),
+                  "vs_vmap_max_abs_err": {k: e[0] for k, e in errs.items()},
+                  "vmap_max_abs": {k: e[1] for k, e in errs.items()},
+                  "bitwise_vmap": all(torch.equal(a, b) for a, b in
+                                      zip(out["fit"].state_, ref.state_)),
+                  "rtol": RTOL_FIT["f32"], "ranks": out["ranks"]})
+            if not all(e[2] for e in errs.values()):
+                raise AssertionError(f"{label} off the vmap fit: {errs}")
+        # a rank that dies: the world raises and no rank stays alive
+        try:
+            world.run(os._exit, [(3,)] * V)
+        except RankError as e:
+            died = str(e)
+        else:
+            raise AssertionError("a world whose ranks died did not raise")
+        alive = sum(p.is_alive() for p in world._procs)
+        emit({"dist": "rank_died", "error": died, "closed": world.closed,
+              "ranks_alive": alive})
+        if not (world.closed and alive == 0):
+            raise AssertionError("a failed world left ranks running")
+    finally:
+        world.close()
+
+
+def dist(by_path: dict) -> None:
+    """Phase 13: the shard_map backend on the card."""
+    phase_t0 = time.perf_counter()
+    dist_paper(by_path)
+    dist_large(by_path)
+    emit({"phase": "dist", "seconds": time.perf_counter() - phase_t0})
+
+
+# ---------------------------------------------------------------------------
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2874,7 +3117,7 @@ def main() -> int:
                     help="also write every record to this JSON file")
     ap.add_argument("--only", choices=("large_fit", "multi_mid", "figures",
                                        "sessions", "fabric", "store",
-                                       "serve", "obs"),
+                                       "serve", "obs", "dist"),
                     help="run only this part, and print no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2898,6 +3141,8 @@ def main() -> int:
         build.extension()           # built before any timed region
         if args.only == "large_fit":
             large_fit({})
+        elif args.only == "dist":
+            dist({})
         elif args.only in ("figures", "sessions", "fabric", "store",
                            "serve", "obs"):
             run = {"figures": figures, "sessions": sessions,
@@ -2932,6 +3177,7 @@ def main() -> int:
     store(by_path, traced, cases)
     serve(by_path, traced, cases)
     observability(by_path, traced, cases)
+    dist(by_path)
     if not all(traced.values()):
         raise AssertionError(f"the profiler saw none of some kernels: "
                              f"{traced}")

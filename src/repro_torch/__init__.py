@@ -14,7 +14,9 @@ engine and ``sweep_fit`` (a grid of configs as one batched fit);
 ``OnlineSession`` (tasks entering and leaving a live network) with the
 event log and its ``replay`` (``repro_torch.store``); the communication
 fabric (``repro_torch.net``: lossy, delayed, quantized, metered links,
-node churn, the ``"async"`` backend); the runners of the paper's
+node churn, the ``"async"`` backend); the decentralized ``"shard_map"``
+backend (``repro_torch.core.dtsvm_dist``: one process per network node
+in a ``repro_torch.dist.World``, the neighbor sums as collectives); the runners of the paper's
 Figs. 2-7 with Fig. 7's node-churn variant (``repro_torch.figures``);
 durable sessions (``repro_torch.store`` on ``repro_torch.checkpoint``,
 the reference's file format); the batching predict server

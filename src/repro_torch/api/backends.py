@@ -7,10 +7,12 @@ A backend is a callable
         state, eval_fn, **options) -> (DTSVMState, history | None)
 
 The port has the single-host ``"vmap"`` backend (one compiled plan, under
-``budget`` the streamed large-n build, one loop) and ``"async"``, the
+``budget`` the streamed large-n build, one loop); ``"shard_map"``, one
+process per network node in a ``repro_torch.dist.World`` with the
+neighbor sums as collectives (``core.dtsvm_dist``); and ``"async"``, the
 same plan stepped over the communication fabric (``repro_torch.net``).
-The reference's ``"shard_map"`` and ``"sample_shard"`` are still to be
-ported (ROADMAP.md, "Modules to port", item 6).
+The reference's ``"sample_shard"`` is still to be ported (ROADMAP.md,
+"Modules to port", item 6).
 
 A sweep backend runs a compiled ``engine.SweepPlan``:
 
@@ -25,7 +27,11 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
+import torch
+
 from repro_torch.core import dtsvm as core
+from repro_torch.core import dtsvm_dist
+from repro_torch.engine import invariants as inv_lib
 from repro_torch.engine import plan as engine_plan
 from repro_torch.net import async_admm
 from repro_torch.obs import telemetry as obs_telemetry
@@ -33,8 +39,6 @@ from repro_torch.obs import telemetry as obs_telemetry
 _REGISTRY: Dict[str, Callable] = {}
 
 _NOT_PORTED = {
-    "shard_map": "ROADMAP.md, 'Modules to port', item 6 (multi-device "
-                 "backends)",
     "sample_shard": "ROADMAP.md, 'Modules to port', item 6 (multi-device "
                     "backends)",
 }
@@ -107,6 +111,54 @@ def _run_vmap(prob: core.DTSVMProblem, iters: int, *, qp_iters: int = 200,
     if telemetry_out is not None:
         telemetry_out["streams"] = obs_telemetry.materialize(streams)
     return st, hist
+
+
+@register("shard_map")
+def _run_shard_map(prob: core.DTSVMProblem, iters: int, *,
+                   qp_iters: int = 200, qp_solver: str = "fista",
+                   state: Optional[core.DTSVMState] = None, eval_fn=None,
+                   topology: str = "graph", world=None, budget=None,
+                   telemetry=None, telemetry_out: Optional[dict] = None):
+    """One rank per network node; neighbor sums as collectives
+    (``core.dtsvm_dist``).
+
+    ``topology`` selects ``"graph"`` (all_gather + adjacency row) or
+    ``"ring"`` (two point-to-point exchanges); ``world`` (a
+    ``repro_torch.dist.World`` of V ranks, the reference's ``mesh``) is
+    used as it is, else a world is started for the call and closed after
+    it; ``budget`` streams each node's K build in its rank.  With
+    ``eval_fn`` or ``telemetry`` each rank compiles its node's plan once
+    and the ranks step one round at a time: each round's state comes back
+    to the caller, where ``eval_fn`` and ``telemetry.collect`` read it, as
+    in the reference; ``telemetry_out`` receives ``{"streams": {name:
+    float32 numpy}}``."""
+    dtsvm_dist.check_topology(topology)        # before a world starts
+    if eval_fn is None and telemetry is None:
+        return dtsvm_dist.run_dtsvm_dist(
+            prob, iters, world=world, topology=topology, qp_iters=qp_iters,
+            state=state, qp_solver=qp_solver, budget=budget), None
+    st = core.init_state(prob) if state is None else state
+    with dtsvm_dist.node_world(prob, world) as w:
+        compile_fn, run1 = dtsvm_dist.build_planned_runner(
+            w, topology=topology, qp_iters=qp_iters, iters=1,
+            qp_solver=qp_solver, budget=budget)
+        inv = compile_fn(prob)
+        hist, rows = [], []
+        if telemetry is not None:
+            hi = inv_lib._masks_part(prob)[4]
+            terms = obs_telemetry.problem_terms(prob)
+        for _ in range(iters):
+            prev, st = st, run1(st, prob, inv)
+            if eval_fn is not None:
+                hist.append(eval_fn(st))
+            if telemetry is not None:
+                rows.append(telemetry.collect(prob, hi, st, prev,
+                                              terms=terms))
+    if telemetry_out is not None and telemetry is not None:
+        telemetry_out["streams"] = obs_telemetry.materialize(
+            obs_telemetry.stack_rows(rows, telemetry.streams,
+                                     prob.X.shape[1], st.r.device))
+    return st, (torch.stack(hist) if eval_fn is not None else None)
 
 
 @register("async")

@@ -55,8 +55,16 @@ per-iteration convergence streams (``repro_torch.obs``), and
 ``telemetry_`` accumulates them across runs; the state stays bitwise the
 telemetry-off session's.
 
-Not ported yet, and refused by the constructor: the multi-device
-backends (ROADMAP.md, 'Modules to port', item 6).
+With ``backend="shard_map"`` every ``run`` goes through the
+decentralized backend (``core.dtsvm_dist``): one rank per node, each
+compiling its node's plan for the run, as the reference's plan-less
+branch does (the config's ``budget`` passed on).  The session starts its
+``repro_torch.dist.World`` at the first ``run`` and keeps it across
+runs (a ``backend_options["world"]`` is used instead); ``close`` stops
+it, as does garbage collection.
+
+Not ported yet, and refused by the constructor: the ``"sample_shard"``
+backend (ROADMAP.md, 'Modules to port', item 6).
 """
 from __future__ import annotations
 
@@ -70,6 +78,7 @@ from repro_torch.api import backends, evaluate
 from repro_torch.api.solvers import (SolverConfig, _as_solver_config,
                                      _check_ported, effective_backend)
 from repro_torch.core import dtsvm as core
+from repro_torch.core import dtsvm_dist
 from repro_torch.engine import plan as engine_plan
 from repro_torch.net import elastic
 from repro_torch.net import meter
@@ -130,6 +139,8 @@ class OnlineSession:
         self._net_fabric = None
         self._net_state = None
         self._net_series = []
+        #: the shard_map backend's rank world, started at the first run
+        self._world = None
         #: the fabric's cumulative byte accounting; a vmap session has none
         self.net_report_: Optional[dict] = None
         #: the convergence streams of every run so far, when
@@ -384,16 +395,24 @@ class OnlineSession:
                 prob, iters, cfg.qp_iters, state=self.state, eval_fn=ev,
                 qp_solver=cfg.qp_solver)
         else:
-            # the constructor admits the vmap and async backends, which
-            # both run the session's plan; the reference's plan-less
-            # branch (the other backends) comes with ROADMAP.md item 6
             was_dirty = self._masks_dirty
             old_active = (None if self._plan is None
                           else self._plan.prob.active.cpu().numpy())
-            plan = self._current_plan()
+            # vmap and async run the session's plan; shard_map compiles
+            # per call in its ranks (the reference's plan-less branch)
+            plan = (self._current_plan() if backend in ("vmap", "async")
+                    else None)
+            prob = plan.prob if plan is not None else self.problem()
             if self.state is None:
-                self.state = core.init_state(plan.prob)
-            options = dict(cfg.backend_options, plan=plan)
+                self.state = core.init_state(prob)
+            options = dict(cfg.backend_options)
+            if plan is not None:
+                options["plan"] = plan
+            else:
+                if cfg.budget is not None:
+                    options.setdefault("budget", cfg.budget)
+                if "world" not in options:
+                    options["world"] = self._node_world()
             if backend == "async":
                 options.update(self._async_net_kwargs(was_dirty,
                                                       old_active, plan))
@@ -401,7 +420,7 @@ class OnlineSession:
                 options["telemetry"] = obs_telemetry.Telemetry()
                 options["telemetry_out"] = {}
             self.state, hist = backends.run(
-                plan.prob, iters, backend=backend, qp_iters=cfg.qp_iters,
+                prob, iters, backend=backend, qp_iters=cfg.qp_iters,
                 qp_solver=cfg.qp_solver, qp_precision=cfg.qp_precision,
                 qp_operator=cfg.qp_operator, state=self.state, eval_fn=ev,
                 **options)
@@ -435,6 +454,18 @@ class OnlineSession:
             return None
         self.history.append(hist)
         return hist.copy()
+
+    def _node_world(self):
+        """The session's rank world (shard_map), started once."""
+        if self._world is None or self._world.closed:
+            self._world = dtsvm_dist.make_node_world(self.V, self.device)
+        return self._world
+
+    def close(self) -> None:
+        """Stop the session's rank world, if it started one (a later
+        ``run`` starts a new one)."""
+        if self._world is not None:
+            self._world.close()
 
     # ------------------------------------------------------------------
     # evaluation

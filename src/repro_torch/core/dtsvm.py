@@ -156,8 +156,14 @@ def _qp_inputs(prob: DTSVMProblem, u, f):
 
 
 def dtsvm_step(state: DTSVMState, prob: DTSVMProblem,
-               qp_iters: int = 200) -> DTSVMState:
+               qp_iters: int = 200, nbr_reduce=None,
+               nbr_counts: Optional[torch.Tensor] = None) -> DTSVMState:
     """One full Proposition-1 iteration (eqs. 6-9), self-contained.
+
+    ``nbr_reduce`` sums an array over each node's neighbors (default: the
+    dense-adjacency einsum; a rank of the ``"shard_map"`` backend passes
+    its collective, ``core.dtsvm_dist``), and ``nbr_counts`` gives the
+    (V, T) active-neighbor counts precomputed.
 
     The LEGACY per-iteration oracle: it rebuilds every loop invariant (Z,
     K, u, counts, box) on each call, and solves the duals of all (v, t)
@@ -167,8 +173,9 @@ def dtsvm_step(state: DTSVMState, prob: DTSVMProblem,
     loop; with ``qp_solver="fista"`` the states are bitwise these.
     """
     from repro_torch.engine.plan import consensus_update   # deferred: cycle
-    nbr_reduce = _default_nbr_reduce(prob)
-    ntp, nbr = _counts(prob)
+    if nbr_reduce is None:
+        nbr_reduce = _default_nbr_reduce(prob)
+    ntp, nbr = _counts(prob, nbr_counts)
     u = _u_diag(prob, ntp, nbr)
     f = _f_vec(prob, state, ntp, nbr, nbr_reduce)
     Z, K, q, hi = _qp_inputs(prob, u, f)

@@ -204,12 +204,16 @@ def compute_z(prob: core.DTSVMProblem) -> torch.Tensor:
 
 
 def compute_invariants(prob: core.DTSVMProblem, *,
+                       nbr_counts: Optional[torch.Tensor] = None,
                        Z: Optional[torch.Tensor] = None,
                        budget: Optional[PlanBudget] = None,
                        materialize_k: bool = True) -> PlanInvariants:
     """All loop-invariants of Prop. 1, from scratch.
 
-    ``Z`` may be passed in when the caller already holds it.  ``budget``
+    ``nbr_counts`` gives the (V, T) active-neighbor counts precomputed (a
+    rank of the ``"shard_map"`` backend holds one adjacency row and
+    counts its neighbors against the global ``active`` table).  ``Z``
+    may be passed in when the caller already holds it.  ``budget``
     streams the K build (see :func:`gram_and_lipschitz`).
     ``materialize_k=False`` is the factored-operator build: K stays
     ``None`` and only L is computed, through discarded row panels.  The
@@ -218,7 +222,7 @@ def compute_invariants(prob: core.DTSVMProblem, *,
     """
     with obs_spans.span("invariant_build", budgeted=budget is not None,
                         materialize_k=materialize_k):
-        ntp, nbr, u, a, hi = _masks_part(prob)
+        ntp, nbr, u, a, hi = _masks_part(prob, nbr_counts)
         if Z is None:
             Z = compute_z(prob)
         if materialize_k:

@@ -101,6 +101,10 @@ def plan_step(prob: core.DTSVMProblem, inv: inv_lib.PlanInvariants,
 class Plan:
     """A compiled DTSVM problem: invariants + the per-iteration body.
 
+    ``nbr_reduce`` is the neighbor sum every step uses (None: the
+    dense-adjacency einsum); a rank of the ``"shard_map"`` backend
+    compiles its node's plan with its collective.
+
     ``stats`` counts the invariant economy over the plan's lineage:
     ``gram_slices_computed`` / ``gram_slices_reused`` (v,t) Gram blocks
     built vs carried over by ``replan``, and ``replans``.
@@ -111,6 +115,7 @@ class Plan:
                  qp_solver: str = DEFAULT_QP_SOLVER,
                  qp_precision: str = "f32",
                  qp_operator: str = "materialized",
+                 nbr_reduce: Optional[Callable] = None,
                  budget: Optional[inv_lib.PlanBudget] = None,
                  stats: Optional[dict] = None):
         self.prob = prob
@@ -120,6 +125,7 @@ class Plan:
         self.qp_precision = qp_precision
         self.qp_operator = qp_operator
         self.budget = budget
+        self.nbr_reduce = nbr_reduce
         #: the K the dual solve reads: inv.K, or in bf16 mode inv.K
         #: converted once for the plan's life
         self.solve_K = (inv.K.to(torch.bfloat16)
@@ -141,7 +147,8 @@ class Plan:
         return plan_step(self.prob, inv, state, qp_iters=self.qp_iters,
                          qp_solver=self.qp_solver,
                          qp_precision=self.qp_precision,
-                         qp_operator=self.qp_operator)
+                         qp_operator=self.qp_operator,
+                         nbr_reduce=self.nbr_reduce)
 
     def run(self, state: Optional[core.DTSVMState] = None, iters: int = 1,
             eval_fn: Optional[Callable] = None, telemetry=None):
@@ -221,6 +228,7 @@ class Plan:
                     qp_solver=self.qp_solver,
                     qp_precision=self.qp_precision,
                     qp_operator=self.qp_operator,
+                    nbr_reduce=self.nbr_reduce,
                     budget=self.budget, stats=stats)
 
 
@@ -229,6 +237,8 @@ def compile_problem(prob: core.DTSVMProblem, cfg=None, *,
                     qp_solver: Optional[str] = None,
                     qp_precision: Optional[str] = None,
                     qp_operator: Optional[str] = None,
+                    nbr_reduce: Optional[Callable] = None,
+                    nbr_counts: Optional[torch.Tensor] = None,
                     budget: Optional[inv_lib.PlanBudget] = None) -> Plan:
     """Precompute every loop-invariant of Prop. 1 into a ``Plan``.
 
@@ -240,8 +250,11 @@ def compile_problem(prob: core.DTSVMProblem, cfg=None, *,
     (``Plan.solve_K``).  ``qp_operator="factored"`` builds no K
     (``K=None``; L streams through discarded row panels) and needs
     ``qp_solver="pallas_fused_multi"`` and f32.  ``budget`` streams the
-    K build through bounded row panels (the large-n path).  The build is
-    a ``plan_compile`` span around the ``invariant_build`` one.
+    K build through bounded row panels (the large-n path).
+    ``nbr_reduce`` is the plan's neighbor sum and ``nbr_counts`` the
+    (V, T) active-neighbor counts, precomputed (a rank of the
+    ``"shard_map"`` backend passes its collective and its counts).  The
+    build is a ``plan_compile`` span around the ``invariant_build`` one.
     """
     if qp_iters is None:
         qp_iters = getattr(cfg, "qp_iters", 200)
@@ -279,7 +292,8 @@ def compile_problem(prob: core.DTSVMProblem, cfg=None, *,
                         qp_operator=qp_operator,
                         budgeted=budget is not None):
         inv = inv_lib.compute_invariants(
-            prob, budget=budget, materialize_k=(qp_operator != "factored"))
+            prob, nbr_counts=nbr_counts, budget=budget,
+            materialize_k=(qp_operator != "factored"))
         return Plan(prob, inv, qp_iters=qp_iters, qp_solver=qp_solver,
                     qp_precision=qp_precision, qp_operator=qp_operator,
-                    budget=budget)
+                    nbr_reduce=nbr_reduce, budget=budget)

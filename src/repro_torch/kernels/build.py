@@ -6,7 +6,10 @@ root of the repository (``/build/`` is git-ignored).  The ``.cu`` files
 hold the kernels behind plain C launchers and include no PyTorch header;
 ``bindings.cpp`` is the one source that includes ``torch/extension.h``.
 Nothing here runs at import: a machine without ``nvcc`` imports the
-package and runs the plain versions on the CPU.
+package and runs the plain versions on the CPU.  A rank of a
+``repro_torch.dist.World`` does not build: its parent built the module
+before it spawned the ranks, and each rank loads that file
+(``load_built``), since V builds into one directory would race.
 
 The link names the shared libstdc++ first (``LINK_FLAGS``).  Where the
 toolchain's default link of an extension pulls libstdc++.a in instead,
@@ -18,6 +21,7 @@ a segmentation fault.
 """
 from __future__ import annotations
 
+import importlib.util
 import pathlib
 import time
 
@@ -50,4 +54,22 @@ def extension():
             extra_ldflags=list(LINK_FLAGS),
             verbose=False)
         build_seconds = time.perf_counter() - t0
+    return _EXT
+
+
+def load_built():
+    """Load the module that ``extension`` built into ``BUILD_DIR``,
+    without building or checking its sources (a rank of a world, whose
+    parent built it).  Raises ``FileNotFoundError`` if it was not built."""
+    global _EXT
+    if _EXT is None:
+        path = BUILD_DIR / "repro_torch_kernels.so"
+        if not path.is_file():
+            raise FileNotFoundError(f"no built kernels at {path}; call "
+                                    f"extension() first")
+        spec = importlib.util.spec_from_file_location("repro_torch_kernels",
+                                                      path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        _EXT = module
     return _EXT

@@ -37,9 +37,12 @@ stream                shape     meaning
 
 The async backend adds ``bytes_round`` (the fabric's bytes per round),
 ``staleness`` ((rounds, V): each node's oldest incoming-edge silence, in
-rounds) and, under a node membership, ``nodes_alive``.  The reference's
-sample-sharded collector (``collect_shard_diagnostics``) comes with the
-multi-device backends (ROADMAP.md, 'Modules to port', item 6).
+rounds) and, under a node membership, ``nodes_alive``.  The
+``"shard_map"`` backend collects on the caller's side, from each round's
+full state as it comes back from the ranks (``api.backends``), with the
+same :meth:`Telemetry.collect`.  The reference's sample-sharded collector
+(``collect_shard_diagnostics``) comes with the ``"sample_shard"`` backend
+(ROADMAP.md, 'Modules to port', item 6).
 """
 from __future__ import annotations
 

@@ -95,7 +95,7 @@ def test_solver_config_dicts_mean_the_same():
 
 
 @pytest.mark.parametrize("field", [
-    dict(backend="shard_map"), dict(backend="sample_shard"),
+    dict(backend="sample_shard"),
 ])
 def test_options_not_ported_raise_naming_the_roadmap(field):
     data = _tiny_data()
@@ -116,7 +116,6 @@ def _roadmap_modules() -> dict:
 
 
 @pytest.mark.parametrize("field,item,title", [
-    (dict(backend="shard_map"), 6, "multi-device"),
     (dict(backend="sample_shard"), 6, "multi-device"),
 ])
 def test_refusals_name_the_item_roadmap_gives_them(field, item, title):

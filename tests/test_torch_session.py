@@ -330,7 +330,7 @@ def test_session_node_events_and_status_are_the_references():
 
 
 @pytest.mark.parametrize("field,item,title", [
-    (dict(backend="shard_map"), 6, "multi-device"),
+    (dict(backend="sample_shard"), 6, "multi-device"),
 ])
 def test_session_refuses_what_is_not_ported_at_once(field, item, title):
     """The constructor refuses a config the port cannot run yet, naming

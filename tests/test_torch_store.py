@@ -13,7 +13,8 @@ run (the gap observed is printed), and the port's files load into
 ``repro``.  A snapshot crosses only with ``check_fingerprint=False``: the
 fingerprint hashes each package's own K (the two differ in the last
 bits), and without the flag the restore raises ``SchemaError``.  The
-reference's slow shard_map and sample_shard cases are ROADMAP.md item 6.
+reference's slow shard_map case runs here too, on a world of CPU ranks;
+its sample_shard case is ROADMAP.md item 6.
 """
 import os
 
@@ -323,6 +324,42 @@ def test_save_restore_continue_bitwise(tmp_path, name, pending):
     if not pending:
         _pending_events(back)
     _assert_store_equal(_rest(back), ref)
+
+
+def test_save_restore_continue_shard_map_bitwise(tmp_path):
+    """tests/test_store.py's shard_map case: each session runs its own
+    world of 4 CPU ranks; the restored one starts a new world and
+    continues bitwise the uninterrupted session."""
+    X, y, adj, _, _ = _data()
+    cfg = SolverConfig(iters=3, qp_iters=15, backend="shard_map",
+                       backend_options={"topology": "graph"})
+    sessions = []
+
+    def session():
+        sessions.append(OnlineSession(X, y, adj=adj, config=cfg,
+                                      device="cpu"))
+        return sessions[-1]
+
+    try:
+        ref = session()
+        ref.run(3)
+        ref.drop_task(1)
+        ref.run(3)
+        twin = session()
+        twin.run(3)
+        path = os.path.join(str(tmp_path), "s.msgpack")
+        save_session(path, twin)
+        back = load_session(path, device="cpu")
+        sessions.append(back)
+        back.drop_task(1)
+        back.run(3)
+        for name, x, z in zip(ref.state._fields, back.state, ref.state):
+            assert torch.equal(x, z), name
+        assert back.iteration == ref.iteration == 6
+        assert back._world is not twin._world
+    finally:
+        for s in sessions:
+            s.close()
 
 
 def test_fresh_session_snapshot_roundtrip(tmp_path):
