@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out FILE] [--only large_fit|multi_mid|figures|
                                                sessions|fabric|store|serve|
-                                               obs|dist]
+                                               obs|dist|shard]
 
 Runs from the root of a checkout, on a machine with one CUDA card, the
 CUDA toolkit and ninja; it builds the hand kernels itself into
@@ -212,7 +212,38 @@ any failure raises and exits non-zero:
    config implies for one node), peak device memory, neighbor sums and
    host copies per ADMM iteration, and the worlds' start times; then a
    rank that dies must make the world raise and leave no rank alive;
-14. the ``kernels`` line, the card line, and the result line.
+14. the ``"sample_shard"`` backend (``repro_torch.dist.sample``: every
+   node's samples split over the ranks of a world, each building its row
+   panel of K with one prescale and the tiled Gram kernel) and the
+   device-tiled sweep (``SweepPlan.run_sharded``: each rank compiling its
+   configs' sub-sweep), every rank a spawned process on the card: (a) the
+   large fit (V=2, T=1, N=20000, p=256, 2 x 10 iterations) on 4 ranks
+   with fista/gather, fista/psum and pg/gather, DIST_REPS fits dense and
+   one under ``PlanBudget(max_elems=2**27)`` (2 tiled panels a rank), each
+   against the ``vmap`` fit on the card within RTOL_FIT with both walls,
+   each rank's peak device memory under vmap's, its launches (the
+   prescale and its panels, nothing else) and its collectives per ADMM
+   iteration with their share of the wall; then the tiled kernel at a
+   rank's panel (rows 5000-9999 of the gathered Z) against its plain
+   version and bitwise those rows of the square K; (b)
+   tests/test_scale.py's regime (V=3, T=2, N=64, p=10, 5 x 50
+   iterations) on 4 ranks: a fit with a risk history (state within 1e-5
+   of ``vmap``'s, history within 1/32), ``psum`` (within the reference's
+   2e-5), telemetry on and off (``torch.equal``; streams within phase
+   12's bounds of vmap's); (c) Fig. 3's paper grid (16 eps configs,
+   V=10, 60 x 100 iterations, seed 0) as a sweep, 1-D on 4 ranks and
+   2-D on 2 rows of 10 (``graph``), with ``fista`` and
+   ``pallas_fused_multi``, against the single-host sweep on the card
+   (states within 1e-5 of each leaf's largest magnitude, or of 1 where
+   it is smaller; every network-average risk within 1/n_test), each
+   rank's Gram and QP launches counted; then the square Gram and the
+   multi kernels at a 1-D rank's operands against their plain versions;
+   (d) tests/test_dist.py's regime (V=4, 4 configs, 5 x 20 iterations)
+   over a ring, 2-D on 2 rows of 4, with ``pallas_fused``, within 1e-5 of
+   the single-host sweep; (e) a sample rank that dies makes the fit raise
+   and leaves no rank alive;
+15. the ``kernels`` line (with ``launches_by_path["shard"]``, phase 14's
+   launches counted in the ranks), the card line, and the result line.
 
 ``--only`` runs one part and prints no result line, to compare two
 trees' ``src/`` under one script (a copy of this file at each tree's
@@ -221,7 +252,7 @@ solve at N between the paper's and the large fit's (B in {2, 20, 300},
 N in {328, 329, 515, 1000}, 100 iterations with the fold), each against
 its plain version and timed, ``figures`` phase 7, ``sessions`` phase 8,
 ``fabric`` phase 9, ``store`` phase 10, ``serve`` phase 11, ``obs``
-phase 12, ``dist`` phase 13.
+phase 12, ``dist`` phase 13, ``shard`` phase 14.
 
 Without a CUDA device, or without the rest of the repository beside it,
 it exits non-zero and prints no result.
@@ -388,6 +419,27 @@ DIST_REPS = 3
 # the reference's bar for this backend (tests/test_api.py:137-141): state
 DIST_STATE_TOL = 1e-5
 DIST_HISTORY = 5
+
+# phase 14: the sample_shard backend and the device-tiled sweep.  (a) the
+# large fit (bench_scale.py:265) on SHARD_RANKS ranks per (label, engine,
+# reduce), dense and under LARGE_BUDGET; (b) tests/test_scale.py:236-278's
+# regime, whose psum bar is the reference's own (:270-275); (c) Fig. 3's
+# grid as a sweep, 1-D over SHARD_RANKS ranks and 2-D over SWEEP_ROWS_2D
+# rows of V ranks, per engine; (d) tests/test_dist.py:118-150's regime over
+# a ring, 2-D over 2 rows of 4 ranks
+SHARD_RANKS = 4
+SHARD_LARGE_RUNS = (("fista/gather", "fista", "gather"),
+                    ("fista/psum", "fista", "psum"),
+                    ("pg/gather", "pg", "gather"))
+SHARD_SCALE = dict(V=3, T=2, N=64, p=10, degree=0.8, iters=5, qp_iters=50,
+                   n_test=32)
+SHARD_PSUM_TOL = 2e-5
+SWEEP_ENGINES = ("fista", "pallas_fused_multi")
+SWEEP_ROWS_2D = 2
+SWEEP_RING = dict(V=4, T=2, p=6, n=6, iters=5, qp_iters=20,
+                  qp_solver="pallas_fused")
+SWEEP_RING_CFGS = (dict(C=0.02), dict(eps2=3.0), dict(eta2=0.7),
+                   dict(C=0.1))
 
 RECORDS = []
 
@@ -3097,6 +3149,398 @@ def dist(by_path: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the sample_shard backend and the device-tiled sweep
+# ---------------------------------------------------------------------------
+def _rank_case(label: str, world, fit, reps: int, by_path: dict,
+               want: dict) -> tuple:
+    """``reps`` calls of ``fit()`` on ``world``, the ranks' counters set
+    to 0 just before and read just after: every rank on the card, each
+    with ``want``'s launches (a kernel it does not name: none), all of
+    them added to ``by_path["shard"]``.  Returns the last result, the
+    walls and the ranks' records."""
+    from repro_torch.dist.collectives import world_stats
+
+    world_stats(world, reset=True)
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fit()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    ranks = world_stats(world)
+    want = {k: want.get(k, 0) for k in ranks[0]["launches"]}
+    total = by_path.setdefault("shard", dict.fromkeys(want, 0))
+    for r in ranks:
+        if not r["device"].startswith("cuda"):
+            raise AssertionError(f"{label}: rank {r['rank']} ran on "
+                                 f"{r['device']}")
+        if r["launches"] != want:
+            raise AssertionError(f"{label}: rank {r['rank']} made "
+                                 f"{r['launches']} launches, expected "
+                                 f"{want}")
+        for k, n in r["launches"].items():
+            total[k] += n
+    keep = ("rank", "device", "launches", "peak_mem_bytes", "all_gathers",
+            "all_reduces", "nbr_sums", "host_copies", "collective_s")
+    return out, walls, [{k: r[k] for k in keep} for r in ranks]
+
+
+def _collectives(ranks: list, rounds: int, builds: int,
+                 walls: list) -> dict:
+    """Rank 0's collectives per ADMM iteration (the builds' own taken
+    out: one all-gather of Z and one max-reduce of L per build) and every
+    rank's collective seconds as a share of the walls."""
+    r0 = ranks[0]
+    return {
+        "all_gathers_per_iter": (r0["all_gathers"] - builds) / rounds,
+        "all_reduces_per_iter": (r0["all_reduces"] - builds) / rounds,
+        "collective_share_of_wall": [r["collective_s"] / sum(walls)
+                                     for r in ranks]}
+
+
+def hold_panel(label: str, Z, a, row0: int, M: int, cases: dict) -> None:
+    """The tiled Gram kernel at a sample rank's own panel (rows [row0,
+    row0 + M) of the whole gathered Z) against its plain version, and
+    bitwise those rows of the square kernel's K."""
+    from repro_torch.kernels import gram as gram_kernel
+    from repro_torch.kernels import ops, ref
+
+    B, N, D = Z.shape
+    Zs = gram_kernel.prescale(Z, a)
+    panel = torch.empty((B, M, N), device=Z.device)
+    run = lambda: gram_kernel.weighted_gram_tiled(Zs, row0, panel)
+    run()
+    Zm = Z[:, row0:row0 + M]
+    plain = ref.weighted_gram_rows(Zm, a, Z)
+    torch.cuda.synchronize()
+    err, scale, ok = max_err(panel, plain, RTOL["f32"])
+    del plain
+    K = ops.weighted_gram(Z, a)
+    same_rows = torch.equal(panel, K[:, row0:row0 + M])
+    del K
+    flops = 2 * B * M * N * D + B * M * D
+    b_ms, b_by = bound(4 * (B * M * D + B * N * D + B * D + B * M * N),
+                       flops)
+    rec = {"regime": label, "B": B, "N": N, "D": D, "M": M,
+           "row_start": row0, "max_abs_err": err, "max_abs_plain": scale,
+           "rtol": RTOL["f32"], "bitwise_square_rows": same_rows,
+           "ms": cuda_ms(run, 5),
+           "plain_ms": cuda_ms(lambda: ref.weighted_gram_rows(Zm, a, Z), 5),
+           "library_ms": cuda_ms(lambda: torch.einsum(
+               "bnd,bd,bmd->bnm", Zm, a, Z), 5),
+           "bound_ms": b_ms, "bound_by": b_by}
+    emit({"kernel_check": "weighted_gram_tiled", **rec})
+    if not (ok and same_rows):
+        raise AssertionError(f"weighted_gram_tiled disagrees at {label}: "
+                             f"{rec}")
+    cases["weighted_gram_tiled"].append(rec)
+
+
+def shard_large(by_path: dict, world, cases: dict) -> None:
+    """(a) the large fit through sample_shard on the world's ranks, per
+    engine and reduction, dense (DIST_REPS fits) and under LARGE_BUDGET
+    (one), against the vmap fit on the card; then the tiled kernel at a
+    rank's panel."""
+    from repro_torch.api import DTSVM, SolverConfig
+    from repro_torch.core import dtsvm as core
+    from repro_torch.engine import invariants
+    from repro_torch.engine.invariants import PlanBudget
+
+    V, T, N = (LARGE_FIT[k] for k in ("V", "T", "N"))
+    S = world.size
+    Nl = N // S
+    X, y, adj = large_data()
+    budget = PlanBudget(max_elems=LARGE_BUDGET)
+    chunk = budget.row_chunk(V * T, Nl, cols=N)
+    panels = len(invariants._row_starts(Nl, chunk))
+    for label, solver, reduce in SHARD_LARGE_RUNS:
+        cfg = SolverConfig(C=0.01, iters=LARGE_FIT["iters"],
+                           qp_iters=LARGE_FIT["qp_iters"], qp_solver=solver)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ref, ref_walls = _vmap_walls(
+            lambda: DTSVM(cfg, device="cuda").fit(X, y, adj=adj))
+        vmap_peak = torch.cuda.max_memory_allocated()
+        for sub, reps, kw, pan in (("dense", DIST_REPS, {}, 1),
+                                   ("budget", 1, {"budget": budget},
+                                    panels)):
+            scfg = cfg.replace(backend="sample_shard", backend_options={
+                "world": world, "reduce": reduce}, **kw)
+            path = f"shard/large/{label}/{sub}"
+            m, walls, ranks = _rank_case(
+                path, world, lambda: DTSVM(scfg, device="cuda").fit(
+                    X, y, adj=adj), reps, by_path,
+                {"gram_prescale": reps, "weighted_gram_tiled": reps * pan})
+            errs = _state_errs(m.state_, ref.state_, RTOL_FIT["f32"])
+            peaks = [r["peak_mem_bytes"] for r in ranks]
+            emit({"shard": path, **LARGE_FIT, "ranks_n": S,
+                  "rows_per_rank": Nl, "reduce": reduce,
+                  "row_chunk": chunk if sub == "budget" else None,
+                  "panels_per_rank": pan, "reps": reps, "fit_s": walls,
+                  "fit_s_median": float(np.median(walls)),
+                  "vmap_fit_s": ref_walls,
+                  "vmap_fit_s_median": float(np.median(ref_walls)),
+                  "vs_vmap_max_abs_err": {k: e[0] for k, e in errs.items()},
+                  "vmap_max_abs": {k: e[1] for k, e in errs.items()},
+                  "bitwise_vmap": all(torch.equal(a, b) for a, b in
+                                      zip(m.state_, ref.state_)),
+                  "rtol": RTOL_FIT["f32"], "peak_mem_bytes_per_rank": peaks,
+                  "vmap_peak_mem_bytes": vmap_peak,
+                  **_collectives(ranks, reps * cfg.iters, reps, walls),
+                  "ranks": ranks})
+            if not all(e[2] for e in errs.values()):
+                raise AssertionError(f"{path} off the vmap fit: {errs}")
+            if not max(peaks) < vmap_peak:
+                raise AssertionError(f"{path}: a rank's peak {max(peaks)} "
+                                     f"is not under vmap's {vmap_peak}")
+        del ref, m
+    # the tiled kernel at rank 1's operands: its rows of the gathered Z
+    prob = core.make_problem(X, y, adj=adj, C=0.01, device="cuda")
+    Z, a = invariants.compute_z(prob), invariants._masks_part(prob)[3]
+    hold_panel("shard/large/rank1_panel", Z.reshape(V * T, N, -1),
+               a.reshape(V * T, -1), Nl, Nl, cases)
+
+
+def shard_scale(by_path: dict, world) -> None:
+    """(b) tests/test_scale.py's regime on the world's ranks: gather with
+    a risk history, psum, and telemetry on and off, against vmap on the
+    card."""
+    from repro_torch.api import DTSVM, SolverConfig
+    from repro_torch.core import graph
+    from repro_torch.data import synthetic
+
+    c = SHARD_SCALE
+    V, T, N = c["V"], c["T"], c["N"]
+    data = synthetic.make_multitask_data(
+        V=V, T=T, p=c["p"], n_train=np.full((V, T), N, int),
+        n_test=c["n_test"], seed=0)
+    A = graph.make_graph("random", V, degree=c["degree"], seed=0)
+    X, y, mask = data["X"], data["y"], data["mask"]
+    Xte, yte = data["X_test"], data["y_test"]
+    base = SolverConfig(C=0.01, iters=c["iters"], qp_iters=c["qp_iters"])
+    shard = lambda **o: base.replace(backend="sample_shard",  # noqa: E731
+                                     backend_options={"world": world, **o})
+    fit = lambda cfg, **kw: DTSVM(cfg, device="cuda").fit(  # noqa: E731
+        X, y, mask=mask, adj=A, **kw)
+    ref = fit(base, X_test=Xte, y_test=yte)
+    want = {"gram_prescale": 1, "weighted_gram_tiled": 1}
+    m, walls, ranks = _rank_case("shard/scale/gather", world, lambda: fit(
+        shard(), X_test=Xte, y_test=yte), 1, by_path, want)
+    err = max(float((a - b).abs().max()) for a, b in zip(m.state_,
+                                                          ref.state_))
+    hist_gap = float((m.history_ - ref.history_).abs().max())
+    p, _, _ = _rank_case("shard/scale/psum", world, lambda: fit(
+        shard(reduce="psum")), 1, by_path, want)
+    psum_err = max(float((a - b).abs().max()) for a, b in zip(p.state_,
+                                                               ref.state_))
+    tel_cfg = shard().replace(telemetry=True)
+    on, on_walls, on_ranks = _rank_case("shard/scale/telemetry", world,
+                                        lambda: fit(tel_cfg), 1, by_path,
+                                        want)
+    off, off_walls, _ = _rank_case("shard/scale/no_telemetry", world,
+                                   lambda: fit(shard()), 1, by_path, want)
+    gaps = _check_streams("shard/scale", on.telemetry_,
+                          fit(base.replace(telemetry=True)).telemetry_)
+    rec = {"shard": "scale", **c, "ranks_n": world.size,
+           "fit_s_history": walls, "vs_vmap_max_abs_err": err,
+           "bitwise_vmap": all(torch.equal(a, b) for a, b in
+                               zip(m.state_, ref.state_)),
+           "history_shape": list(m.history_.shape),
+           "history_gap": hist_gap, "risk_limit": 1.0 / c["n_test"],
+           "psum_vs_vmap_max_abs_err": psum_err, "psum_tol": SHARD_PSUM_TOL,
+           "telemetry_on_off_equal": all(torch.equal(a, b) for a, b in
+                                         zip(on.state_, off.state_)),
+           "telemetry_s": on_walls, "no_telemetry_s": off_walls,
+           "stream_gaps_to_vmap": gaps,
+           **_collectives(ranks, c["iters"], 1, walls),
+           "telemetry_all_reduces_per_iter":
+               (on_ranks[0]["all_reduces"] - 1) / c["iters"],
+           "ranks": ranks}
+    emit(rec)
+    if not (err < DIST_STATE_TOL and hist_gap <= 1.0 / c["n_test"]
+            and tuple(m.history_.shape) == (c["iters"], V, T)
+            and psum_err < SHARD_PSUM_TOL
+            and rec["telemetry_on_off_equal"]):
+        raise AssertionError(f"shard/scale off its bars: {rec}")
+
+
+def _sweep_state_errs(got, want) -> dict:
+    """Per leaf: (largest error, largest magnitude of ``want``, within
+    DIST_STATE_TOL of that magnitude, or of 1 where it is smaller)."""
+    out = {}
+    for name, g, w in zip(want._fields, got, want):
+        err = float((g - w).abs().max())
+        scale = float(w.abs().max())
+        out[name] = (err, scale, err <= DIST_STATE_TOL * max(scale, 1.0))
+    return out
+
+
+def shard_sweep(by_path: dict, world1d, world2d, cases: dict) -> None:
+    """(c) Fig. 3's paper grid as a device-tiled sweep, 1-D on
+    ``world1d`` and 2-D on ``world2d``, per engine, against the
+    single-host sweep on the card; then the kernels at a 1-D rank's
+    operands."""
+    from repro_torch.api import sweep_fit
+    from repro_torch.core import dtsvm as core
+    from repro_torch.engine import compile_sweep
+    from repro_torch.figures import common, fig3_eps_sweep
+    from repro_torch.kernels import ops
+
+    grid = fig3_eps_sweep.EPS_GRID
+    cfgs = [dict(eps1=e1, eps2=e2) for e1 in grid for e2 in grid]
+    iters, qp_iters = fig3_eps_sweep.ITERS, 100
+    data, A = common.build(10, [50, 400], degree=0.8667, seed=0)
+    V, n_test = data["X"].shape[0], data["X_test"].shape[1]
+    X, y, mask = common._on_device(data, torch.device("cuda"))
+    for solver in SWEEP_ENGINES:
+        base = common.solver_config(iters=iters, qp_iters=qp_iters,
+                                    qp_solver=solver)
+        one, one_s = common.run_sweep(data, A, cfgs, iters,
+                                      qp_iters=qp_iters, qp_solver=solver,
+                                      with_history=False, device="cuda")
+        one_risks = one.risks(data["X_test"], data["y_test"])
+        for layout, world, options in (
+                ("1d", world1d, {"world": world1d}),
+                ("2d", world2d, {"world": world2d, "node_axis": "nodes"})):
+            rows = world.size if layout == "1d" else len(world.groups)
+            per_rank = len(cfgs) // rows
+            want = {"weighted_gram": 1, "gram_prescale": 1,
+                    "qp_pg_multi": (iters if solver == "pallas_fused_multi"
+                                    else 0)}
+            path = f"shard/sweep/fig3/{layout}/{solver}"
+            res, walls, ranks = _rank_case(path, world, lambda: sweep_fit(
+                X, y, cfgs, mask=mask, adj=A, base=base,
+                backend="shard_map", backend_options=options,
+                device="cuda"), 1, by_path, want)
+            errs = _sweep_state_errs(res.states, one.states)
+            gap = float((res.risks(data["X_test"], data["y_test"])
+                         - one_risks).abs().mean(-2).max())
+            emit({"shard": path, "configs": len(cfgs), "V": V,
+                  "iters": iters, "qp_iters": qp_iters, "ranks_n": world.size,
+                  "configs_per_rank": per_rank,
+                  "nodes_per_rank": 1 if layout == "2d" else V,
+                  "wall_s": walls[0], "single_host_wall_s": one_s,
+                  "state_errs": errs, "state_tol": DIST_STATE_TOL,
+                  "bitwise_single_host": all(torch.equal(a, b) for a, b in
+                                             zip(res.states, one.states)),
+                  "global_risk_gap": gap, "limit": 1.0 / n_test,
+                  "nbr_sums_per_iter": ranks[0]["nbr_sums"] / iters,
+                  "collective_share_of_wall": [
+                      r["collective_s"] / walls[0] for r in ranks],
+                  "peak_mem_bytes_per_rank": [r["peak_mem_bytes"]
+                                              for r in ranks],
+                  "ranks": ranks})
+            if not (all(e[2] for e in errs.values())
+                    and gap <= 1.0 / n_test + 1e-6):
+                raise AssertionError(f"{path} off the single-host sweep: "
+                                     f"{errs}, risk gap {gap}")
+    # the kernels at rank 0's operands of the 1-D sweep: its configs' K
+    # over the shared Z, and one multi solve of its step
+    prob = core.make_problem(X, y, mask, A, C=common.C, device="cuda")
+    sub = compile_sweep(prob, cfgs[:len(cfgs) // world1d.size],
+                        qp_iters=qp_iters, qp_solver="pallas_fused_multi")
+    hold_gram("shard/sweep_rank0", sub.inv.Z, sub.inv.a, cases,
+              built=sub.inv.K)
+    with captured(ops, "qp_pg_multi") as calls:
+        sub.step(sub.init_state())
+    args, kw = calls[0]
+    hold_multi("shard/sweep_rank0/iteration_1", args, kw, cases)
+
+
+def shard_ring(by_path: dict, world) -> None:
+    """(d) tests/test_dist.py's regime over a ring, 2-D on ``world``
+    (2 rows of 4 ranks), with pallas_fused, against the single-host
+    sweep on the card."""
+    from repro_torch.core import dtsvm as core
+    from repro_torch.core import graph
+    from repro_torch.data import synthetic
+    from repro_torch.engine import compile_sweep
+
+    c = SWEEP_RING
+    V, T = c["V"], c["T"]
+    data = synthetic.make_multitask_data(
+        V=V, T=T, p=c["p"], n_train=np.full((V, T), c["n"], int),
+        n_test=20, seed=0)
+    prob = core.make_problem(data["X"], data["y"], data["mask"],
+                             graph.ring(V), device="cuda")
+    splan = compile_sweep(prob, list(SWEEP_RING_CFGS),
+                          qp_iters=c["qp_iters"], qp_solver=c["qp_solver"])
+    own, _ = splan.run(iters=c["iters"])
+    per_rank = len(SWEEP_RING_CFGS) // len(world.groups)
+    st, walls, ranks = _rank_case(
+        "shard/sweep/ring", world, lambda: splan.run_sharded(
+            c["iters"], world=world, node_axis="nodes", topology="ring"),
+        1, by_path, {"weighted_gram": 1, "gram_prescale": 1,
+                     "qp_pg_step": c["iters"] * c["qp_iters"]})
+    err = max(float((a - b).abs().max()) for a, b in zip(st, own))
+    emit({"shard": "sweep/ring", **c, "configs": len(SWEEP_RING_CFGS),
+          "ranks_n": world.size, "configs_per_rank": per_rank,
+          "wall_s": walls[0], "vs_single_host_max_abs_err": err,
+          "bitwise_single_host": all(torch.equal(a, b)
+                                     for a, b in zip(st, own)),
+          "nbr_sums_per_iter": ranks[0]["nbr_sums"] / c["iters"],
+          "ranks": ranks})
+    if not err < DIST_STATE_TOL:
+        raise AssertionError(f"shard/sweep/ring off the single-host sweep "
+                             f"by {err}")
+
+
+def shard_dies(world) -> None:
+    """(e) a sample rank that dies: the fit raises, no rank stays alive."""
+    from repro_torch.api import DTSVM, SolverConfig
+    from repro_torch.dist import RankError
+
+    c = SHARD_SCALE
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(c["V"], c["T"], c["N"], c["p"])).astype(np.float32)
+    y = np.sign(rng.normal(size=X.shape[:3])).astype(np.float32)
+    world._procs[1].kill()
+    world._procs[1].join()
+    try:
+        DTSVM(SolverConfig(iters=1, qp_iters=5, backend="sample_shard",
+                           backend_options={"world": world}),
+              device="cuda").fit(X, y)
+    except RankError as e:
+        died = str(e)
+    else:
+        raise AssertionError("a fit on a world with a dead rank did not "
+                             "raise")
+    alive = sum(p.is_alive() for p in world._procs)
+    emit({"shard": "rank_died", "error": died, "closed": world.closed,
+          "ranks_alive": alive})
+    if not (world.closed and alive == 0):
+        raise AssertionError("a failed world left ranks running")
+
+
+def shard(by_path: dict, cases: dict) -> None:
+    """Phase 14: the sample_shard backend and the device-tiled sweep on
+    the card, on three worlds: SHARD_RANKS ranks (the sample fits and
+    the 1-D sweep), SWEEP_ROWS_2D rows of 10 (Fig. 3's 2-D sweep) and 2
+    rows of 4 (the ring)."""
+    from repro_torch.dist import World
+    from repro_torch.dist import sharding
+
+    phase_t0 = time.perf_counter()
+    starts = {}
+    with World(SHARD_RANKS, device="cuda") as world:
+        starts[f"{SHARD_RANKS}"] = world.start_seconds
+        shard_large(by_path, world, cases)
+        shard_scale(by_path, world)
+        with sharding.make_sweep_world(16, 10, n_sweep=SWEEP_ROWS_2D,
+                                       device="cuda") as world2d:
+            starts[f"{SWEEP_ROWS_2D}x10"] = world2d.start_seconds
+            shard_sweep(by_path, world, world2d, cases)
+        shard_dies(world)
+    with sharding.make_sweep_world(len(SWEEP_RING_CFGS), SWEEP_RING["V"],
+                                   n_sweep=2, device="cuda") as world8:
+        starts["2x4"] = world8.start_seconds
+        shard_ring(by_path, world8)
+    emit({"phase": "shard", "world_start_s": starts,
+          "launches": by_path.get("shard"),
+          "seconds": time.perf_counter() - phase_t0})
+
+
+# ---------------------------------------------------------------------------
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3117,7 +3561,7 @@ def main() -> int:
                     help="also write every record to this JSON file")
     ap.add_argument("--only", choices=("large_fit", "multi_mid", "figures",
                                        "sessions", "fabric", "store",
-                                       "serve", "obs", "dist"),
+                                       "serve", "obs", "dist", "shard"),
                     help="run only this part, and print no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3143,6 +3587,8 @@ def main() -> int:
             large_fit({})
         elif args.only == "dist":
             dist({})
+        elif args.only == "shard":
+            shard({}, {k: [] for k in KERNELS})
         elif args.only in ("figures", "sessions", "fabric", "store",
                            "serve", "obs"):
             run = {"figures": figures, "sessions": sessions,
@@ -3178,6 +3624,7 @@ def main() -> int:
     serve(by_path, traced, cases)
     observability(by_path, traced, cases)
     dist(by_path)
+    shard(by_path, cases)
     if not all(traced.values()):
         raise AssertionError(f"the profiler saw none of some kernels: "
                              f"{traced}")

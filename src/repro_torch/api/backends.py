@@ -9,10 +9,10 @@ A backend is a callable
 The port has the single-host ``"vmap"`` backend (one compiled plan, under
 ``budget`` the streamed large-n build, one loop); ``"shard_map"``, one
 process per network node in a ``repro_torch.dist.World`` with the
-neighbor sums as collectives (``core.dtsvm_dist``); and ``"async"``, the
-same plan stepped over the communication fabric (``repro_torch.net``).
-The reference's ``"sample_shard"`` is still to be ported (ROADMAP.md,
-"Modules to port", item 6).
+neighbor sums as collectives (``core.dtsvm_dist``); ``"async"``, the
+same plan stepped over the communication fabric (``repro_torch.net``);
+and ``"sample_shard"``, every node's samples split over the ranks of a
+world, each building its row panel of K (``repro_torch.dist.sample``).
 
 A sweep backend runs a compiled ``engine.SweepPlan``:
 
@@ -20,8 +20,8 @@ A sweep backend runs a compiled ``engine.SweepPlan``:
         -> (states, history | None)
 
 ``"vmap"`` runs the whole grid on one device (``chain=True``: the
-warm-start chain); ``"shard_map"`` (configs across devices) is not
-ported yet.
+warm-start chain); ``"shard_map"`` tiles the configs (and the nodes)
+over the ranks of a world (``SweepPlan.run_sharded``).
 """
 from __future__ import annotations
 
@@ -31,17 +31,13 @@ import torch
 
 from repro_torch.core import dtsvm as core
 from repro_torch.core import dtsvm_dist
+from repro_torch.dist import sample as sample_lib
 from repro_torch.engine import invariants as inv_lib
 from repro_torch.engine import plan as engine_plan
 from repro_torch.net import async_admm
 from repro_torch.obs import telemetry as obs_telemetry
 
 _REGISTRY: Dict[str, Callable] = {}
-
-_NOT_PORTED = {
-    "sample_shard": "ROADMAP.md, 'Modules to port', item 6 (multi-device "
-                    "backends)",
-}
 
 
 def register(name: str):
@@ -53,10 +49,8 @@ def register(name: str):
 
 
 def get(name: str) -> Callable:
-    """The registered backend runner for ``name``."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"backend {name!r} is not ported yet: "
-                                  f"{_NOT_PORTED[name]}")
+    """The registered backend runner for ``name`` (ValueError if
+    absent)."""
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -201,6 +195,41 @@ def _run_async(prob: core.DTSVMProblem, iters: int, *, qp_iters: int = 200,
     return res.state, res.history
 
 
+@register("sample_shard")
+def _run_sample_shard(prob: core.DTSVMProblem, iters: int, *,
+                      qp_iters: int = 200, qp_solver: str = "fista",
+                      state: Optional[core.DTSVMState] = None, eval_fn=None,
+                      world=None, n_shards: Optional[int] = None,
+                      reduce: str = "gather", budget=None, telemetry=None,
+                      telemetry_out: Optional[dict] = None, **_ignored):
+    """Every node's local samples split over the ranks of a world (the
+    large-n path, ``repro_torch.dist.sample``): rank k builds only its
+    N/S row panel of every (v, t) K, the dual QP iterates with the panel
+    matvec and one all-gather of the iterate per inner step, and the
+    O(p) consensus math is replicated.
+
+    ``world`` (a ``repro_torch.dist.World``, the reference's ``mesh``) is
+    used as it is, its size matching ``n_shards`` when both are given;
+    else a world of ``n_shards`` ranks (default: the largest divisor of
+    N that is at most 4, ``dist.sharding.DEFAULT_RANKS``) is started for
+    the call and closed after it.  ``reduce``: ``"gather"`` gathers lam
+    and reduces zl densely, ``"psum"`` sums the ranks' partial zl.
+    ``budget`` streams each rank's panel build.  ``qp_solver`` must be
+    ``"fista"`` or ``"pg"``.  ``eval_fn`` runs in the caller on each
+    iteration's state (the world is stepped one iteration at a time);
+    ``telemetry`` collects in the ranks
+    (``obs.telemetry.collect_shard_diagnostics``) and ``telemetry_out``
+    receives ``{"streams": {name: float32 numpy}}``.  Options of the
+    other backends are ignored, as in the reference."""
+    st, hist, streams = sample_lib.run_sample_shard(
+        prob, iters, world=world, n_shards=n_shards, reduce=reduce,
+        budget=budget, qp_iters=qp_iters, qp_solver=qp_solver, state=state,
+        eval_fn=eval_fn, telemetry=telemetry)
+    if telemetry_out is not None and streams is not None:
+        telemetry_out["streams"] = streams
+    return st, hist
+
+
 def run(prob: core.DTSVMProblem, iters: int, *, backend: str = "vmap",
         qp_iters: int = 200, qp_solver: str = "fista",
         qp_precision: str = "f32", qp_operator: str = "materialized",
@@ -246,9 +275,10 @@ def _run_sweep_vmap(plan, iters: int, *, state=None, eval_fn=None,
 
 @register_sweep("shard_map")
 def _run_sweep_shard_map(plan, iters: int, *, state=None, eval_fn=None,
-                         chain: bool = False, **options):
-    """The reference's checks of its arguments, then the refusal: configs
-    across devices are not ported yet."""
+                         chain: bool = False, world=None, n_sweep=None,
+                         node_axis=None, topology: str = "graph"):
+    """The configs (with ``node_axis``, and the nodes) tiled over the
+    ranks of a world (``SweepPlan.run_sharded``); final states only."""
     if chain:
         raise ValueError("warm-start chains are sequential in the config "
                          "axis — use backend='vmap' for chain=True")
@@ -256,7 +286,9 @@ def _run_sweep_shard_map(plan, iters: int, *, state=None, eval_fn=None,
         raise ValueError("per-iteration histories are a single-host "
                          "feature; run the sharded sweep without "
                          "X_test/eval_fn and evaluate the final states")
-    return plan.run_sharded(iters, state=state, **options), None
+    return plan.run_sharded(iters, world=world, n_sweep=n_sweep,
+                            node_axis=node_axis, topology=topology,
+                            state=state), None
 
 
 def run_sweep(plan, iters: int, *, backend: str = "vmap", state=None,

@@ -58,13 +58,14 @@ telemetry-off session's.
 With ``backend="shard_map"`` every ``run`` goes through the
 decentralized backend (``core.dtsvm_dist``): one rank per node, each
 compiling its node's plan for the run, as the reference's plan-less
-branch does (the config's ``budget`` passed on).  The session starts its
-``repro_torch.dist.World`` at the first ``run`` and keeps it across
-runs (a ``backend_options["world"]`` is used instead); ``close`` stops
-it, as does garbage collection.
-
-Not ported yet, and refused by the constructor: the ``"sample_shard"``
-backend (ROADMAP.md, 'Modules to port', item 6).
+branch does (the config's ``budget`` passed on).  ``"sample_shard"``
+takes the same branch (``dist.sample``): each ``run`` sends every rank
+its rows and builds its panel of K again.  The session starts its
+``repro_torch.dist.World`` (V ranks for ``shard_map``,
+``backend_options["n_shards"]`` or the default count for
+``sample_shard``) at the first ``run`` and keeps it across runs (a
+``backend_options["world"]`` is used instead); ``close`` stops it, as
+does garbage collection.
 """
 from __future__ import annotations
 
@@ -76,9 +77,10 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.api import backends, evaluate
 from repro_torch.api.solvers import (SolverConfig, _as_solver_config,
-                                     _check_ported, effective_backend)
+                                     effective_backend)
 from repro_torch.core import dtsvm as core
 from repro_torch.core import dtsvm_dist
+from repro_torch.dist import sharding
 from repro_torch.engine import plan as engine_plan
 from repro_torch.net import elastic
 from repro_torch.net import meter
@@ -105,7 +107,6 @@ class OnlineSession:
                  active=None, couple=None, X_test=None, y_test=None,
                  jit: bool = False, log=None, device=None, **overrides):
         self.config = _as_solver_config(config, overrides)
-        _check_ported(self.config)
         self.device = dev = device_lib.resolve(device)
         on_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
         self._X = on_dev(_numpy(X))
@@ -139,7 +140,8 @@ class OnlineSession:
         self._net_fabric = None
         self._net_state = None
         self._net_series = []
-        #: the shard_map backend's rank world, started at the first run
+        #: the shard_map or sample_shard backend's rank world, started at
+        #: the first run
         self._world = None
         #: the fabric's cumulative byte accounting; a vmap session has none
         self.net_report_: Optional[dict] = None
@@ -398,8 +400,9 @@ class OnlineSession:
             was_dirty = self._masks_dirty
             old_active = (None if self._plan is None
                           else self._plan.prob.active.cpu().numpy())
-            # vmap and async run the session's plan; shard_map compiles
-            # per call in its ranks (the reference's plan-less branch)
+            # vmap and async run the session's plan; shard_map and
+            # sample_shard compile per call in their ranks (the
+            # reference's plan-less branch)
             plan = (self._current_plan() if backend in ("vmap", "async")
                     else None)
             prob = plan.prob if plan is not None else self.problem()
@@ -412,7 +415,7 @@ class OnlineSession:
                 if cfg.budget is not None:
                     options.setdefault("budget", cfg.budget)
                 if "world" not in options:
-                    options["world"] = self._node_world()
+                    options["world"] = self._rank_world(backend)
             if backend == "async":
                 options.update(self._async_net_kwargs(was_dirty,
                                                       old_active, plan))
@@ -455,10 +458,19 @@ class OnlineSession:
         self.history.append(hist)
         return hist.copy()
 
-    def _node_world(self):
-        """The session's rank world (shard_map), started once."""
+    def _rank_world(self, backend: str):
+        """The session's rank world, started once: one rank per node
+        (shard_map), or the sample world of ``n_shards`` ranks
+        (sample_shard)."""
         if self._world is None or self._world.closed:
-            self._world = dtsvm_dist.make_node_world(self.V, self.device)
+            if backend == "sample_shard":
+                self._world = sharding.make_sample_world(
+                    self._X.shape[2],
+                    self.config.backend_options.get("n_shards"),
+                    device=self.device)
+            else:
+                self._world = dtsvm_dist.make_node_world(self.V,
+                                                         self.device)
         return self._world
 
     def close(self) -> None:

@@ -10,8 +10,8 @@ All three implement the ``Solver`` protocol.  ``SolverConfig`` keeps the
 reference's fields and names, so a ``to_dict()`` dict means the same
 thing in both packages.  The device is not part of the config: it goes
 to the solver's constructor or to ``fit`` (``None`` means ``"cuda"``;
-``repro_torch.device``).  Options the port does not have yet raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them.
+``repro_torch.device``).  Every backend of the reference runs:
+``"vmap"``, ``"async"``, ``"shard_map"`` and ``"sample_shard"``.
 A hyper-parameter grid runs as one batched fit through
 ``repro_torch.api.sweep_fit``.  ``SolverConfig(net=NetConfig(...))``
 routes a DTSVM or DSVM fit through the communication fabric
@@ -52,10 +52,12 @@ class SolverConfig:
     applies it as Z (a (Z^T lam)); ``pallas_fused_multi`` and f32 only).
     budget: a ``PlanBudget`` that streams the K build through bounded row
     panels (the large-n path).  box_scale: the paper's multiplier on C
-    (auto: V*T).  backend: ``"vmap"`` or ``"async"`` (the ones ported so
-    far).  net: a ``repro_torch.net.NetConfig``, the communication model;
-    it routes the default backend to ``"async"`` (the identity
-    ``NetConfig()`` gives the vmap trajectory bitwise, metered).
+    (auto: V*T).  backend: ``"vmap" | "async" | "shard_map" |
+    "sample_shard"`` (``api.backends``), with ``backend_options`` passed
+    to it (e.g. ``{"n_shards": 4, "reduce": "psum"}``).  net: a
+    ``repro_torch.net.NetConfig``, the communication model; it routes
+    the default backend to ``"async"`` (the identity ``NetConfig()``
+    gives the vmap trajectory bitwise, metered).
     telemetry: collect the per-iteration convergence streams
     (``repro_torch.obs``) into ``telemetry_``; the state stays bitwise
     the telemetry-off fit's.
@@ -147,14 +149,6 @@ def effective_backend(cfg: SolverConfig) -> str:
     return cfg.backend
 
 
-def _check_ported(cfg: SolverConfig) -> None:
-    """Raise on the options the port does not have yet: the backends
-    other than ``"vmap"`` and ``"async"``."""
-    # raises on the backends still to port, and (effective_backend) on a
-    # net with a backend other than "async", as the reference does
-    backends.get(effective_backend(cfg))
-
-
 @runtime_checkable
 class Solver(Protocol):
     """What every solver exposes; see the module doc for the data layout."""
@@ -226,7 +220,6 @@ class _ConsensusSolver:
         enter / leave / crash / recover events over the fit, an
         async-backend feature."""
         cfg = self.config
-        _check_ported(cfg)
         backend, options = effective_backend(cfg), dict(cfg.backend_options)
         if membership is not None:
             if backend != "async":

@@ -119,9 +119,12 @@ def sweep_fit(X, y, cfgs: Sequence, mask=None, adj=None, *,
     hyper-parameters a mapping config leaves out and supplies the statics
     (a ``SolverConfig`` config sets all six scalars itself).  ``chain``
     runs the grid in order with warm starts (config s starts from config
-    s-1's final state).  ``backend``: ``"vmap"`` (default); ``"shard_map"``
-    is not ported yet.  ``base.budget`` (a ``PlanBudget``) streams the
-    stacked (S, V, T, N, N) Gram build through bounded row panels.
+    s-1's final state).  ``backend``: ``"vmap"`` (default) or
+    ``"shard_map"``, the configs (with ``backend_options["node_axis"]``
+    also the nodes) tiled over the ranks of a world
+    (``SweepPlan.run_sharded``; final states only, no history).
+    ``base.budget`` (a ``PlanBudget``) streams the stacked (S, V, T, N,
+    N) Gram build through bounded row panels.
     """
     base, cfgs = _split_grid(cfgs, base)
     dev = device_lib.resolve(device)

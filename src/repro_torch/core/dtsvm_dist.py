@@ -8,7 +8,9 @@ keeps its samples and exchanges decision variables), and the neighbor sum
 is a collective:
 
 - ``topology="graph"``: one ``all_gather`` of the rank's (1, T, 2p+2)
-  block, then its adjacency row (a (1, V) by (V, T·D) product);
+  block, then its adjacency row (its row of a (V, V) by (V, T·D)
+  product whose other rows are zero, so that it sums in the single-host
+  product's order);
 - ``topology="ring"``: two point-to-point exchanges with the ring
   neighbors (``dist.batch_isend_irecv``), the reference's two
   ``ppermute``s: only neighbor traffic moves.  It assumes the graph is
@@ -22,7 +24,9 @@ being its adjacency row times the global ``active`` table, and then runs
 on one device), and gloo moves host tensors: on the card each neighbor
 sum copies the block to pinned host memory, runs the collective there
 and copies the result back.  A rank counts its neighbor sums (two per
-ADMM iteration: the f-term and the beta update) and those copies.
+ADMM iteration: the f-term and the beta update) and those copies; the
+staging, the counters and ``world_stats`` (re-exported here) live in
+``dist.collectives``, which the other rank backends share.
 
 A rank receives its node's rows ``X[v]``, ``y[v]``, ``mask[v]``,
 ``active[v]``, ``couple[v]`` and ``adj[v]``, the global ``active`` table
@@ -43,7 +47,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import dtsvm
+from repro_torch.dist import collectives
 from repro_torch.dist import world as world_lib
+from repro_torch.dist.collectives import world_stats  # noqa: F401
 
 TOPOLOGIES = ("graph", "ring")
 _SCALARS = ("C", "eps1", "eps2", "eta1", "eta2", "box_scale")
@@ -69,61 +75,48 @@ def check_topology(topology: str) -> None:
 # ---------------------------------------------------------------------------
 # rank side
 # ---------------------------------------------------------------------------
-def _exchange_counts(ctx) -> dict:
-    return ctx.store.setdefault("exchange", {"nbr_sums": 0,
-                                             "host_copies": 0})
-
-
-def _nbr_reduce_for(adjf: torch.Tensor, topology: str) -> Callable:
-    """The calling rank's collective neighbor sum of a (1, T, D) block:
-    ``adjf`` is its (1, V) float adjacency row."""
+def _nbr_reduce_for(adjf: torch.Tensor, topology: str,
+                    group=None) -> Callable:
+    """The calling rank's collective neighbor sum of a (..., 1, T, D)
+    block: ``adjf`` is its (1, V) float adjacency row over the members of
+    ``group`` (``(ranks, process group)``; None: the whole world, one rank
+    per node).  Leading axes (a sweep rank's configs) ride along."""
     import torch.distributed as dist
 
-    ctx = world_lib.context()
-    dev, n, rank = adjf.device, ctx.size, ctx.rank
-    counts = _exchange_counts(ctx)
-    staged = dev.type != "cpu"           # gloo moves host tensors
-
-    def host(shape) -> torch.Tensor:
-        return torch.empty(shape, dtype=torch.float32, pin_memory=staged)
-
-    def down(arr: torch.Tensor) -> torch.Tensor:
-        if not staged:
-            return arr.contiguous()
-        buf = host(arr.shape)
-        buf.copy_(arr)
-        counts["host_copies"] += 1
-        return buf
-
-    def up(t: torch.Tensor) -> torch.Tensor:
-        if not staged:
-            return t
-        counts["host_copies"] += 1
-        return t.to(dev)
+    ranks, pg = collectives.members(group)
+    n, me = len(ranks), ranks.index(world_lib.context().rank)
+    counts = collectives.exchange_counts()
+    st = collectives.Staging(adjf.device, counts)
 
     if topology == "ring":
-        nxt, prv = (rank + 1) % n, (rank - 1) % n
+        nxt, prv = ranks[(me + 1) % n], ranks[(me - 1) % n]
 
         def nbr_reduce(arr):
             counts["nbr_sums"] += 1
             if n == 1:                   # the rank is its own two neighbors
                 return arr + arr
-            send = down(arr)
-            left, right = host(arr.shape), host(arr.shape)
-            ops = [dist.P2POp(dist.isend, send, nxt),
-                   dist.P2POp(dist.irecv, left, prv),
-                   dist.P2POp(dist.isend, send, prv),
-                   dist.P2POp(dist.irecv, right, nxt)]
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
-            return up(left + right)
+            with st.timed():
+                send = st.down(arr)
+                left, right = st.host(arr.shape), st.host(arr.shape)
+                ops = [dist.P2POp(dist.isend, send, nxt, group=pg),
+                       dist.P2POp(dist.irecv, left, prv, group=pg),
+                       dist.P2POp(dist.isend, send, prv, group=pg),
+                       dist.P2POp(dist.irecv, right, nxt, group=pg)]
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
+                return st.up(left + right)
     else:
+        # the rank's row inside an otherwise zero (n, n) adjacency: the
+        # product's row ``me`` is then computed as the single-host
+        # product computes it (a (1, n) product sums in another order)
+        pad = torch.zeros((n, n), dtype=adjf.dtype, device=adjf.device)
+        pad[me] = adjf[0]
+
         def nbr_reduce(arr):
             counts["nbr_sums"] += 1
-            send = down(arr)
-            full = host((n,) + tuple(arr.shape[1:]))
-            dist.all_gather(list(full.split(1)), send)
-            return torch.einsum("vu,utd->vtd", adjf, up(full))
+            rows = collectives.all_gather(arr, -3, group=group)
+            return torch.einsum("vu,...utd->...vtd", pad,
+                                rows)[..., me:me + 1, :, :]
     return nbr_reduce
 
 
@@ -187,25 +180,6 @@ def _rank_nbr_sum(block: np.ndarray, adj_row: np.ndarray,
     adjf = torch.from_numpy(adj_row).to(ctx.device, torch.float32)
     reduce = _nbr_reduce_for(adjf, topology)
     return reduce(torch.from_numpy(block).to(ctx.device)).cpu().numpy()
-
-
-def _rank_stats(reset: bool) -> dict:
-    from repro_torch.kernels import ops
-
-    ctx = world_lib.context()
-    cuda = ctx.device.type == "cuda"
-    out = {"rank": ctx.rank, "device": str(ctx.device),
-           "launches": ops.launch_counts(),
-           "peak_mem_bytes": (torch.cuda.max_memory_allocated(ctx.device)
-                              if cuda else None),
-           **_exchange_counts(ctx),
-           "received": ctx.store.get("received")}
-    if reset:
-        ops.reset_launch_counts()
-        if cuda:
-            torch.cuda.reset_peak_memory_stats(ctx.device)
-        ctx.store["exchange"] = {"nbr_sums": 0, "host_copies": 0}
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -358,11 +332,3 @@ def neighbor_sum(world: world_lib.World, arr: torch.Tensor, adj,
         (rows[v:v + 1].copy(), adj[v:v + 1].copy(), topology)
         for v in range(world.size)])
     return torch.from_numpy(np.concatenate(out)).to(arr.device)
-
-
-def world_stats(world: world_lib.World, reset: bool = False) -> list:
-    """Per rank: its device, its hand-kernel launches, its peak device
-    memory (None on the CPU), its neighbor sums and host copies since the
-    last reset, and the shapes of the node payload it last received.
-    ``reset=True`` sets the counters and the peak to 0 after reading."""
-    return world.run_all(_rank_stats, reset)

@@ -27,10 +27,17 @@ The parent drives the ranks with :meth:`World.run`: ``fn(*args)`` runs in
 every rank (``fn`` a module-level function, pickled by name; ``args`` one
 tuple per rank), and the results come back in rank order.  Inside a rank
 :func:`context` is the rank's :class:`RankContext`: its rank, the world's
-size, its device, and a dict that keeps objects between calls (a node's
-compiled plan).  Only numpy arrays and plain Python values should cross
-the pipes: a tensor would travel by shared memory (a CUDA tensor by IPC,
-and the rank would then map the parent's allocation).
+size, its device, the sub-groups it belongs to, and a dict that keeps
+objects between calls (a node's compiled plan).
+
+A world may carry sub-groups (``groups=``: lists of ranks, e.g. the node
+rows of a 2-D sweep): every rank calls ``dist.new_group`` for every group,
+in the order given, once, right after it joins, as gloo requires of a
+group's creation; a rank that hangs there ends in the world's timeout.
+
+Only numpy arrays and plain Python values should cross the pipes: a
+tensor would travel by shared memory (a CUDA tensor by IPC, and the rank
+would then map the parent's allocation).
 
 Failure never hangs the parent: every wait has ``timeout``.  If a rank
 raises, the parent kills every rank and raises :class:`RankError` with
@@ -68,12 +75,22 @@ class RankError(RuntimeError):
 class RankContext:
     """What a rank knows about itself (see :func:`context`)."""
 
-    def __init__(self, rank: int, size: int, device: torch.device):
+    def __init__(self, rank: int, size: int, device: torch.device,
+                 groups: tuple = ()):
         self.rank = rank
         self.size = size
         self.device = device
+        #: ``(ranks, process group)`` of every sub-group the rank is in
+        self.groups = groups
         #: objects a rank keeps between calls
         self.store: dict = {}
+
+    def group(self):
+        """``(ranks, process group)`` of the rank's first sub-group, or
+        ``(all ranks, None)`` (the whole world) in a world without one."""
+        if self.groups:
+            return self.groups[0]
+        return tuple(range(self.size)), None
 
 
 _CONTEXT: Optional[RankContext] = None
@@ -87,7 +104,7 @@ def context() -> RankContext:
 
 
 def _rank_main(rank: int, size: int, init_file: str, device: str,
-               timeout_s: float, conn) -> None:
+               timeout_s: float, groups: tuple, conn) -> None:
     """A rank's process: join the group, then run what the parent sends
     until it sends None (or goes away)."""
     global _CONTEXT
@@ -105,7 +122,12 @@ def _rank_main(rank: int, size: int, init_file: str, device: str,
         dist.init_process_group(
             "gloo", init_method="file://" + init_file, rank=rank,
             world_size=size, timeout=datetime.timedelta(seconds=timeout_s))
-        _CONTEXT = RankContext(rank, size, dev)
+        mine = []
+        for ranks in groups:             # every rank, every group, in order
+            pg = dist.new_group(list(ranks))
+            if rank in ranks:
+                mine.append((tuple(ranks), pg))
+        _CONTEXT = RankContext(rank, size, dev, tuple(mine))
     except Exception:
         conn.send(("err", traceback.format_exc()))
         return
@@ -151,14 +173,22 @@ def _stop(procs, conns, tmpdir: str) -> None:
 
 class World:
     """``size`` spawned ranks in one gloo process group, every rank on
-    ``device`` (None means ``"cuda"``, i.e. ``cuda:0``).  See the module
-    doc.  Usable as a context manager; ``start_seconds`` is how long the
-    ranks took to start and join."""
+    ``device`` (None means ``"cuda"``, i.e. ``cuda:0``), with the
+    sub-groups ``groups`` (lists of ranks).  See the module doc.  Usable
+    as a context manager; ``start_seconds`` is how long the ranks took to
+    start and join."""
 
     def __init__(self, size: int, *, device=None,
-                 timeout: float = DEFAULT_TIMEOUT_S):
+                 timeout: float = DEFAULT_TIMEOUT_S,
+                 groups: Sequence[Sequence[int]] = ()):
         if int(size) < 1:
             raise ValueError(f"a world needs at least one rank, got {size}")
+        groups = tuple(tuple(int(r) for r in g) for g in groups)
+        for g in groups:
+            if not g or len(set(g)) != len(g) or \
+                    not all(0 <= r < int(size) for r in g):
+                raise ValueError(f"group {list(g)} is not a set of ranks of "
+                                 f"a world of {size}")
         dev = torch.device("cuda" if device is None else device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", 0)
@@ -167,6 +197,8 @@ class World:
         self.size = int(size)
         self.device = dev
         self.timeout = float(timeout)
+        #: the sub-groups, as given
+        self.groups = groups
         self._closed = False
         t0 = time.perf_counter()
         if dev.type == "cuda":
@@ -185,7 +217,7 @@ class World:
                     target=_rank_main, daemon=True,
                     args=(rank, self.size,
                           os.path.join(tmpdir, "rendezvous"), str(dev),
-                          self.timeout, theirs))
+                          self.timeout, groups, theirs))
                 proc.start()
                 theirs.close()
                 self._procs.append(proc)
@@ -275,4 +307,6 @@ class World:
 
     def __repr__(self):
         state = "closed" if self._closed else "open"
-        return f"World(size={self.size}, device={self.device}, {state})"
+        groups = f", groups={len(self.groups)}" if self.groups else ""
+        return (f"World(size={self.size}, device={self.device}{groups}, "
+                f"{state})")

@@ -9,12 +9,12 @@ from repro_torch.engine.invariants import (PlanBudget, PlanInvariants,
 from repro_torch.engine.plan import (DEFAULT_QP_SOLVER, Plan,
                                      compile_problem, plan_step)
 from repro_torch.engine.sweep import (SweepPlan, compile_sweep,
-                                      make_sweep_mesh, per_config_problems)
+                                      make_sweep_world, per_config_problems)
 
 __all__ = [
     "DEFAULT_QP_SOLVER", "Plan", "PlanBudget", "PlanInvariants",
     "SweepPlan", "compile_problem", "compile_sweep", "compute_invariants",
-    "compute_z", "gram_and_lipschitz", "make_sweep_mesh",
+    "compute_z", "gram_and_lipschitz", "make_sweep_world",
     "per_config_problems", "plan_step", "qp_engines", "sweep",
     "update_invariants",
 ]

@@ -28,7 +28,9 @@ computed in the roles the square kernel gives it).  L is the same row
 sums' maximum, but a panel's row sums may be reduced in another order
 than the dense pass's, so it is held within rounding, not bitwise.
 ``materialize_k=False`` (the factored operator) keeps no K at all: the
-panels are row-summed and discarded.
+panels are row-summed and discarded.  ``streamed_gram_panel`` also builds
+a band of rows alone (``row0=``, ``rows=``): a sample-sharded rank's
+panel of K (``repro_torch.dist.sample``).
 
 ``update_invariants`` is the incremental path behind ``Plan.replan``: a
 change to ``active``/``couple`` recomputes the counts, u, a and the box,
@@ -128,35 +130,46 @@ def _row_starts(M: int, chunk: int):
 
 
 def _panel_rowsums(Z: torch.Tensor, a: torch.Tensor, chunk: int,
-                   K: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Per-row |K| sums of K = Z diag(a) Z^T, built ``chunk`` rows at a
-    time.  Z: (B, N, D), a: (B, D) -> (B, N).  Each panel is one launch
-    over the whole batch, written into its rows of ``K`` (B, N, N) when
-    given, else into one reused (B, chunk, N) buffer and discarded."""
+                   K: Optional[torch.Tensor] = None, *, row0: int = 0,
+                   rows: Optional[int] = None) -> torch.Tensor:
+    """Per-row |K| sums of the rows [row0, row0 + M) of K = Z diag(a) Z^T
+    (M = ``rows``, default all N), built ``chunk`` rows at a time.
+    Z: (B, N, D), a: (B, D) -> (B, M).  Each panel is one launch over the
+    whole batch, written into its rows of ``K`` (B, M, N) when given, else
+    into one reused (B, chunk, N) buffer and discarded."""
     B, N, _ = Z.shape
-    rs = torch.empty((B, N), dtype=torch.float32, device=Z.device)
+    M = N if rows is None else int(rows)
+    rs = torch.empty((B, M), dtype=torch.float32, device=Z.device)
     for start, Kc in kops.weighted_gram_panels(
-            Z, a, _row_starts(N, chunk), chunk, out=K):
+            Z, a, _row_starts(M, chunk), chunk, out=K, row0=row0):
         rs[:, start:start + chunk] = Kc.abs().sum(-1)
     return rs
 
 
-def streamed_gram_panel(Z: torch.Tensor, a: torch.Tensor,
-                        chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K = Z diag(a) Z^T built ``chunk`` rows at a time, plus the per-row
-    |K| sums from the same pass.
+def streamed_gram_panel(Z: torch.Tensor, a: torch.Tensor, chunk: int, *,
+                        row0: int = 0, rows: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rows [row0, row0 + M) of K = Z diag(a) Z^T (M = ``rows``,
+    default all N: the square K) built ``chunk`` rows at a time, plus
+    their per-row |K| sums from the same pass.
 
-    Z: (..., N, D), a: (..., D) -> ``(K (..., N, N), rowsums (..., N))``.
-    Each panel is one launch over the whole batch into its rows of one
-    preallocated K, so the live set is K plus one (batch, chunk, N)
-    |panel|.
+    Z: (..., N, D), a: (..., D) -> ``(K (..., M, N), rowsums (..., M))``.
+    The reference's ``streamed_gram_panel(Zm, a, Zn, chunk, tile)`` is
+    only ever called with ``Zm`` rows of ``Zn``; the port takes Z and the
+    row range (see ``kernels.ops.weighted_gram_rows``).  Each panel is one
+    launch over the whole batch into its rows of one preallocated panel,
+    the last one's start clamped inside the M rows, so the live set is
+    the panel plus one (batch, chunk, N) |panel|.  A sample-sharded rank
+    streams its row panel this way.
     """
     batch, (N, D) = Z.shape[:-2], Z.shape[-2:]
+    M = N if rows is None else int(rows)
     Zf = Z.reshape(-1, N, D)
-    K = torch.empty((Zf.shape[0], N, N), dtype=torch.float32,
+    K = torch.empty((Zf.shape[0], M, N), dtype=torch.float32,
                     device=Z.device)
-    rs = _panel_rowsums(Zf, a.reshape(-1, D), min(int(chunk), N), K)
-    return K.reshape(batch + (N, N)), rs.reshape(batch + (N,))
+    rs = _panel_rowsums(Zf, a.reshape(-1, D), min(int(chunk), M), K,
+                        row0=row0, rows=M)
+    return K.reshape(batch + (M, N)), rs.reshape(batch + (M,))
 
 
 def streamed_lipschitz(Z: torch.Tensor, a: torch.Tensor,

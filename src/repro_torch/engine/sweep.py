@@ -30,18 +30,31 @@ batched products (tests/test_torch_sweep.py).
     plan = compile_sweep(prob, cfgs, qp_iters=..., qp_solver=...)
     states, hist = plan.run(iters=60, eval_fn=ev)       # the whole grid
     states, hist = plan.run_chain(iters=60)             # warm-start chain
+    states = plan.run_sharded(60)                       # configs over ranks
 
-``run_sharded`` and ``make_sweep_mesh`` (configs across devices) are not
-ported yet.
+``run_sharded`` tiles the config axis over the ranks of a
+``repro_torch.dist.World`` (``make_sweep_world``), alone (1-D) or beside
+the node axis (2-D: a row of V ranks per config block, the neighbor sums
+collectives over the row).  Each rank compiles its own sub-sweep with
+``compile_sweep(..., nbr_counts=)``, so K never crosses a pipe: a rank
+is sent the base problem's data (2-D: its node's rows, adjacency row and
+the global ``active`` of its configs) and its configs, and builds its K
+with the square Gram kernel (tiled panels under the sweep's budget).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core import dtsvm as core
+from repro_torch.core import dtsvm_dist
+from repro_torch.core.dtsvm_dist import _host
+from repro_torch.dist import world as world_lib
+from repro_torch.dist.sharding import (DEFAULT_RANKS, check_tiling,
+                                       largest_divisor_leq, make_sweep_world)
 from repro_torch.engine import invariants as inv_lib
 from repro_torch.engine import qp_engines
 from repro_torch.engine.plan import DEFAULT_QP_SOLVER, Plan, plan_step
@@ -50,10 +63,6 @@ from repro_torch.engine.plan import DEFAULT_QP_SOLVER, Plan, plan_step
 # the ``active`` / ``couple`` masks may also vary per config.
 SWEEP_FIELDS = ("C", "eps1", "eps2", "eta1", "eta2", "box_scale")
 _MASK_FIELDS = ("active", "couple")
-
-_NOT_PORTED_SHARDED = ("sweeps across devices are not ported yet: "
-                       "ROADMAP.md, 'Modules to port', item 6 "
-                       "(multi-device backends)")
 
 
 def _overrides_of(cfg) -> dict:
@@ -197,9 +206,58 @@ class SweepPlan:
             return states, None
         return states, torch.stack(hists, 1)        # (iters, S, ...)
 
-    def run_sharded(self, iters: int, **_options):
-        """Configs tiled across devices: not ported yet."""
-        raise NotImplementedError(_NOT_PORTED_SHARDED)
+    def run_sharded(self, iters: int, *,
+                    world: Optional[world_lib.World] = None,
+                    n_sweep: Optional[int] = None, node_axis=None,
+                    topology: str = "graph",
+                    state: Optional[core.DTSVMState] = None
+                    ) -> core.DTSVMState:
+        """Tile the config axis over the ranks of a world, or with
+        ``node_axis`` (any name: the reference's mesh axis) the configs
+        beside the nodes on a 2-D world of ``n_sweep`` rows of V ranks,
+        the neighbor sums collectives over each row (``topology="graph"
+        | "ring"``, as ``core.dtsvm_dist``).  ``world`` (from
+        :func:`make_sweep_world`) is used as it is; else one of
+        ``n_sweep`` rows (default: the largest divisor of S that is at
+        most 4) is started on the plan's device and closed after.  Each
+        rank compiles its configs' sub-sweep and runs ``iters``
+        iterations of the step with the plan's QP engine.  Returns the
+        final stacked states; per-iteration histories stay a single-host
+        feature, as in the reference."""
+        dtsvm_dist.check_topology(topology)
+        S, V = self.n_configs, self.base.X.shape[0]
+        dev = self.base.X.device
+        if world is not None:
+            rows = _world_rows(world, V, node_axis)
+            if n_sweep is not None and int(n_sweep) != rows:
+                raise ValueError(f"a world of {rows} sweep rows for "
+                                 f"n_sweep={n_sweep}")
+            if world.device.type != dev.type:
+                raise ValueError(f"the world's ranks run on {world.device}, "
+                                 f"the sweep is on {dev}")
+            n_sweep = rows
+        elif n_sweep is None:
+            n_sweep = largest_divisor_leq(S, DEFAULT_RANKS)
+        check_tiling(S, int(n_sweep), "configs", "sweep")
+        if state is None:
+            state = self.init_state()
+        payloads = (_sweep_payloads_2d(self, int(n_sweep), state)
+                    if node_axis is not None
+                    else _sweep_payloads_1d(self, int(n_sweep), state))
+        kw = dict(qp_iters=self.qp_iters, qp_solver=self.qp_solver,
+                  budget=self.budget, topology=topology)
+        own = world is None
+        with (make_sweep_world(S, V if node_axis is not None else None,
+                               n_sweep=n_sweep, device=dev)
+              if own else contextlib.nullcontext(world)) as w:
+            outs = w.run(_rank_sweep, [(pl, kw, int(iters))
+                                       for pl in payloads])
+        if node_axis is not None:          # rank s*V + v: row s, node v
+            outs = [tuple(np.concatenate(leaf, 1) for leaf in
+                          zip(*outs[s * V:(s + 1) * V]))
+                    for s in range(int(n_sweep))]
+        return core.DTSVMState(*(torch.from_numpy(np.concatenate(leaf))
+                                 .to(dev) for leaf in zip(*outs)))
 
     def config_plan(self, s: int) -> Plan:
         """The serial ``Plan`` of config ``s``, on this sweep's invariant
@@ -212,14 +270,116 @@ class SweepPlan:
                     qp_solver=self.qp_solver, budget=self.budget)
 
 
-def make_sweep_mesh(n_configs: int, n_nodes: Optional[int] = None, **_kw):
-    """A device mesh for configs (and nodes): not ported yet."""
-    raise NotImplementedError(_NOT_PORTED_SHARDED)
+def _world_rows(world: world_lib.World, V: int, node_axis) -> int:
+    """The sweep rows of a given world: its ranks (1-D), or its node
+    groups, each of V ranks (2-D)."""
+    if node_axis is None:
+        return world.size
+    g = len(world.groups[0]) if world.groups else 0
+    if not g or any(len(r) != g for r in world.groups) \
+            or len(world.groups) * g != world.size:
+        raise ValueError(
+            f"{world!r} has no node groups of one size covering it; pass "
+            f"a 2-D world (make_sweep_world(n_configs, V))")
+    if V % g:
+        raise ValueError(f"{V} nodes do not tile evenly over {g} "
+                         f"'{node_axis}' devices")
+    if g != V:
+        raise ValueError(f"node groups of {g} ranks for {V} nodes: the 2-D "
+                         f"sweep runs one rank per node")
+    return len(world.groups)
+
+
+def _config_fields(plan: SweepPlan) -> list:
+    """Every config as a complete override dict (its six scalars as
+    floats, its masks as numpy), read back from its problem."""
+    return [{**{k: float(getattr(pc, k)) for k in SWEEP_FIELDS},
+             "active": _host(pc.active), "couple": _host(pc.couple)}
+            for pc in plan.config_problems]
+
+
+def _base_part(prob: core.DTSVMProblem, v=None) -> dict:
+    """The base problem as numpy: whole, or node v's rows (its adjacency
+    row as ``adj``)."""
+    sl = slice(None) if v is None else slice(v, v + 1)
+    return dict(X=_host(prob.X)[sl].copy(), y=_host(prob.y)[sl].copy(),
+                mask=_host(prob.mask)[sl].copy(),
+                adj=_host(prob.adj)[sl].copy(),
+                active=_host(prob.active)[sl].copy(),
+                couple=_host(prob.couple)[sl].copy(),
+                **{k: float(getattr(prob, k)) for k in SWEEP_FIELDS})
+
+
+def _sweep_payloads_1d(plan: SweepPlan, n_sweep: int, state) -> list:
+    """Rank s: the base problem and configs [s S/n, (s+1) S/n) with
+    their state rows."""
+    Sl, cfgs = plan.n_configs // n_sweep, _config_fields(plan)
+    base, leaves = _base_part(plan.base), [_host(t) for t in state]
+    return [dict(base=base, cfgs=cfgs[s * Sl:(s + 1) * Sl],
+                 state=tuple(a[s * Sl:(s + 1) * Sl].copy() for a in leaves))
+            for s in range(n_sweep)]
+
+
+def _sweep_payloads_2d(plan: SweepPlan, n_sweep: int, state) -> list:
+    """Rank s*V + v: node v's rows of the base problem, its adjacency
+    row, its configs' masks at node v and their global ``active`` (the
+    neighbor counts), and node v's state rows of those configs."""
+    V = plan.base.X.shape[0]
+    Sl, cfgs = plan.n_configs // n_sweep, _config_fields(plan)
+    leaves = [_host(t) for t in state]
+    out = []
+    for s in range(n_sweep):
+        mine = cfgs[s * Sl:(s + 1) * Sl]
+        act = np.stack([c["active"] for c in mine])          # (Sl, V, T)
+        for v in range(V):
+            out.append(dict(
+                base=_base_part(plan.base, v), active_global=act,
+                cfgs=[{**c, "active": c["active"][v:v + 1].copy(),
+                       "couple": c["couple"][v:v + 1].copy()}
+                      for c in mine],
+                state=tuple(a[s * Sl:(s + 1) * Sl, v:v + 1].copy()
+                            for a in leaves)))
+    return out
+
+
+def _rank_sweep(payload: dict, kw: dict, iters: int) -> tuple:
+    """A sweep rank: compile its sub-sweep, run ``iters`` iterations from
+    its state rows, return the final rows (numpy)."""
+    ctx = world_lib.context()
+    dev = ctx.device
+    b = payload["base"]
+    ctx.store["received"] = {
+        k: tuple(v.shape) for part in (b, payload)
+        for k, v in part.items() if isinstance(v, np.ndarray)}
+    t = lambda a, dtype=torch.float32: torch.from_numpy(  # noqa: E731
+        np.asarray(a)).to(dev, dtype)
+    prob = core.DTSVMProblem(
+        X=t(b["X"]), y=t(b["y"]), mask=t(b["mask"]),
+        adj=t(b["adj"], torch.bool),
+        **{k: torch.tensor(b[k], dtype=torch.float32, device=dev)
+           for k in SWEEP_FIELDS},
+        active=t(b["active"]), couple=t(b["couple"]))
+    nbr_counts, nbr_reduce = None, None
+    if "active_global" in payload:                         # 2-D
+        adjf = prob.adj.to(torch.float32)                  # (1, V)
+        nbr_counts = torch.einsum("vu,sut->svt", adjf,
+                                  t(payload["active_global"]))
+        nbr_reduce = dtsvm_dist._nbr_reduce_for(adjf, kw["topology"],
+                                                group=ctx.group())
+    plan = compile_sweep(prob, payload["cfgs"], qp_iters=kw["qp_iters"],
+                         qp_solver=kw["qp_solver"], budget=kw["budget"],
+                         nbr_counts=nbr_counts)
+    st = core.DTSVMState(*(t(a) for a in payload["state"]))
+    for _ in range(iters):
+        st = plan_step(plan.prob, plan.inv, st, qp_iters=plan.qp_iters,
+                       qp_solver=plan.qp_solver, nbr_reduce=nbr_reduce)
+    return tuple(_host(x) for x in st)
 
 
 def compile_sweep(prob: core.DTSVMProblem, cfgs: Sequence, *,
                   qp_iters: Optional[int] = None,
                   qp_solver: Optional[str] = None,
+                  nbr_counts: Optional[torch.Tensor] = None,
                   budget: Optional[inv_lib.PlanBudget] = None) -> SweepPlan:
     """Compile S hyper-parameter configs over ``prob``'s data into one
     ``SweepPlan``.
@@ -227,10 +387,13 @@ def compile_sweep(prob: core.DTSVMProblem, cfgs: Sequence, *,
     ``cfgs``: override mappings (keys among ``SWEEP_FIELDS`` and
     ``active``/``couple``) or SolverConfig-like objects; their statics
     (``qp_iters``, ``qp_solver``) must agree, and ``qp_iters`` /
-    ``qp_solver`` set them explicitly.  ``budget``: a ``PlanBudget`` for
-    the stacked (S, V, T, N, N) K build, S times a single fit's K; a
-    binding budget streams it through tiled-kernel row panels over all
-    S*V*T problems, bitwise the dense stacked K.
+    ``qp_solver`` set them explicitly.  ``nbr_counts``: the (V, T)
+    active-neighbor counts precomputed, for every config, or (S, V, T),
+    one table per config (a 2-D sweep rank holds one adjacency row and
+    counts against each config's global ``active``).  ``budget``: a
+    ``PlanBudget`` for the stacked (S, V, T, N, N) K build, S times a
+    single fit's K; a binding budget streams it through tiled-kernel row
+    panels over all S*V*T problems, bitwise the dense stacked K.
     """
     qp_iters, qp_solver = _check_static(cfgs, qp_iters, qp_solver)
     qp_engines.get(qp_solver)            # fail fast on unknown engines
@@ -256,7 +419,7 @@ def compile_sweep(prob: core.DTSVMProblem, cfgs: Sequence, *,
         couple=torch.stack([pc.couple for pc in probs]))
     # elementwise per config, and counts exact in f32: each config's slice
     # is bitwise its serial plan's
-    ntp, nbr, u, a, hi = inv_lib._masks_part(sweep_prob)
+    ntp, nbr, u, a, hi = inv_lib._masks_part(sweep_prob, nbr_counts)
     Z = inv_lib.compute_z(prob)
     K, L = inv_lib.gram_and_lipschitz(Z, a, budget)   # Z shared under a
     inv = inv_lib.PlanInvariants(ntp=ntp, nbr=nbr, u=u, a=a, Z=Z, K=K,

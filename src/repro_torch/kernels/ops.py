@@ -9,6 +9,7 @@ where the reference maps a one-problem kernel over them.
 """
 from __future__ import annotations
 
+import math
 from typing import Iterator, Optional, Tuple
 
 import torch
@@ -66,29 +67,63 @@ def weighted_gram(Z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return K.reshape(batch + (N, N))
 
 
+def weighted_gram_rows(Z: torch.Tensor, a: torch.Tensor, row0: int,
+                       rows: int) -> torch.Tensor:
+    """Rows [row0, row0 + rows) of K = Z diag(a) Z^T over leading batch
+    dims: Z (..., N, D), a (..., D) -> (..., rows, N).  A sample-sharded
+    rank's panel of K.
+
+    The reference's ``weighted_gram_rows(Zm, a, Zn)`` takes any two
+    operands, but every caller there passes a ``Zm`` that is rows of
+    ``Zn`` (``repro/engine/invariants.py:166,198``,
+    ``repro/api/backends.py:372``); the port takes Z and the row range, so
+    a panel that is not rows of Z cannot be asked for (a range outside Z's
+    N rows raises).  On the card Z is prescaled once and one launch of the
+    tiled kernel builds the panel over the whole batch, bitwise those rows
+    of :func:`weighted_gram`'s K."""
+    Z = broadcast_z(Z, a)
+    if a.ndim - 1 < Z.ndim - 2:
+        a = a.expand(Z.shape[:-2] + a.shape[-1:])
+    batch, (N, D) = Z.shape[:-2], Z.shape[-2:]
+    rows = int(rows)
+    out = torch.empty((math.prod(batch), rows, N), dtype=torch.float32,
+                      device=Z.device)
+    for _ in weighted_gram_panels(Z.reshape(-1, N, D), a.reshape(-1, D),
+                                  [0], rows, out=out, row0=row0):
+        pass
+    return out.reshape(batch + (rows, N))
+
+
 def weighted_gram_panels(Z: torch.Tensor, a: torch.Tensor, starts,
-                         rows: int, *, out: Optional[torch.Tensor] = None
+                         rows: int, *, out: Optional[torch.Tensor] = None,
+                         row0: int = 0
                          ) -> Iterator[Tuple[int, torch.Tensor]]:
     """The row panels of K = Z diag(a) Z^T, one streamed step each of the
     large-n build.  Z: (B, N, D), a: (B, D).  Yields ``(start, panel)``
-    for each ``start`` in ``starts``: panel = rows [start, start + rows)
-    of K, (B, rows, N), written into ``out[:, start:start + rows]`` when
-    ``out`` (B, N, N) is given, else into one (B, rows, N) buffer that the
-    next panel overwrites.  On the card Z is prescaled once for all the
-    panels and each panel is one launch of the tiled kernel over the
+    for each ``start`` in ``starts``: panel = rows [row0 + start,
+    row0 + start + rows) of K, (B, rows, N), written into
+    ``out[:, start:start + rows]`` when ``out`` (B, M, N) is given (the
+    rows [row0, row0 + M) of K), else into one (B, rows, N) buffer that
+    the next panel overwrites.  On the card Z is prescaled once for all
+    the panels and each panel is one launch of the tiled kernel over the
     batch, bitwise those rows of :func:`weighted_gram`."""
     card = _on_card(Z, a, out)
     B, N, _ = Z.shape
+    row0 = int(row0)
+    last = row0 + max(starts, default=0) + rows
+    if row0 < 0 or last > N:
+        raise ValueError(f"rows [{row0}, {last}) are not rows of a {N}-row "
+                         f"Z: a panel of K is rows of Z diag(a) Z^T")
     buf = None if out is not None else torch.empty(
         (B, rows, N), dtype=torch.float32, device=Z.device)
     Zs = gram_kernel.prescale(Z, a) if card else None
     for start in starts:
         panel = buf if out is None else out[:, start:start + rows]
+        k0 = row0 + start
         if card:
-            gram_kernel.weighted_gram_tiled(Zs, start, panel)
+            gram_kernel.weighted_gram_tiled(Zs, k0, panel)
         else:
-            panel.copy_(ref.weighted_gram_rows(Z[:, start:start + rows], a,
-                                               Z))
+            panel.copy_(ref.weighted_gram_rows(Z[:, k0:k0 + rows], a, Z))
         yield start, panel
 
 

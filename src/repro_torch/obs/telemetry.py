@@ -40,9 +40,10 @@ The async backend adds ``bytes_round`` (the fabric's bytes per round),
 rounds) and, under a node membership, ``nodes_alive``.  The
 ``"shard_map"`` backend collects on the caller's side, from each round's
 full state as it comes back from the ranks (``api.backends``), with the
-same :meth:`Telemetry.collect`.  The reference's sample-sharded collector
-(``collect_shard_diagnostics``) comes with the ``"sample_shard"`` backend
-(ROADMAP.md, 'Modules to port', item 6).
+same :meth:`Telemetry.collect`.  The ``"sample_shard"`` backend collects
+inside its ranks with :func:`collect_shard_diagnostics`: the state
+streams from the replicated ``r``, the box-face fraction from per-rank
+partial sums combined by one all-reduce.
 """
 from __future__ import annotations
 
@@ -150,6 +151,36 @@ def collect_diagnostics(prob, hi, new_state, prev_state, *,
         lam = new_state.lam
         at_face = ((lam <= 0.0) | (lam >= hi)).to(torch.float32)
         out["qp_active_frac"] = (at_face * prob.mask).sum() / t["n_valid"]
+    return out
+
+
+def collect_shard_diagnostics(prob, hi_rows, new_state, prev_state,
+                              streams: Sequence[str], group=None
+                              ) -> Dict[str, torch.Tensor]:
+    """The sample-sharded variant of :func:`collect_diagnostics`, called
+    in every rank of a ``"sample_shard"`` world (twin of the reference's,
+    which psums over a mesh axis).
+
+    In such a rank the consensus leaves (``r``, ``active``, ``adj``) are
+    replicated while ``lam``, ``mask`` and ``hi_rows`` are the rank's row
+    panel: the state streams compute exactly as in the dense collector,
+    and ``qp_active_frac`` sums the rank's box-face and valid counts and
+    combines them over ``group`` (``(ranks, process group)``; None: the
+    whole world) with one all-reduce of the pair, so every rank holds the
+    same value.  Both sums count 0/1 values, exactly in float32.
+    """
+    from repro_torch.dist import collectives
+
+    state_streams = tuple(s for s in streams if s != "qp_active_frac")
+    out = collect_diagnostics(prob, hi_rows, new_state, prev_state,
+                              streams=state_streams)
+    if "qp_active_frac" in set(streams):
+        lam = new_state.lam
+        at_face = ((lam <= 0.0) | (lam >= hi_rows)).to(torch.float32)
+        sums = collectives.all_reduce(
+            torch.stack([(at_face * prob.mask).sum(), prob.mask.sum()]),
+            "sum", group=group)
+        out["qp_active_frac"] = sums[0] / torch.clamp_min(sums[1], 1.0)
     return out
 
 

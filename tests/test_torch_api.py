@@ -94,16 +94,6 @@ def test_solver_config_dicts_mean_the_same():
     assert SolverConfig.from_dict(cfg.to_dict()) == cfg
 
 
-@pytest.mark.parametrize("field", [
-    dict(backend="sample_shard"),
-])
-def test_options_not_ported_raise_naming_the_roadmap(field):
-    data = _tiny_data()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DTSVM(SolverConfig(iters=1, **field), device="cpu").fit(
-            data["X"], data["y"])
-
-
 def _roadmap_modules() -> dict:
     """ROADMAP.md's queue of modules to port: {item number: its title}."""
     path = os.path.join(os.path.dirname(_SRC), "ROADMAP.md")
@@ -113,19 +103,6 @@ def _roadmap_modules() -> dict:
                  text.index("### 2. ")]
     return {int(m.group(1)): m.group(2) for m in
             re.finditer(r"^(\d+)\. \*\*(.+?)\*\*", queue, re.M)}
-
-
-@pytest.mark.parametrize("field,item,title", [
-    (dict(backend="sample_shard"), 6, "multi-device"),
-])
-def test_refusals_name_the_item_roadmap_gives_them(field, item, title):
-    """Each refusal names the item of ROADMAP.md's module queue that ports
-    it, and that item is the one with that title now."""
-    assert title in _roadmap_modules()[item].lower()
-    data = _tiny_data()
-    with pytest.raises(NotImplementedError, match=rf"item {item}\b"):
-        DTSVM(SolverConfig(iters=1, **field), device="cpu").fit(
-            data["X"], data["y"])
 
 
 @pytest.mark.parametrize("solver", ["DTSVM", "DSVM"])

@@ -774,4 +774,5 @@ def test_cli_demo_defaults_to_the_card(tmp_path, monkeypatch):
 
 def test_exports_are_the_references():
     assert obs.__all__ == jobs.__all__
-    assert "collect_shard_diagnostics" not in dir(telemetry_lib)
+    # the sample-sharded collector comes with the sample_shard backend
+    assert "collect_shard_diagnostics" in dir(telemetry_lib)

@@ -329,19 +329,6 @@ def test_session_node_events_and_status_are_the_references():
     assert st["events"] == jst["events"] == []
 
 
-@pytest.mark.parametrize("field,item,title", [
-    (dict(backend="sample_shard"), 6, "multi-device"),
-])
-def test_session_refuses_what_is_not_ported_at_once(field, item, title):
-    """The constructor refuses a config the port cannot run yet, naming
-    the item of ROADMAP.md's module queue that brings it."""
-    assert title in _roadmap_modules()[item].lower()
-    data, A = _make(V=4, T=2, n=6)
-    with pytest.raises(NotImplementedError, match=rf"item {item}\b"):
-        OnlineSession(data["X"], data["y"], adj=A, device="cpu",
-                      config=SolverConfig(**field))
-
-
 @pytest.mark.parametrize("jit", [False, True])
 def test_session_collects_telemetry(jit):
     """``telemetry=True`` (ROADMAP.md item 5, observability, done) runs a

@@ -14,7 +14,7 @@ run (the gap observed is printed), and the port's files load into
 fingerprint hashes each package's own K (the two differ in the last
 bits), and without the flag the restore raises ``SchemaError``.  The
 reference's slow shard_map case runs here too, on a world of CPU ranks;
-its sample_shard case is ROADMAP.md item 6.
+its sample_shard case is in tests/test_torch_sample_shard.py.
 """
 import os
 

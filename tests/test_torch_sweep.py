@@ -257,16 +257,6 @@ def test_sweep_validation_errors():
             bk.run_sweep(splan, 1, backend="nope")
 
 
-def test_configs_across_devices_refuse_naming_the_roadmap():
-    _, tprob, _ = _problems()
-    splan = compile_sweep(tprob, [dict()], qp_iters=5)
-    for call in (lambda: backends.run_sweep(splan, 1, backend="shard_map"),
-                 lambda: splan.run_sharded(1),
-                 lambda: sweep.make_sweep_mesh(2)):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            call()
-
-
 def test_sweep_fit_is_the_solver_loop():
     """SolverConfig configs are complete specs and equal DTSVM fits; the
     DSVM override equals the DSVM solver; SweepResult's views."""
