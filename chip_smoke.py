@@ -13,7 +13,14 @@ any failure raises and exits non-zero:
 1. the card (name and power limit, as nvidia-smi gives them);
 2. the kernel build: its seconds, and registers / shared / local memory
    of every kernel as the compiler left them (a Gram kernel with local
-   memory fails);
+   memory fails); then the analysis gate (``repro_torch.analysis``): the
+   launch audit of ``kernels/launch.py`` held against the built
+   extension (``kernel_info`` and ``qp_multi_shape``) and the card's
+   limits, the sources' constants and coverage, the dispatch audit of
+   the entry points, the launch guard (one Gram launch per fit and per
+   sweep compile, none for a factored fit, one ``gemm_rows`` launch per
+   served batch, the extension loaded once) and the lint, one
+   ``analysis`` record with its findings (any fails) and seconds;
 3. each kernel against its plain PyTorch version on the card, in the
    paper regime (B=20 problems, N=60, D=11: the quickstart's shapes; the
    tiled Gram kernel on two 24-row panels across the diagonal) and the
@@ -3541,6 +3548,36 @@ def shard(by_path: dict, cases: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 2 (continued): the analysis gate on the card
+def analysis_gate(ext, dev) -> None:
+    """The launch audit held against the built extension (kernel_info's
+    static shared bytes and threads, qp_multi_shape at every multi shape,
+    f32 and bf16, with and without the fold, and every audited launch
+    against the card's limits), the sources' constants and coverage, the
+    dispatch audit of the entry points and the launch guard on the card;
+    any finding raises."""
+    from repro_torch.analysis import launch_audit, linter
+    from repro_torch.analysis.dispatch_audit import (audit_entry_points,
+                                                     launch_guard)
+
+    t0 = time.perf_counter()
+    lint = linter.lint_paths([os.path.join(ROOT, "src", "repro_torch")])
+    findings, record = launch_audit.audit_extension(ext, dev)
+    findings += launch_audit.audit_constants()
+    findings += launch_audit.audit_call_sites()
+    findings += audit_entry_points(dev)
+    findings += launch_guard(dev)
+    findings += [f for f in lint if not f.suppressed]
+    emit({"analysis": {
+        **record,
+        "lint_suppressed": sum(f.suppressed for f in lint),
+        "findings": [f.to_dict() for f in findings],
+        "seconds": time.perf_counter() - t0}})
+    if findings:
+        raise AssertionError(f"the analysis gate found {len(findings)} "
+                             f"finding(s): {findings[:5]}")
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3609,6 +3646,7 @@ def main() -> int:
               and i["local_bytes"]]
     if spills:
         raise AssertionError(f"Gram kernels with local memory: {spills}")
+    analysis_gate(ext, dev)
 
     cases = check_kernels(dev)
     by_path = {}

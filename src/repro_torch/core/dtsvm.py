@@ -93,6 +93,7 @@ def init_state(prob: DTSVMProblem) -> DTSVMState:
 def _default_nbr_reduce(prob: DTSVMProblem):
     """Sum an (..., V, T, D) array over each node's neighbors (dense adj)."""
     adjf = prob.adj.to(torch.float32)
+    # repro: noqa[raw-einsum-in-plan] — deliberate: this einsum DEFINES the neighbor sum every backend must match bitwise (Fabric.reduce's buffer mode repeats it; a shard_map rank pads its row into a zero (V, V) matrix to run this same product); the port's tests hold vmap, async and shard_map torch.equal
     return lambda arr: torch.einsum("vu,...utd->...vtd", adjf, arr)
 
 
@@ -104,6 +105,7 @@ def _counts(prob: DTSVMProblem, nbr_counts: Optional[torch.Tensor] = None):
     ntp = (T_v - 1.0) * prob.couple[..., None] * active    # (...,V,T)
     ntp = torch.clamp_min(ntp, 0.0)
     if nbr_counts is None:
+        # repro: noqa[raw-einsum-in-plan] — deliberate: an integer-valued count (0/1 adjacency times 0/1 active), exact in f32 in any summation order
         nbr_counts = torch.einsum("vu,...ut->...vt",
                                   prob.adj.to(torch.float32), active)
     nbr = nbr_counts * active                              # inactive rows: 0
@@ -181,6 +183,7 @@ def dtsvm_step(state: DTSVMState, prob: DTSVMProblem,
     Z, K, q, hi = _qp_inputs(prob, u, f)
     lam = qp_lib.solve_box_qp_fista(K, q, hi, iters=qp_iters,
                                     lam0=state.lam)           # eq. (6)
+    # repro: noqa[raw-einsum-in-plan] — deliberate: the legacy step repeats engine/plan.py's zl expression on the same operands, so the two agree bitwise; mul+reduce would materialize a (..., N, D) temporary
     zl = torch.einsum("...n,...nd->...d", lam,
                       kops.broadcast_z(Z, lam))               # X^T Y lam
     r, alpha, beta = consensus_update(prob, state, u, ntp, nbr, f, zl,

@@ -115,6 +115,7 @@ def _nbr_reduce_for(adjf: torch.Tensor, topology: str,
         def nbr_reduce(arr):
             counts["nbr_sums"] += 1
             rows = collectives.all_gather(arr, -3, group=group)
+            # repro: noqa[raw-einsum-in-plan] — deliberate: the rank's adjacency row inside a zero (V, V) matrix, so row `me` is summed as the single-host (V, V) product sums it (a (1, V) product summed in another order, which grew to 1.05e-5 in lam over a 2-D sharded sweep)
             return torch.einsum("vu,...utd->...vtd", pad,
                                 rows)[..., me:me + 1, :, :]
     return nbr_reduce

@@ -10,10 +10,12 @@ reference's ``fori_loop``s do, here as Python loops of plain tensor ops.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
+
+_HALF, _ONE, _FOUR = np.float32(0.5), np.float32(1.0), np.float32(4.0)
 
 
 def gershgorin_lipschitz(K: torch.Tensor) -> torch.Tensor:
@@ -48,22 +50,32 @@ def solve_box_qp_pg(K: torch.Tensor, q: torch.Tensor, hi: torch.Tensor,
 def solve_box_qp_fista(K: torch.Tensor, q: torch.Tensor, hi: torch.Tensor,
                        iters: int = 200, lam0=None,
                        L: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """FISTA-style accelerated projected gradient (monotone restart-free).
-    The momentum sequence t_k does not depend on the data, so it is
-    computed on the host in float32, as the reference carries it."""
+    """FISTA-style accelerated projected gradient (monotone restart-free),
+    its momentum from :func:`fista_momentum`."""
     if L is None:
         L = gershgorin_lipschitz(K)
     step = (1.0 / L)[..., None]
     lam = torch.zeros_like(q) if lam0 is None else _project(lam0, hi)
     y = lam
-    t = np.float32(1.0)
-    for _ in range(iters):
+    for coef in fista_momentum(iters):
         lam_new = _project(y + step * (q - _matvec(K, y)), hi)
-        t_new = np.float32(0.5) * (np.float32(1.0) + np.sqrt(
-            np.float32(1.0) + np.float32(4.0) * t * t))
-        y = lam_new + float((t - np.float32(1.0)) / t_new) * (lam_new - lam)
-        lam, t = lam_new, t_new
+        y = lam_new + coef * (lam_new - lam)
+        lam = lam_new
     return lam
+
+
+def fista_momentum(iters: int) -> Iterator[float]:
+    """FISTA's momentum coefficients (t_k - 1) / t_{k+1}, k = 0 ..
+    iters - 1, from t_0 = 1 and t_{k+1} = (1 + sqrt(1 + 4 t_k^2)) / 2.
+    The sequence does not depend on the data, so it is computed on the
+    host in float32, as the reference carries it."""
+    t = _ONE
+    for _ in range(iters):
+        # repro: noqa[host-sync-in-hot-path] — np.sqrt of a host float32 scalar of a data-independent sequence; no tensor is read
+        t_new = _HALF * (_ONE + np.sqrt(_ONE + _FOUR * t * t))
+        # repro: noqa[host-sync-in-hot-path] — float() of the same host float32 scalars; no tensor is read
+        yield float((t - _ONE) / t_new)
+        t = t_new
 
 
 def qp_objective(K: torch.Tensor, q: torch.Tensor,

@@ -81,6 +81,7 @@ class Staging:
         """Add the block's seconds to ``counts["collective_s"]``; on the
         card the rank's queued work is waited for first."""
         if self.staged:
+            # repro: noqa[host-sync-in-hot-path] — deliberate: the staged gloo path copies through pinned host buffers, so the rank's queued work is waited for before the host copy and the collective's seconds are its own (ROADMAP hazard 7: NCCL refuses two ranks on one device)
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
         try:

@@ -97,13 +97,11 @@ def _qp_rows(K_rows: torch.Tensor, q_rows: torch.Tensor,
             lam = qp_lib._project(lam + step * (q_rows - matvec(lam)),
                                   hi_rows)
         return lam
-    y, t = lam, np.float32(1.0)                              # fista
-    for _ in range(iters):
+    y = lam                                                  # fista
+    for coef in qp_lib.fista_momentum(iters):
         lam_new = qp_lib._project(y + step * (q_rows - matvec(y)), hi_rows)
-        t_new = np.float32(0.5) * (np.float32(1.0) + np.sqrt(
-            np.float32(1.0) + np.float32(4.0) * t * t))
-        y = lam_new + float((t - np.float32(1.0)) / t_new) * (lam_new - lam)
-        lam, t = lam_new, t_new
+        y = lam_new + coef * (lam_new - lam)
+        lam = lam_new
     return lam
 
 
@@ -167,10 +165,12 @@ def _step(held: dict, s: core.DTSVMState) -> core.DTSVMState:
     lam = _qp_rows(held["K"], q_rows, held["hi"], s.lam, held["L"],
                    iters=kw["qp_iters"], qp_solver=kw["qp_solver"])
     if kw["reduce"] == "gather":
+        # repro: noqa[raw-einsum-in-plan] — deliberate: the gathered (..., N) iterate against the whole Z, engine/plan.py's zl expression on its shapes, which keeps gather torch.equal to vmap (tests/test_torch_sample_shard.py)
         zl = torch.einsum("...n,...nd->...d",
                           collectives.all_gather(lam, -1), held["Z_full"])
     else:
         zl = collectives.all_reduce(
+            # repro: noqa[raw-einsum-in-plan] — deliberate: a rank's partial Z_rows^T lam_rows, summed over ranks by all_reduce; psum is held to tolerance, never bitwise, as in the reference
             torch.einsum("...n,...nd->...d", lam, held["Z_rows"]), "sum")
     r_new, alpha, beta = engine_plan.consensus_update(
         pr, s, u, ntp, nbr, f, zl, nbr_reduce)

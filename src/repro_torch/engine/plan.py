@@ -91,6 +91,7 @@ def plan_step(prob: core.DTSVMProblem, inv: inv_lib.PlanInvariants,
     else:
         lam = engine(inv.K, q, inv.hi, state.lam,
                      iters=qp_iters, L=inv.L)                  # eq. (6)
+        # repro: noqa[raw-einsum-in-plan] — deliberate: mul+reduce would materialize a (..., N, D) temporary; every backend that runs plan_step runs this one expression on the same per-problem shapes, and the port's tests hold vmap, async, shard_map, gather and each sweep config slice bitwise
         zl = torch.einsum("...n,...nd->...d", lam,
                           kops.broadcast_z(Z, lam))            # X^T Y lam
     r_new, alpha, beta = consensus_update(prob, state, u, ntp, nbr, f, zl,

@@ -85,6 +85,7 @@ def weighted_gram_rows(Z: torch.Tensor, a: torch.Tensor, row0: int,
     if a.ndim - 1 < Z.ndim - 2:
         a = a.expand(Z.shape[:-2] + a.shape[-1:])
     batch, (N, D) = Z.shape[:-2], Z.shape[-2:]
+    # repro: noqa[host-sync-in-hot-path] — rows is a host row count (a Python or numpy int), never a tensor
     rows = int(rows)
     out = torch.empty((math.prod(batch), rows, N), dtype=torch.float32,
                       device=Z.device)
@@ -109,6 +110,7 @@ def weighted_gram_panels(Z: torch.Tensor, a: torch.Tensor, starts,
     batch, bitwise those rows of :func:`weighted_gram`."""
     card = _on_card(Z, a, out)
     B, N, _ = Z.shape
+    # repro: noqa[host-sync-in-hot-path] — row0 is a host row index (a Python or numpy int), never a tensor
     row0 = int(row0)
     last = row0 + max(starts, default=0) + rows
     if row0 < 0 or last > N:

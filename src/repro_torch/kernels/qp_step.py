@@ -19,11 +19,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.launch import MULTI_PATHS
 
 #: launches of each kernel, counted where the wrapper launches it
 COUNTS = {"qp_pg_step": 0, "qp_pg_multi": 0}
-#: the multi solve's launch paths, by the number ``csrc/qp_multi.cu`` gives
-MULTI_PATHS = ("block", "grid")
 
 
 def _check_cuda_f32(**tensors):
@@ -67,9 +66,11 @@ def qp_pg_multi(lam0: torch.Tensor, K: torch.Tensor, q: torch.Tensor,
     elif K.dtype != torch.float32:
         raise TypeError(f"f32 mode takes a float32 K, got {K.dtype}")
     ext = build.extension()
+    # repro: noqa[host-sync-in-hot-path] — iters is a host iteration count (a Python or numpy int), never a tensor
+    iters = int(iters)
     out = ext.qp_pg_multi(lam0.contiguous(), K.contiguous(), q.contiguous(),
                           hi.contiguous(), gamma.contiguous(),
-                          None if Z is None else Z.contiguous(), int(iters))
+                          None if Z is None else Z.contiguous(), iters)
     COUNTS["qp_pg_multi"] += 1
     return out[0] if Z is None else (out[0], out[1])
 

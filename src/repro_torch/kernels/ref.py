@@ -80,6 +80,7 @@ def qp_pg_multi(lam0: torch.Tensor, K: torch.Tensor, q: torch.Tensor,
             lam = _box(lam + g * (q - Klam), hi)
     if Z is None:
         return lam
+    # repro: noqa[raw-einsum-in-plan] — deliberate: the zl fold's plain twin is engine/plan.py's zl expression, so the plain fold is bitwise the unfolded plan path
     return lam, torch.einsum("...n,...nd->...d", lam, Z)
 
 

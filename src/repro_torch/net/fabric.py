@@ -281,7 +281,7 @@ class Fabric:
         T = payload.shape[1]
         dev = self.device
         if task_counts is None:
-            task_counts = torch.full((self.V,), float(T),
+            task_counts = torch.full((self.V,), T,
                                      dtype=torch.float32, device=dev)
         task_counts = self._f32(task_counts)
         act = self._f32(act)
@@ -303,6 +303,7 @@ class Fabric:
                              "(rnd=) and its drop mask (keep=, from "
                              "keep_masks)")
         L = self.hist_len
+        # repro: noqa[host-sync-in-hot-path] — rnd is the host round counter the caller passes (an int); the mailbox slot is chosen on the host, nothing is read back
         k = int(rnd)
         slot = k % L
         pub_hist = st.pub_hist.clone()
@@ -373,6 +374,7 @@ class Fabric:
         has been silent for more than K rounds is left out of the sum
         until it delivers again."""
         if self.mode == "buffer":
+            # repro: noqa[raw-einsum-in-plan] — deliberate: must be the exact expression of core._default_nbr_reduce, the keystone of the identity fabric's bitwise equality with the vmap backend
             return torch.einsum("vu,...utd->...vtd", self.adjf, st.mailbox)
         w = self.adjf
         if self.stale_limit is not None:
@@ -419,7 +421,7 @@ def restore_state(tree, device=None) -> FabricState:
             v = v.detach().cpu().numpy()
         # a copy: a decoded snapshot's arrays are read-only views of the
         # file's bytes
-        return torch.as_tensor(np.array(v), device=dev).to(
-            dtypes.get(k, torch.float32))
+        return torch.as_tensor(np.array(v), dtype=dtypes.get(
+            k, torch.float32), device=dev)
 
     return FabricState(**{k: leaf(k, v) for k, v in tree.items()})

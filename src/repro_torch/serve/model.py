@@ -61,7 +61,7 @@ class PredictModel(NamedTuple):
             dev = r.device if device is None else device_lib.resolve(device)
             r = r.to(device=dev, dtype=torch.float32)
         else:
-            r = torch.as_tensor(np.array(r, np.float32),
+            r = torch.as_tensor(np.array(r, np.float32), dtype=torch.float32,
                                 device=device_lib.resolve(device))
         p =(r.shape[-1] - 2) // 2
         W = r[..., :p] + r[..., p + 1: 2 * p + 1]
