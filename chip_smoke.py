@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out FILE] [--only large_fit|multi_mid|figures|
                                                sessions|fabric|store|serve|
-                                               obs|dist|shard]
+                                               obs|dist|shard|lm]
 
 Runs from the root of a checkout, on a machine with one CUDA card, the
 CUDA toolkit and ninja; it builds the hand kernels itself into
@@ -64,7 +64,9 @@ any failure raises and exits non-zero:
    node's coupling off rebuilds 2 of 4 K slices), its peak device memory
    printed and the rebuilt slices ``torch.equal`` to a fresh build;
 6. a torch.profiler trace of each quickstart engine and of one budgeted
-   run: device busy share and kernel launches;
+   run, at PROFILE_ITERS of the quickstart's 60 ADMM iterations (the
+   trace's summary costs ~0.5 s per traced ADMM iteration of fista or
+   pg): device busy share and kernel launches;
 7. the paper's figures through ``repro_torch.figures``: the five golden
    regimes of ``tests/golden/fig{2..6}.json`` (within the fixtures'
    ATOL = 0.015), then each figure once at its paper regime (the widths
@@ -249,7 +251,23 @@ any failure raises and exits non-zero:
    over a ring, 2-D on 2 rows of 4, with ``pallas_fused``, within 1e-5 of
    the single-host sweep; (e) a sample rank that dies makes the fit raise
    and leaves no rank alive;
-15. the ``kernels`` line (with ``launches_by_path["shard"]``, phase 14's
+15. the dense decoder's serving path (``repro_torch.launch.serve``) at
+   Gemma-2 2B's full published width (26 layers, d_model 2304, 8 heads
+   over 4 KV heads of 256, d_ff 9216 GeGLU, vocab 256000, softcaps 50 and
+   30, local (4096) and global layers alternating), fp32 weights from
+   ``init_params`` with a seeded generator: (a) bf16 compute,
+   ``generate`` at batch 4, a 512-token prompt and 32 new tokens, its
+   wall and tokens/s, then the prefill step (median of 3) and the decode
+   step per token alone (CUDA events), one of each traced (device busy
+   share and launches), and the peak device memory; the
+   path launches none of the hand kernels (its ``launches_by_path``
+   entry is zeros); (b) fp32 compute, decode's logits at steps 1, 8 and
+   32 against a prefill over the prompt and the tokens generated so far
+   (max abs diff <= 1e-3, equal argmax); (c) long mode, fp32, batch 1, a
+   4608-token prompt (over the 4096 window, not a multiple of it: its
+   prefill takes ``_flash_sdpa`` and the ring wraps) and 16 new tokens,
+   (b)'s check at steps 1 and 16;
+16. the ``kernels`` line (with ``launches_by_path["shard"]``, phase 14's
    launches counted in the ranks), the card line, and the result line.
 
 ``--only`` runs one part and prints no result line, to compare two
@@ -259,7 +277,7 @@ solve at N between the paper's and the large fit's (B in {2, 20, 300},
 N in {328, 329, 515, 1000}, 100 iterations with the fold), each against
 its plain version and timed, ``figures`` phase 7, ``sessions`` phase 8,
 ``fabric`` phase 9, ``store`` phase 10, ``serve`` phase 11, ``obs``
-phase 12, ``dist`` phase 13, ``shard`` phase 14.
+phase 12, ``dist`` phase 13, ``shard`` phase 14, ``lm`` phase 15.
 
 Without a CUDA device, or without the rest of the repository beside it,
 it exits non-zero and prints no result.
@@ -335,6 +353,8 @@ FIT_REPS = 5
 # PEAK_MARGIN_BYTES of that figure
 PER_SOLVE_CONVERSION_PEAK_BYTES = 6_518_774_272
 PEAK_MARGIN_BYTES = 0.1e9
+# phase 6 traces this many of the quickstart's 60 ADMM iterations
+PROFILE_ITERS = 10
 # --only multi_mid: the multi solve where K leaves a CTA's shared memory
 MID = dict(batches=(2, 20, 300), Ns=(328, 329, 515, 1000), D=11,
            iters=100, reps=50)
@@ -447,6 +467,15 @@ SWEEP_RING = dict(V=4, T=2, p=6, n=6, iters=5, qp_iters=20,
                   qp_solver="pallas_fused")
 SWEEP_RING_CFGS = (dict(C=0.02), dict(eps2=3.0), dict(eta2=0.7),
                    dict(C=0.1))
+
+# phase 15: the dense decoder's serving path at Gemma-2 2B's full width.
+# (a) bf16 generate; (b) fp32 decode against prefill at LM_STEPS; (c) long
+# mode at LM_LONG, fp32, decode against prefill at its steps
+LM_ARCH = "gemma2-2b"
+LM_SERVE = dict(batch=4, prompt=512, gen=32)
+LM_STEPS = (1, 8, 32)
+LM_LONG = dict(batch=1, prompt=4608, gen=16, steps=(1, 16))
+LM_TOL = 1e-3
 
 RECORDS = []
 
@@ -1197,8 +1226,8 @@ def profile_engines(seen: dict) -> None:
     runs = ENGINE_RUNS + [(label, {"qp_solver": "pallas_fused_multi",
                                    "budget": PlanBudget(tile=tile)})]
     for label, kw in runs:
-        per_kernel = _profile(label, lambda: quickstart.main(device="cuda",
-                                                             **kw))
+        per_kernel = _profile(label, lambda: quickstart.main(
+            device="cuda", iters=PROFILE_ITERS, **kw))
         for k in seen:
             seen[k] += per_kernel[k]
 
@@ -3548,6 +3577,173 @@ def shard(by_path: dict, cases: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the dense decoder's serving path at Gemma-2 2B's full width
+def _decode_vs_prefill(net, cfg, prompts, gen: int, at, long_mode: bool,
+                       label: str) -> list:
+    """Greedy decode ``gen`` tokens after ``prompts``; at each step in
+    ``at``, decode's logits against a prefill over the prompt and the
+    tokens generated so far (max abs diff <= LM_TOL, equal argmax)."""
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.train import steps
+
+    prefill = steps.make_prefill_step(cfg, long_mode)
+    decode = steps.make_decode_step(cfg, long_mode)
+    B, S = prompts.shape
+    logits, cache = prefill(net, {"tokens": prompts})
+    cache = serve_lib._grow_cache(cfg, cache, B, S + gen, long_mode)
+    seq, idx, out = prompts, S, []
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    for step in range(1, gen + 1):
+        seq = torch.cat([seq, tok], dim=1)
+        logits, cache, idx = decode(net, tok, cache, idx)
+        if step in at:
+            full, _ = prefill(net, {"tokens": seq})
+            err = float((logits - full).abs().max())
+            same = bool(torch.equal(logits.argmax(-1), full.argmax(-1)))
+            out.append({"step": step, "positions": S + step,
+                        "max_abs_diff": err, "argmax_equal": same,
+                        "max_abs_logit": float(full.abs().max())})
+            if not (err <= LM_TOL and same):
+                raise AssertionError(
+                    f"{label}: decode at step {step} differs from a prefill "
+                    f"over {S + step} tokens by {err} (argmax equal: {same})")
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    return out
+
+
+def lm_serve(by_path: dict) -> None:
+    """Phase 15: Gemma-2 2B at full width through ``generate`` (bf16),
+    then decode against prefill in fp32, in normal and long mode."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import attention
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import steps
+
+    phase_t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = model_lib.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in net.parameters())
+    emit({"lm": "init", "arch": cfg.name, "params": n_params,
+          "param_count_cfg": cfg.param_count(),
+          "init_s": time.perf_counter() - t0,
+          "params_gb": torch.cuda.memory_allocated() / 1e9})
+    # the config's count leaves out the final norm's d_model scales
+    if n_params != cfg.param_count() + cfg.d_model:
+        raise AssertionError(f"{n_params} parameters, the config counts "
+                             f"{cfg.param_count()} + {cfg.d_model}")
+
+    # (a) bf16 generate at the serving shape
+    a = LM_SERVE
+    B, S, n = a["batch"], a["prompt"], a["gen"]
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            dtype=torch.int32, device="cuda")
+    serve_lib.generate(cfg, net, prompts[:, :64], 2)    # first-call costs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = serve_lib.generate(cfg, net, prompts, n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_path["lm_serve"] = launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prefill = steps.make_prefill_step(cfg)
+    decode = steps.make_decode_step(cfg)
+    pre_ms = []
+    for _ in range(3):
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        logits, cache = prefill(net, {"tokens": prompts})
+        ev1.record()
+        torch.cuda.synchronize()
+        pre_ms.append(ev0.elapsed_time(ev1))
+    cache = serve_lib._grow_cache(cfg, cache, B, S + n, False)
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    idx = S
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    for _ in range(n):
+        logits, cache, idx = decode(net, tok, cache, idx)
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    ev1.record()
+    torch.cuda.synchronize()
+    decode_ms = ev0.elapsed_time(ev1) / n
+    # one step of each under the profiler: device busy share and launches
+    # (the loop is eager Python: a launch per op of every layer)
+    for label, fn in (("lm prefill step", lambda: prefill(
+            net, {"tokens": prompts})), ("lm decode step", lambda: decode(
+                net, tok, cache, idx))):
+        if any(_profile(label, fn).values()):
+            raise AssertionError(f"{label}: the profiler saw hand kernels")
+    ok_toks = (toks.shape == (B, n) and int(toks.min()) >= 0
+               and int(toks.max()) < cfg.vocab_size)
+    emit({"lm": "serve/bf16", "arch": cfg.name, "batch": B, "prompt": S,
+          "gen": n, "wall_s": wall, "tokens_per_s": B * n / wall,
+          "prefill_ms": sorted(pre_ms)[1], "prefill_ms_all": pre_ms,
+          "decode_ms_per_token": decode_ms,
+          "decode_tokens_per_s": B * 1e3 / decode_ms,
+          "peak_gb": peak, "launches": launches,
+          "tokens_ok": ok_toks, "sample": toks[0, :8].tolist()})
+    if not ok_toks or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"lm_serve: tokens {tuple(toks.shape)} or "
+                             f"logits out of range")
+    if any(launches.values()):
+        raise AssertionError(f"lm_serve launched hand kernels: {launches}")
+    del cache, logits
+
+    # (b) fp32: decode against prefill after the 512-token prompt
+    cfg32 = cfg.replace(compute_dtype="float32")
+    t0 = time.perf_counter()
+    checks = _decode_vs_prefill(net, cfg32, prompts, max(LM_STEPS),
+                                LM_STEPS, False, "lm/fp32")
+    emit({"lm": "decode_vs_prefill/fp32", "batch": B, "prompt": S,
+          "checks": checks, "tol": LM_TOL,
+          "seconds": time.perf_counter() - t0})
+
+    # (c) long mode: the prompt over the window, the ring wrapping
+    c = LM_LONG
+    long_prompt = torch.randint(0, cfg.vocab_size, (c["batch"], c["prompt"]),
+                                generator=gen, dtype=torch.int32,
+                                device="cuda")
+    flash_calls = []
+    real_flash = attention._flash_sdpa
+
+    def counting_flash(*args, **kw):
+        flash_calls.append(args[0].shape[1])
+        return real_flash(*args, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    attention._flash_sdpa = counting_flash
+    try:
+        checks = _decode_vs_prefill(net, cfg32, long_prompt, c["gen"],
+                                    c["steps"], True, "lm/long")
+    finally:
+        attention._flash_sdpa = real_flash
+    cache_len = min(c["prompt"], cfg.long_context_window)
+    emit({"lm": "decode_vs_prefill/long", "batch": c["batch"],
+          "prompt": c["prompt"], "window": cfg.long_context_window,
+          "cache_len": cache_len, "checks": checks, "tol": LM_TOL,
+          "flash_prefill_layers": flash_calls.count(c["prompt"]),
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t0})
+    if flash_calls.count(c["prompt"]) != cfg.num_layers:
+        raise AssertionError(f"lm/long: the {c['prompt']}-token prefill "
+                             f"took _flash_sdpa in "
+                             f"{flash_calls.count(c['prompt'])} of "
+                             f"{cfg.num_layers} layers")
+    del net
+    torch.cuda.empty_cache()
+    emit({"phase": "lm", "seconds": time.perf_counter() - phase_t0})
+
+
+# ---------------------------------------------------------------------------
 # phase 2 (continued): the analysis gate on the card
 def analysis_gate(ext, dev) -> None:
     """The launch audit held against the built extension (kernel_info's
@@ -3598,7 +3794,8 @@ def main() -> int:
                     help="also write every record to this JSON file")
     ap.add_argument("--only", choices=("large_fit", "multi_mid", "figures",
                                        "sessions", "fabric", "store",
-                                       "serve", "obs", "dist", "shard"),
+                                       "serve", "obs", "dist", "shard",
+                                       "lm"),
                     help="run only this part, and print no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3626,6 +3823,8 @@ def main() -> int:
             dist({})
         elif args.only == "shard":
             shard({}, {k: [] for k in KERNELS})
+        elif args.only == "lm":
+            lm_serve({})
         elif args.only in ("figures", "sessions", "fabric", "store",
                            "serve", "obs"):
             run = {"figures": figures, "sessions": sessions,
@@ -3663,6 +3862,7 @@ def main() -> int:
     observability(by_path, traced, cases)
     dist(by_path)
     shard(by_path, cases)
+    lm_serve(by_path)
     if not all(traced.values()):
         raise AssertionError(f"the profiler saw none of some kernels: "
                              f"{traced}")

@@ -22,7 +22,14 @@ durable sessions (``repro_torch.store`` on ``repro_torch.checkpoint``,
 the reference's file format); the batching predict server
 (``repro_torch.serve``); and observability (``repro_torch.obs``:
 convergence telemetry, spans of the engine's phases, the metrics
-registry, the timing helper).  The four TPU kernels (the square and the tiled
+registry, the timing helper); and, of the seed substrate, the dense
+decoder family's serving path (``repro_torch.configs``,
+``repro_torch.models``, ``repro_torch.train.steps``,
+``repro_torch.launch.serve``: prefill and ring-KV decode of qwen2,
+qwen2.5, gemma2, gemma3 and internvl2, in plain PyTorch, as the
+reference's attention is plain ``jnp``).  ``python -m
+repro_torch.launch.serve --arch gemma2-2b --reduced --device cpu`` runs
+it on the CPU.  The four TPU kernels (the square and the tiled
 weighted Gram build, the fused QP step and the fused multi-iteration QP
 solve) and the server's fixed-order product (``gemm_rows``) are CUDA C++
 kernels for ``sm_90a`` under ``repro_torch/kernels/csrc/``, built at

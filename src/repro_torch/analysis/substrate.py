@@ -4,12 +4,17 @@ seed substrate.
 
 The reference's seed packages (``models``, ``configs``, ``optim``,
 ``train``, ``launch``) are reachable from no public entry point and are
-reported as substrate.  The port has ported none of them yet (ROADMAP
-queue 1, item 9), so its report lists no substrate module.  This module
-builds the static import graph of ``src/repro_torch`` and walks it from
-the port's public roots; whatever the walk cannot reach is reported as
+reported as substrate.  The port's twins of them (ROADMAP queue 1, item
+9: the dense decoder's serving path so far) are reported exactly so: the
+port's substrate list is the reference's, mapped ``repro.`` ->
+``repro_torch.``, restricted to the modules ported.  This module builds
+the static import graph of ``src/repro_torch`` and walks it from the
+port's public roots; whatever the walk cannot reach is reported as
 substrate: an *informational* section of the analysis report, never a
-failure.
+failure.  ``repro_torch.convert``, the bridge that carries the
+reference's trees into the port (its tests' way in), is tooling like the
+analyzer: it imports the substrate's ``Transformer`` for the LM weights
+without making it live.
 """
 from __future__ import annotations
 
@@ -20,16 +25,15 @@ from typing import Dict, List, Optional, Sequence, Set
 #: subpackages and modules whose modules seed the walk: the reference's
 #: roots (the API, the durable store, serving, the dataset generators)
 #: plus the port's own entry points (the figure runners, ``python -m
-#: repro_torch.quickstart``, the obs CLI, the rank backends' worlds and
-#: the cross-package converter the tests and users call)
+#: repro_torch.quickstart``, the obs CLI, the rank backends' worlds)
 ROOT_PACKAGES = ("repro_torch.api", "repro_torch.store",
                  "repro_torch.serve", "repro_torch.data",
                  "repro_torch.figures", "repro_torch.quickstart",
-                 "repro_torch.obs", "repro_torch.dist",
-                 "repro_torch.convert")
+                 "repro_torch.obs", "repro_torch.dist")
 
-#: the analyzer itself: in neither the live nor the substrate set
-TOOLING_PACKAGES = ("repro_torch.analysis",)
+#: the analyzer and the cross-package converter: in neither the live nor
+#: the substrate set
+TOOLING_PACKAGES = ("repro_torch.analysis", "repro_torch.convert")
 
 
 def _module_name(pkg_dir: str, path: str) -> str:

@@ -1,0 +1,322 @@
+"""The dense decoder stack: prefill and ring-KV decode (twin of the dense
+half of ``repro/models/transformer.py``).
+
+``Transformer`` is an ``nn.Module`` holding the reference's parameter
+tree: ``embed`` (V, d), ``final_norm``, ``head`` (d, V) where embeddings
+are untied, and a ``ModuleList`` of ``DecoderLayer`` (``ln1``, ``attn``,
+``ln2``, ``mlp``).  Weights keep the reference's (d_in, d_out) layout and
+fp32; compute runs in ``cfg.compute_dtype``.  Modules and parameter dicts
+index alike (``lp["attn"]``, ``"head" in params``), so every function
+here takes either.
+
+Public API (mirroring the reference's):
+    init_params(cfg, rng, device)                  -> Transformer
+    prefill(params, batch, cfg, long_mode, ...)     -> (logits, cache)
+    decode(params, batch, cache, idx, cfg, ...)     -> (logits, cache)
+    cache_spec / cache_init(cfg, batch, ...)        -> cache (stacked)
+
+Caches are tensors stacked over layers, ``k``/``v`` (L, B, Sc, K, hd) and
+``pos`` (L, Sc), as the reference's scan stacks them; ``decode`` writes
+the new key of every layer in place.  The reference's scan over layers,
+``constrain_activations`` and ``remat`` have no eager twin.  MoE layers,
+MLA, mamba and shared-attention layers and the encoder raise
+``NotImplementedError`` naming the slice of ROADMAP queue 1, item 9 that
+brings them; ``forward_train`` comes with the training slice.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch import device as device_lib
+from repro_torch.configs.base import (
+    ATTN_GLOBAL,
+    ATTN_LOCAL,
+    MAMBA_SHARED_ATTN,
+    ModelConfig,
+)
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    dense_init,
+    embed_init,
+    embed_tokens,
+    lm_head,
+    mlp_apply,
+    mlp_shapes,
+    rms_norm,
+    torch_dtype,
+)
+
+_SLICE = "is not ported yet: ROADMAP queue 1, item 9, the {} slice"
+
+
+def unsupported(cfg: ModelConfig):
+    """The reason the dense stack cannot run ``cfg``, or None."""
+    if cfg.use_mla:
+        return "multi-head latent attention " + _SLICE.format("MoE and MLA")
+    if cfg.is_moe:
+        return "a mixture-of-experts MLP " + _SLICE.format("MoE and MLA")
+    if cfg.is_encoder_decoder or cfg.frontend == "audio":
+        return "the encoder-decoder stack " + _SLICE.format(
+            "encoder-decoder")
+    if (cfg.shared_attn_period
+            or any(k.startswith("mamba") for k in cfg.layer_kinds())):
+        return "a mamba or shared-attention layer " + _SLICE.format(
+            "SSM and hybrid")
+    return None
+
+
+def _require_dense(cfg: ModelConfig) -> None:
+    why = unsupported(cfg)
+    if why:
+        raise NotImplementedError(f"{cfg.name}: {why}")
+
+
+# ===========================================================================
+# modules
+# ===========================================================================
+class _Indexed:
+    """``m["name"]`` and ``"name" in m`` over a module's parameters and
+    submodules, so a module indexes as the reference's dict does."""
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+def _empty(shape, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=torch.float32,
+                                    device=device))
+
+
+def _zeros(shape, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, dtype=torch.float32,
+                                    device=device))
+
+
+class DecoderLayer(_Indexed, nn.Module):
+    """Pre-norm attention then pre-norm MLP; norms start at zero (the
+    gemma convention: an offset from 1)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d = cfg.d_model
+        self.ln1 = _zeros((d,), device)
+        self.attn = nn.ParameterDict({
+            name: (_zeros(shape, device) if not fan else
+                   _empty(shape, device))
+            for name, (shape, fan) in attn.gqa_shapes(cfg).items()})
+        self.ln2 = _zeros((d,), device)
+        self.mlp = nn.ParameterDict({
+            name: _empty(shape, device)
+            for name, (shape, _) in mlp_shapes(d, cfg.d_ff,
+                                               cfg.gated_mlp).items()})
+
+
+class Transformer(_Indexed, nn.Module):
+    """The dense decoder's parameters (uninitialised until
+    :func:`init_params` or ``repro_torch.convert.lm_params_to_torch``
+    fills them)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        _require_dense(cfg)
+        self.cfg = cfg
+        V, d = cfg.vocab_size, cfg.d_model
+        self.embed = _empty((V, d), device)
+        self.final_norm = _zeros((d,), device)
+        if not cfg.tie_embeddings:
+            self.head = _empty((d, V), device)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, device)
+                                    for _ in range(cfg.num_layers))
+
+
+# ===========================================================================
+# per-layer static attributes
+# ===========================================================================
+def layer_windows(cfg: ModelConfig, long_mode: bool) -> Tuple[int, ...]:
+    """Per-layer attention window (0 = global), honoring long-context mode."""
+    out = []
+    for kind in cfg.layer_kinds():
+        if kind == ATTN_LOCAL:
+            out.append(cfg.sliding_window)
+        elif kind == ATTN_GLOBAL:
+            out.append(cfg.long_context_window if long_mode else 0)
+        else:  # mamba layers: window unused
+            out.append(0)
+    return tuple(out)
+
+
+def _has_attention(cfg: ModelConfig) -> bool:
+    kinds = cfg.layer_kinds()
+    return any(not k.startswith("mamba") for k in kinds) or \
+        MAMBA_SHARED_ATTN in kinds
+
+
+def required_cache_len(cfg: ModelConfig, seq_len: int, long_mode: bool) -> int:
+    """Uniform (stacked-over-layers) KV cache length."""
+    if not _has_attention(cfg):
+        return 0
+    w = layer_windows(cfg, long_mode)
+    attn_ws = [x for k, x in zip(cfg.layer_kinds(), w)
+               if not k.startswith("mamba")]
+    if cfg.shared_attn_period:
+        attn_ws = [cfg.long_context_window if long_mode else 0]
+    if any(x == 0 for x in attn_ws):
+        return seq_len
+    return min(seq_len, max(attn_ws))
+
+
+# ===========================================================================
+# parameter init
+# ===========================================================================
+def init_params(cfg: ModelConfig, rng=None, device=None) -> Transformer:
+    """A ``Transformer`` with the reference's init scheme, drawn from the
+    ``torch.Generator`` ``rng`` (on ``device``; ``None`` draws from the
+    default generator).  ``device="meta"`` allocates nothing.  The draws
+    are the port's own: to compute with the reference's weights, carry
+    them across with ``repro_torch.convert.lm_params_to_torch``."""
+    dev = torch.device("meta") if str(device) == "meta" else \
+        device_lib.resolve(device)
+    model = Transformer(cfg, dev)
+    embed_init(model.embed, rng)
+    if "head" in model:
+        dense_init(model.head, cfg.d_model, rng)
+    mlp_fans = mlp_shapes(cfg.d_model, cfg.d_ff, cfg.gated_mlp)
+    for layer in model.layers:
+        for name, (_, fan) in attn.gqa_shapes(cfg).items():
+            if fan:
+                dense_init(layer.attn[name], fan, rng)
+        for name, (_, fan) in mlp_fans.items():
+            dense_init(layer.mlp[name], fan, rng)
+    return model
+
+
+# ===========================================================================
+# embedding
+# ===========================================================================
+def _embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                  dtype):
+    """Token embedding + the vision prefix.  Returns (x, n_prefix,
+    enc_out); ``enc_out`` is always None (the audio encoder comes with the
+    encoder-decoder slice)."""
+    tokens = batch["tokens"]
+    scale = cfg.final_softcap > 0  # gemma-style embedding scaling
+    x = embed_tokens(params["embed"], tokens, scale, dtype)
+    n_prefix = 0
+    if cfg.frontend == "vision":
+        vis = batch["vision_embeds"].to(dtype)           # (B, P, d)
+        x = torch.cat([vis, x], dim=1)
+        n_prefix = vis.shape[1]
+    elif cfg.frontend == "audio":
+        raise NotImplementedError(f"{cfg.name}: the audio encoder "
+                                  + _SLICE.format("encoder-decoder"))
+    return x, n_prefix, None
+
+
+def _head(params) -> torch.Tensor:
+    return params["head"] if "head" in params else params["embed"].T
+
+
+# ===========================================================================
+# caches
+# ===========================================================================
+def cache_build(cfg: ModelConfig, batch: int, seq_len: int, dtype,
+                long_mode: bool, make: str, device=None) -> Dict:
+    """The stacked cache for decode; ``seq_len`` = max positions.
+    make = 'spec' (meta tensors, nothing allocated) | 'init'."""
+    _require_dense(cfg)
+    cache_len = required_cache_len(cfg, seq_len, long_mode)
+    dev = torch.device("meta") if make == "spec" else \
+        device_lib.resolve(device)
+    per_layer = attn.gqa_cache_init(cfg, batch, cache_len,
+                                    torch_dtype(dtype), device=dev)
+    L = cfg.num_layers
+    return {"layers": {k: v[None].expand((L,) + v.shape).clone()
+                       for k, v in per_layer.items()}}
+
+
+cache_spec = functools.partial(cache_build, make="spec")
+cache_init = functools.partial(cache_build, make="init")
+
+
+# ===========================================================================
+# prefill
+# ===========================================================================
+def _attn_block_prefill(lp, x, *, positions, window: int, cfg: ModelConfig,
+                        cache_len: int):
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    a, cache = attn.gqa_prefill(lp["attn"], h, positions=positions,
+                                window=window, cfg=cfg, cache_len=cache_len)
+    x = x + a
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + mlp_apply(lp["mlp"], h, cfg.act, cfg.gated_mlp), cache
+
+
+@torch.no_grad()
+def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            long_mode: bool = False, min_cache_len: int = 0):
+    """Process a prompt, return last-position logits (B, 1, V) fp32 and
+    the populated cache.
+
+    ``min_cache_len`` reserves ring-cache capacity beyond the prompt so
+    the caller can decode continuation tokens without re-seating the
+    cache."""
+    _require_dense(cfg)
+    dtype = torch_dtype(cfg.compute_dtype)
+    x, _, _ = _embed_inputs(params, batch, cfg, dtype)
+    B, S = x.shape[:2]
+    cache_len = max(required_cache_len(cfg, S, long_mode), min_cache_len)
+    positions = torch.arange(S, device=x.device)
+    windows = layer_windows(cfg, long_mode)
+    L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    ck = torch.empty((L, B, cache_len, K, hd), dtype=dtype, device=x.device)
+    cv = torch.empty_like(ck)
+    cpos = torch.empty((L, cache_len), dtype=torch.int32, device=x.device)
+    for i, lp in enumerate(params["layers"]):
+        x, c = _attn_block_prefill(lp, x, positions=positions,
+                                   window=windows[i], cfg=cfg,
+                                   cache_len=cache_len)
+        ck[i], cv[i], cpos[i] = c["k"], c["v"], c["pos"]
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = lm_head(x[:, -1:, :], _head(params), cfg.final_softcap)
+    return logits, {"layers": {"k": ck, "v": cv, "pos": cpos}}
+
+
+# ===========================================================================
+# decode
+# ===========================================================================
+def _attn_block_decode(lp, x, cache, cache_index: int, *, window: int,
+                       cfg: ModelConfig):
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    a, cache = attn.gqa_decode(lp["attn"], h, cache, cache_index,
+                               window=window, cfg=cfg)
+    x = x + a
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + mlp_apply(lp["mlp"], h, cfg.act, cfg.gated_mlp), cache
+
+
+@torch.no_grad()
+def decode(params, batch: Dict[str, torch.Tensor], cache: Dict,
+           cache_index: int, cfg: ModelConfig, long_mode: bool = False):
+    """One decode step.  batch['tokens']: (B, 1); ``cache_index`` is the
+    token's absolute position.  Returns (logits (B, 1, V) fp32, cache),
+    the cache updated in place."""
+    _require_dense(cfg)
+    dtype = torch_dtype(cfg.compute_dtype)
+    scale = cfg.final_softcap > 0
+    x = embed_tokens(params["embed"], batch["tokens"], scale, dtype)
+    windows = layer_windows(cfg, long_mode)
+    layers = cache["layers"]
+    for i, lp in enumerate(params["layers"]):
+        c = {"k": layers["k"][i], "v": layers["v"][i],
+             "pos": layers["pos"][i]}
+        x, _ = _attn_block_decode(lp, x, c, cache_index, window=windows[i],
+                                  cfg=cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return lm_head(x, _head(params), cfg.final_softcap), cache

@@ -483,17 +483,38 @@ def test_rows_staging_holds_48kb_without_the_opt_in():
 # ----------------------------------------------------------------------
 
 
+def _reference_substrate_ported() -> list:
+    """The reference's substrate list, mapped ``repro.`` ->
+    ``repro_torch.`` and restricted to the modules the port has."""
+    from repro.analysis.substrate import substrate_report as ref_report
+    from repro_torch.analysis.substrate import import_graph
+    ported = set(import_graph())
+    return sorted(m for m in ("repro_torch" + r[len("repro"):]
+                              for r in ref_report()["substrate"])
+                  if m in ported)
+
+
 def test_substrate_report_is_empty():
+    """Named when the port had no substrate; now its substrate is the
+    reference's, mapped and restricted to the modules ported (the dense
+    decoder's serving path: configs, models, train, launch)."""
     from repro_torch.analysis.substrate import substrate_report
     rep = substrate_report()
-    assert rep["substrate"] == []
+    want = _reference_substrate_ported()
+    assert rep["substrate"] == want
+    for mod in ("repro_torch.configs.gemma2_2b", "repro_torch.models",
+                "repro_torch.models.transformer", "repro_torch.train.steps",
+                "repro_torch.launch.serve"):
+        assert mod in want, mod
+    assert "repro_torch.convert" in rep["tooling"]
     for live in ("repro_torch.engine.plan", "repro_torch.core.dtsvm",
                  "repro_torch.net.fabric", "repro_torch.kernels.gram",
                  "repro_torch.kernels.launch", "repro_torch.obs.__main__",
                  "repro_torch.figures.golden", "repro_torch.quickstart"):
         assert live in rep["reachable"], live
     assert rep["tooling"]
-    assert all(m.startswith("repro_torch.analysis") for m in rep["tooling"])
+    assert all(m.startswith(("repro_torch.analysis", "repro_torch.convert"))
+               for m in rep["tooling"])
 
 
 def test_reference_roots_alone_would_misreport_the_port():
@@ -528,7 +549,7 @@ def test_cli_json_gate_is_clean(tmp_path):
     assert report["summary"]["unsuppressed"] == 0
     assert report["summary"]["suppressed"] >= 1
     assert all(d["reason"] for d in report["suppressed"])
-    assert report["substrate"]["substrate"] == []
+    assert report["substrate"]["substrate"] == _reference_substrate_ported()
     assert report["dispatch"] == report["guard"] == report["launch"] == []
     assert json.loads(proc.stdout)["summary"] == report["summary"]
 
