@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out FILE] [--only large_fit|multi_mid|figures|
                                                sessions|fabric|store|serve|
-                                               obs|dist|shard|lm]
+                                               obs|dist|shard|lm|moe]
 
 Runs from the root of a checkout, on a machine with one CUDA card, the
 CUDA toolkit and ninja; it builds the hand kernels itself into
@@ -27,7 +27,9 @@ any failure raises and exits non-zero:
    large regime (B=2, N=20000, D=257: benchmarks/bench_scale.py's
    large_fit; the tiled Gram kernel on one 3352-row streamed panel), with
    the error, the kernel's ms, the plain version's ms, the bound's ms and
-   one library call's ms where there is one (the error at most 3e-5
+   one library call's ms where there is one (an einsum for the Gram
+   kernels, a broadcast ``torch.mul`` for the prescale's scaled half,
+   in Z's own layout; the error at most 3e-5
    (f32) or 1e-2 (bf16) of the plain result's largest magnitude, and for
    the QP kernels less than the plain solve moves lam from its warm
    start); the square K must be bitwise symmetric, a tiled panel must
@@ -176,7 +178,7 @@ any failure raises and exits non-zero:
 12. observability (``repro_torch.obs``): (a) the quickstart's DTSVM
    (V=10, T=2, N=60, p=10, 60 ADMM iterations of 100 QP iterations) per
    engine (fista, pg, pallas_fused, pallas_fused_multi and the factored
-   operator), FIT_REPS fits each with telemetry off and on in turns:
+   operator), OBS_REPS fits each with telemetry off and on in turns:
    the state ``torch.equal`` on and off, the kernel launches the same,
    the streams within the bounds of OBS_RTOL / OBS_ATOL / OBS_FRAC_GAP
    of the same fit on the CPU port (the largest gaps printed), the
@@ -267,7 +269,28 @@ any failure raises and exits non-zero:
    4608-token prompt (over the 4096 window, not a multiple of it: its
    prefill takes ``_flash_sdpa`` and the ring wraps) and 16 new tokens,
    (b)'s check at steps 1 and 16;
-16. the ``kernels`` line (with ``launches_by_path["shard"]``, phase 14's
+16. the mixture-of-experts serving path at Phi-3.5-MoE's full published
+   width (d_model 4096, 32 heads over 8 KV heads of 128, 16 experts of
+   d_ff 6400, top-2, SwiGLU, vocab 32064, untied head), depth cut from 32
+   layers to MOE_LAYERS = 8 (the whole model is 168 GB in fp32), fp32
+   weights from ``init_params`` with a seeded generator, built once for
+   three parts: (a) bf16 compute at the published capacity factor 1.25,
+   ``generate`` at batch 4, a 512-token prompt and 32 new tokens, its
+   wall and tokens/s, the prefill step (median of 3) and the decode step
+   per token (CUDA events), one decode step traced (device busy share
+   and launches), the peak device memory; no hand kernel launched (its
+   ``launches_by_path["lm_moe"]`` is zeros); (b) fp32 compute at a
+   dropless capacity (8.0 = E / K), decode's logits at steps 1, 8 and 32
+   against a prefill over the prompt and the tokens so far (max abs diff
+   <= 1e-3, equal argmax); (c) the drop rule at (a)'s 4 x 512-token
+   prefill: layer 0's ``ln2`` input routed (product, softmax, stable
+   top-k) and dispatched on the card, its picks equal to a stable sort of
+   its own probabilities on the host and its kept mask equal to the
+   reference's rule (the halving loop, capacity by Python's ``round``,
+   the exclusive cumsum in token-major, k-minor order) computed in numpy
+   from the card's picks, with the share of assignments dropped (some
+   must be);
+17. the ``kernels`` line (with ``launches_by_path["shard"]``, phase 14's
    launches counted in the ranks), the card line, and the result line.
 
 ``--only`` runs one part and prints no result line, to compare two
@@ -277,7 +300,8 @@ solve at N between the paper's and the large fit's (B in {2, 20, 300},
 N in {328, 329, 515, 1000}, 100 iterations with the fold), each against
 its plain version and timed, ``figures`` phase 7, ``sessions`` phase 8,
 ``fabric`` phase 9, ``store`` phase 10, ``serve`` phase 11, ``obs``
-phase 12, ``dist`` phase 13, ``shard`` phase 14, ``lm`` phase 15.
+phase 12, ``dist`` phase 13, ``shard`` phase 14, ``lm`` phase 15,
+``moe`` phase 16.
 
 Without a CUDA device, or without the rest of the repository beside it,
 it exits non-zero and prints no result.
@@ -428,6 +452,9 @@ OBS_ENGINES = [("fista", {"qp_solver": "fista"}),
                ("factored", {"qp_solver": "pallas_fused_multi",
                              "qp_operator": "factored"})]
 OBS_RTOL, OBS_ATOL, OBS_FRAC_GAP = 1e-3, 1e-5, 0.01
+# card fits with telemetry off and on, in turns, per engine and at the
+# large fit: fewer than FIT_REPS to keep the whole script near its aim
+OBS_REPS = 3
 OBS_EXACT = ("bytes_round", "staleness", "nodes_alive")
 # Fig. 7's churn wire is int8 with error feedback: a last-bit difference
 # between the card's and the CPU's state can move an int8 code, and the
@@ -476,6 +503,14 @@ LM_SERVE = dict(batch=4, prompt=512, gen=32)
 LM_STEPS = (1, 8, 32)
 LM_LONG = dict(batch=1, prompt=4608, gen=16, steps=(1, 16))
 LM_TOL = 1e-3
+
+# phase 16: the mixture-of-experts serving path at Phi-3.5-MoE's full
+# width, depth cut from 32 layers to MOE_LAYERS (the whole model is 168 GB
+# in fp32).  (a) bf16 generate at the published capacity factor; (b) fp32
+# decode against prefill at a dropless capacity (E / K = 16 / 2 = 8) at
+# LM_STEPS; (c) the drop rule on the card at (a)'s 4 x 512-token prefill
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_LAYERS = 8
 
 RECORDS = []
 
@@ -625,10 +660,14 @@ def check_kernels(dev) -> dict:
         b_ms, b_by = bound(4 * (B * N * D + B * D + 2 * B * N * D),
                            B * N * D)
         ms = cuda_ms(lambda: gram_kernel.prescale(Z, a), reps)
+        # the library call: one broadcast torch.mul computes the same
+        # zi * a, in Z's own layout and without the unscaled copy
         rec = dict(shape, max_abs_err=err, exact=same,
                    scratch_bytes=Zs.untyped_storage().nbytes(), ms=ms,
                    plain_ms=cuda_ms(lambda: ref.gram_prescale(Z, a), reps),
-                   library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=cuda_ms(lambda: torch.mul(Z, a[:, None, :]),
+                                      reps),
+                   bound_ms=b_ms, bound_by=b_by,
                    tflop_s=tflop_s(B * N * D, ms))
         del Zs_plain
         emit({"kernel_check": "gram_prescale", **rec})
@@ -2694,7 +2733,7 @@ def _sync_warnings(fn) -> list:
 
 
 def _on_off_fits(cfg, X, y, mask, adj, path: str, by_path: dict) -> dict:
-    """FIT_REPS DTSVM fits on the card with telemetry off and on, in
+    """OBS_REPS DTSVM fits on the card with telemetry off and on, in
     turns; each fit's launches counted from 0 just before it and read
     just after.  Returns the last states, the on fit's streams and spans,
     the walls and both launch totals."""
@@ -2704,7 +2743,7 @@ def _on_off_fits(cfg, X, y, mask, adj, path: str, by_path: dict) -> dict:
 
     out = {"wall": {False: [], True: []},
            "launches": {False: None, True: None}}
-    for _ in range(FIT_REPS):
+    for _ in range(OBS_REPS):
         for on in (False, True):
             obs.clear_spans()
             ops.reset_launch_counts()
@@ -2763,7 +2802,7 @@ def obs_quickstart(by_path: dict) -> None:
             tel = obs.Telemetry() if on else None
             syncs[on] = _sync_warnings(
                 lambda: plan.run(iters=cfg.iters, telemetry=tel))
-        rec = {"obs": "quickstart", "engine": label, "reps": FIT_REPS,
+        rec = {"obs": "quickstart", "engine": label, "reps": OBS_REPS,
                "fit_s_off": runs["wall"][False],
                "fit_s_on": runs["wall"][True],
                "fit_s_median_off": float(np.median(runs["wall"][False])),
@@ -2788,7 +2827,7 @@ def obs_quickstart(by_path: dict) -> None:
         else:
             check_launches(f"obs/quickstart/{label}",
                            runs["launches"][True], expected_launches(
-                               kw["qp_solver"], fits=FIT_REPS,
+                               kw["qp_solver"], fits=OBS_REPS,
                                iters=cfg.iters, qp_iters=cfg.qp_iters))
         if len(syncs[True]) > len(syncs[False]):
             raise AssertionError(f"obs/quickstart/{label}: telemetry adds "
@@ -2831,7 +2870,7 @@ def obs_large(by_path: dict) -> None:
                        qp_iters=LARGE_FIT["qp_iters"],
                        qp_solver="pallas_fused_multi")
     runs = _on_off_fits(cfg, X, y, None, adj, "obs/large_fit", by_path)
-    emit({"obs": "large_fit", **LARGE_FIT, "reps": FIT_REPS,
+    emit({"obs": "large_fit", **LARGE_FIT, "reps": OBS_REPS,
           "fit_s_off": runs["wall"][False], "fit_s_on": runs["wall"][True],
           "fit_s_median_off": float(np.median(runs["wall"][False])),
           "fit_s_median_on": float(np.median(runs["wall"][True])),
@@ -3611,6 +3650,37 @@ def _decode_vs_prefill(net, cfg, prompts, gen: int, at, long_mode: bool,
     return out
 
 
+def _timed_steps(net, cfg, prompts, gen: int) -> tuple:
+    """The prefill step's ms (3 runs) and the decode step's ms a token
+    over ``gen`` greedy tokens, by CUDA events; returns them with the
+    last cache, token and position."""
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.train import steps
+
+    prefill = steps.make_prefill_step(cfg)
+    decode = steps.make_decode_step(cfg)
+    B, S = prompts.shape
+    pre_ms = []
+    for _ in range(3):
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        logits, cache = prefill(net, {"tokens": prompts})
+        ev1.record()
+        torch.cuda.synchronize()
+        pre_ms.append(ev0.elapsed_time(ev1))
+    cache = serve_lib._grow_cache(cfg, cache, B, S + gen, False)
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    idx = S
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    for _ in range(gen):
+        logits, cache, idx = decode(net, tok, cache, idx)
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    ev1.record()
+    torch.cuda.synchronize()
+    return pre_ms, ev0.elapsed_time(ev1) / gen, logits, cache, tok, idx
+
+
 def lm_serve(by_path: dict) -> None:
     """Phase 15: Gemma-2 2B at full width through ``generate`` (bf16),
     then decode against prefill in fp32, in normal and long mode."""
@@ -3655,25 +3725,8 @@ def lm_serve(by_path: dict) -> None:
     peak = torch.cuda.max_memory_allocated() / 1e9
     prefill = steps.make_prefill_step(cfg)
     decode = steps.make_decode_step(cfg)
-    pre_ms = []
-    for _ in range(3):
-        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        ev0.record()
-        logits, cache = prefill(net, {"tokens": prompts})
-        ev1.record()
-        torch.cuda.synchronize()
-        pre_ms.append(ev0.elapsed_time(ev1))
-    cache = serve_lib._grow_cache(cfg, cache, B, S + n, False)
-    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-    idx = S
-    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    ev0.record()
-    for _ in range(n):
-        logits, cache, idx = decode(net, tok, cache, idx)
-        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
-    ev1.record()
-    torch.cuda.synchronize()
-    decode_ms = ev0.elapsed_time(ev1) / n
+    pre_ms, decode_ms, logits, cache, tok, idx = _timed_steps(
+        net, cfg, prompts, n)
     # one step of each under the profiler: device busy share and launches
     # (the loop is eager Python: a launch per op of every layer)
     for label, fn in (("lm prefill step", lambda: prefill(
@@ -3744,6 +3797,172 @@ def lm_serve(by_path: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the mixture-of-experts serving path at Phi-3.5-MoE's full width
+def host_kept(picks: np.ndarray, num_experts: int,
+              capacity_factor: float) -> tuple:
+    """The reference's drop rule (``repro/models/moe.py:95-104`` and
+    ``_dispatch_group``) in numpy, from a (T, K) array of picks: its
+    halving loop for the groups, the capacity by Python's ``round``, the
+    exclusive cumsum over the token-major, k-minor flattening.  Returns
+    (groups, capacity, kept mask (G, Tg*K))."""
+    T, K = picks.shape
+    G = 32
+    while T % G != 0 or T // G < 1:
+        G //= 2
+        if G <= 1:
+            G = 1
+            break
+    Tg = T // G
+    cap = int(max(1, round(Tg * K / num_experts * capacity_factor)))
+    cap = min(Tg, max(cap, min(Tg, 8)))
+    flat = picks.reshape(G, Tg * K)
+    onehot = (flat[..., None] == np.arange(num_experts)).astype(np.int64)
+    pos = np.cumsum(onehot, axis=1) - onehot
+    pos = np.take_along_axis(pos, flat[..., None], axis=2)[..., 0]
+    return G, cap, pos < cap
+
+
+def lm_moe(by_path: dict) -> None:
+    """Phase 16: Phi-3.5-MoE at full width (MOE_LAYERS layers) through
+    ``generate`` (bf16, capacity factor 1.25), decode against prefill in
+    fp32 at a dropless capacity, and the drop rule on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe
+    from repro_torch.train import steps
+
+    phase_t0 = time.perf_counter()
+    cfg = get_config(MOE_ARCH).replace(num_layers=MOE_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = model_lib.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in net.parameters())
+    emit({"lm_moe": "init", "arch": cfg.name, "layers": cfg.num_layers,
+          "published_layers": get_config(MOE_ARCH).num_layers,
+          "experts": cfg.num_experts, "top_k": cfg.moe_top_k,
+          "expert_d_ff": cfg.moe_d_ff, "params": n_params,
+          "param_count_cfg": cfg.param_count(),
+          "init_s": time.perf_counter() - t0,
+          "params_gb": torch.cuda.memory_allocated() / 1e9})
+    # the config's count leaves out the final norm's d_model scales
+    if n_params != cfg.param_count() + cfg.d_model:
+        raise AssertionError(f"{n_params} parameters, the config counts "
+                             f"{cfg.param_count()} + {cfg.d_model}")
+
+    # (a) bf16 generate at the serving shape, the published capacity
+    a = LM_SERVE
+    B, S, n = a["batch"], a["prompt"], a["gen"]
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            dtype=torch.int32, device="cuda")
+    serve_lib.generate(cfg, net, prompts[:, :64], 2)    # first-call costs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = serve_lib.generate(cfg, net, prompts, n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_path["lm_moe"] = launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    pre_ms, decode_ms, logits, cache, tok, idx = _timed_steps(
+        net, cfg, prompts, n)
+    decode = steps.make_decode_step(cfg)
+    if any(_profile("lm_moe decode step",
+                    lambda: decode(net, tok, cache, idx)).values()):
+        raise AssertionError("lm_moe decode step: the profiler saw hand "
+                             "kernels")
+    traced = RECORDS[-1]
+    ok_toks = (toks.shape == (B, n) and int(toks.min()) >= 0
+               and int(toks.max()) < cfg.vocab_size)
+    emit({"lm_moe": "serve/bf16", "arch": cfg.name, "batch": B, "prompt": S,
+          "gen": n, "capacity_factor": cfg.moe_capacity_factor,
+          "wall_s": wall, "tokens_per_s": B * n / wall,
+          "prefill_ms": sorted(pre_ms)[1], "prefill_ms_all": pre_ms,
+          "decode_ms_per_token": decode_ms,
+          "decode_tokens_per_s": B * 1e3 / decode_ms,
+          "decode_device_busy_share": traced["device_busy_share"],
+          "decode_device_launches": traced["device_launches"],
+          "peak_gb": peak, "launches": launches,
+          "tokens_ok": ok_toks, "sample": toks[0, :8].tolist()})
+    if not ok_toks or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"lm_moe: tokens {tuple(toks.shape)} or "
+                             f"logits out of range")
+    if any(launches.values()):
+        raise AssertionError(f"lm_moe launched hand kernels: {launches}")
+    del cache, logits
+
+    # (b) fp32 at a dropless capacity: decode against prefill
+    dropless = cfg.num_experts / cfg.moe_top_k
+    cfg32 = cfg.replace(compute_dtype="float32",
+                        moe_capacity_factor=dropless)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    checks = _decode_vs_prefill(net, cfg32, prompts, max(LM_STEPS),
+                                LM_STEPS, False, "lm_moe/fp32")
+    emit({"lm_moe": "decode_vs_prefill/fp32", "batch": B, "prompt": S,
+          "capacity_factor": dropless, "checks": checks, "tol": LM_TOL,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t0})
+
+    # (c) the drop rule at (a)'s prefill: layer 0's ln2 input, routed and
+    # dispatched on the card, its kept mask against the reference's rule
+    # computed on the host from the card's own picks
+    seen = []
+    real_apply = moe.moe_apply
+
+    def capture(p, x, *args, **kw):
+        if not seen:
+            seen.append((p, x))
+        return real_apply(p, x, *args, **kw)
+
+    moe.moe_apply = capture
+    try:
+        steps.make_prefill_step(cfg)(net, {"tokens": prompts})
+    finally:
+        moe.moe_apply = real_apply
+    p, x = seen[0]
+    T = x.shape[0] * x.shape[1]
+    xt = x.reshape(T, -1)
+    G = moe.groups(T)
+    cap = moe.capacity(T // G, cfg, cfg.moe_capacity_factor)
+    with torch.no_grad():
+        probs, _, gate_i = moe.route(p, xt, cfg)
+        _, _, _, keep = moe._dispatch_group(
+            xt.reshape(G, T // G, -1), gate_i.reshape(G, T // G, -1),
+            cfg.num_experts, cap)
+    picks, kept = gate_i.cpu().numpy(), keep.cpu().numpy()
+    probs = probs.cpu().numpy()
+    hG, hcap, hkept = host_kept(picks, cfg.num_experts,
+                                cfg.moe_capacity_factor)
+    K = cfg.moe_top_k
+    stable = np.argsort(-probs, axis=-1, kind="stable")[:, :K]
+    top = -np.sort(-probs, axis=-1)
+    rec = {"lm_moe": "drop_rule", "tokens": T, "layer": 0,
+           "capacity_factor": cfg.moe_capacity_factor, "groups": G,
+           "capacity": cap, "host_groups": hG, "host_capacity": hcap,
+           "assignments": int(kept.size),
+           "dropped": int((~kept).sum()),
+           "dropped_share": float((~kept).mean()),
+           "kept_equal_host_rule": bool(np.array_equal(kept, hkept)),
+           "picks_equal_host_stable_sort": bool(np.array_equal(picks,
+                                                               stable)),
+           "tokens_with_tied_probs_in_top_k_plus_1": int(
+               (np.diff(top[:, :K + 1], axis=-1) == 0).any(-1).sum())}
+    emit(rec)
+    if not (rec["kept_equal_host_rule"] and rec["picks_equal_host_stable_sort"]
+            and (G, cap) == (hG, hcap) and rec["dropped"] > 0):
+        raise AssertionError(f"lm_moe: the drop rule on the card differs "
+                             f"from the reference's, or drops nothing: {rec}")
+    del net, seen, p, x, xt
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_moe", "seconds": time.perf_counter() - phase_t0})
+
+
+# ---------------------------------------------------------------------------
 # phase 2 (continued): the analysis gate on the card
 def analysis_gate(ext, dev) -> None:
     """The launch audit held against the built extension (kernel_info's
@@ -3795,7 +4014,7 @@ def main() -> int:
     ap.add_argument("--only", choices=("large_fit", "multi_mid", "figures",
                                        "sessions", "fabric", "store",
                                        "serve", "obs", "dist", "shard",
-                                       "lm"),
+                                       "lm", "moe"),
                     help="run only this part, and print no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3825,6 +4044,8 @@ def main() -> int:
             shard({}, {k: [] for k in KERNELS})
         elif args.only == "lm":
             lm_serve({})
+        elif args.only == "moe":
+            lm_moe({})
         elif args.only in ("figures", "sessions", "fabric", "store",
                            "serve", "obs"):
             run = {"figures": figures, "sessions": sessions,
@@ -3863,6 +4084,7 @@ def main() -> int:
     dist(by_path)
     shard(by_path, cases)
     lm_serve(by_path)
+    lm_moe(by_path)
     if not all(traced.values()):
         raise AssertionError(f"the profiler saw none of some kernels: "
                              f"{traced}")

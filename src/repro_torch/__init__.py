@@ -22,14 +22,19 @@ durable sessions (``repro_torch.store`` on ``repro_torch.checkpoint``,
 the reference's file format); the batching predict server
 (``repro_torch.serve``); and observability (``repro_torch.obs``:
 convergence telemetry, spans of the engine's phases, the metrics
-registry, the timing helper); and, of the seed substrate, the dense
-decoder family's serving path (``repro_torch.configs``,
-``repro_torch.models``, ``repro_torch.train.steps``,
-``repro_torch.launch.serve``: prefill and ring-KV decode of qwen2,
-qwen2.5, gemma2, gemma3 and internvl2, in plain PyTorch, as the
-reference's attention is plain ``jnp``).  ``python -m
-repro_torch.launch.serve --arch gemma2-2b --reduced --device cpu`` runs
-it on the CPU.  The four TPU kernels (the square and the tiled
+registry, the timing helper); and, of the seed substrate, the decoder
+family's serving path (``repro_torch.configs``, ``repro_torch.models``,
+``repro_torch.train.steps``, ``repro_torch.launch.serve``: prefill and
+ring-KV decode of qwen2, qwen2.5, gemma2, gemma3 and internvl2, and of
+the mixture-of-experts Phi-3.5-MoE (``repro_torch.models.moe``: top-k
+routing, grouped static-capacity dispatch, shared experts and dense
+leading layers), in plain PyTorch, as the reference's attention and
+experts are plain ``jnp``).  ``python -m repro_torch.launch.serve --arch
+gemma2-2b --reduced --device cpu`` runs it on the CPU, and ``--arch
+phi3.5-moe-42b-a6.6b`` the MoE path; ``pytest tests/test_torch_moe.py``
+holds the MoE layer and stack to the reference, and ``python3
+chip_smoke.py --only moe`` runs Phi-3.5-MoE at full width on the card.
+The four TPU kernels (the square and the tiled
 weighted Gram build, the fused QP step and the fused multi-iteration QP
 solve) and the server's fixed-order product (``gemm_rows``) are CUDA C++
 kernels for ``sm_90a`` under ``repro_torch/kernels/csrc/``, built at

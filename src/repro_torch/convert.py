@@ -8,10 +8,11 @@ with tensors on a chosen device, each leaf keeping its dtype.
 ``to_numpy`` turns a port tuple back into the same tuple of numpy arrays.
 Nothing here imports the reference: the twin is found by the class name.
 
-``lm_params_to_torch`` / ``lm_params_to_numpy`` do the same for the dense
+``lm_params_to_torch`` / ``lm_params_to_numpy`` do the same for the
 decoder's weights: the reference's parameter pytree (numpy leaves,
-``layers`` stacked along a leading L axis) to the port's ``Transformer``
-and back, each leaf bitwise.
+``layers`` stacked along a leading L axis, an MoE config's
+``dense_layers`` a list) to the port's ``Transformer`` and back, each
+leaf bitwise.
 """
 from __future__ import annotations
 
@@ -47,27 +48,39 @@ def to_numpy(tree):
     return type(tree)(*(leaf(x) for x in tree))
 
 
+def _put(node: dict, path, leaf) -> None:
+    for key in path[:-1]:
+        node = node.setdefault(key, {})
+    node[path[-1]] = leaf
+
+
+def _leaf(params, name: str) -> np.ndarray:
+    """The reference tree's array for the port's parameter ``name``:
+    ``layers.<i>.<path>`` is row i of a leaf stacked over L, and
+    ``dense_layers.<i>.<path>`` a leaf of the i-th entry of a list."""
+    parts = name.split(".")
+    row = None
+    if parts[0] == "layers":
+        row, parts = int(parts[1]), ["layers"] + parts[2:]
+    src = params
+    for key in parts:
+        src = src[int(key)] if isinstance(src, (list, tuple)) else src[key]
+    src = np.asarray(src)
+    return src if row is None else src[row]
+
+
 def lm_params_to_torch(params, cfg, device=None) -> "transformer.Transformer":
     """The port's ``Transformer`` for ``cfg`` holding the reference's
     parameter pytree ``params`` (``embed``, ``final_norm``, ``head`` where
-    the embeddings are untied, and ``layers`` stacked over L), on
-    ``device`` (``None`` means ``"cuda"``)."""
+    the embeddings are untied, ``dense_layers`` (a list) where an MoE
+    config has dense leading layers, and ``layers`` stacked over L, MoE
+    layers with their ``moe`` and ``moe.shared`` subtrees), on ``device``
+    (``None`` means ``"cuda"``)."""
     dev = device_lib.resolve(device)
     model = transformer.Transformer(cfg, dev)
     with torch.no_grad():
         for name, t in model.named_parameters():
-            src = params
-            parts = name.split(".")
-            if parts[0] == "layers":      # layers.<i>.<leaf path>
-                i, parts = int(parts[1]), parts[2:]
-                src = src["layers"]
-                for key in parts:
-                    src = src[key]
-                src = np.asarray(src)[i]
-            else:
-                for key in parts:
-                    src = src[key]
-                src = np.asarray(src)
+            src = _leaf(params, name)
             if src.shape != tuple(t.shape):
                 raise ValueError(f"{name}: the tree holds {src.shape}, the "
                                  f"model wants {tuple(t.shape)}")
@@ -77,7 +90,8 @@ def lm_params_to_torch(params, cfg, device=None) -> "transformer.Transformer":
 
 def lm_params_to_numpy(model) -> dict:
     """The reference's parameter pytree of a port ``Transformer``: numpy
-    leaves, ``layers`` stacked along a leading L axis."""
+    leaves, ``layers`` stacked along a leading L axis, ``dense_layers`` a
+    list of per-layer trees."""
     tree: dict = {}
     per_layer: dict = {}
     for name, t in model.named_parameters():
@@ -85,13 +99,15 @@ def lm_params_to_numpy(model) -> dict:
         leaf = t.detach().cpu().numpy()
         if parts[0] == "layers":
             per_layer.setdefault(tuple(parts[2:]), []).append(leaf)
-            continue
-        tree[parts[0]] = leaf
+        elif parts[0] == "dense_layers":
+            dense = tree.setdefault("dense_layers", [])
+            i = int(parts[1])
+            dense.extend({} for _ in range(i + 1 - len(dense)))
+            _put(dense[i], parts[2:], leaf)
+        else:
+            tree[parts[0]] = leaf
     layers: dict = {}
     for path, leaves in per_layer.items():
-        node = layers
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = np.stack(leaves)
+        _put(layers, path, np.stack(leaves))
     tree["layers"] = layers
     return tree

@@ -2,7 +2,8 @@
 (twin of ``repro/launch/serve.py``).
 
 Greedy-decodes synthetic prompts for a selectable architecture of the
-dense decoder family (reduced configs run on the CPU).
+decoder family, dense or mixture-of-experts (reduced configs run on
+the CPU).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
@@ -67,19 +68,23 @@ def generate(cfg, params, prompts, gen_len: int, extra=None,
 
 def _grow_cache(cfg, cache, batch, total_len, long_mode):
     """Re-seat a prefill cache into a buffer sized for prefill+generation
-    (kept as it is where the sizes already agree)."""
+    (kept as it is where the sizes already agree): the stacked layers'
+    and, in an MoE config with dense leading layers, each of theirs."""
     dtype = torch_dtype(cfg.compute_dtype)
     spec = transformer.cache_spec(cfg, batch, total_len, dtype, long_mode)
-    if all(spec["layers"][k].shape == v.shape
-           for k, v in cache["layers"].items()):
+    layer_caches = lambda c: [c["layers"], *c.get("dense", ())]
+    if all(want[k].shape == got.shape
+           for want, have in zip(layer_caches(spec), layer_caches(cache))
+           for k, got in have.items()):
         return cache
     device = cache["layers"]["k"].device
     target = transformer.cache_init(cfg, batch, total_len, dtype, long_mode,
                                     device=device)
-    for name, src in cache["layers"].items():
-        dst = target["layers"][name]
-        # KV caches grow along the slot axis; copy the prefix
-        dst[tuple(slice(0, s) for s in src.shape)] = src
+    for dst_layer, src_layer in zip(layer_caches(target),
+                                    layer_caches(cache), strict=True):
+        for name, src in src_layer.items():
+            # KV caches grow along the slot axis; copy the prefix
+            dst_layer[name][tuple(slice(0, s) for s in src.shape)] = src
     return target
 
 

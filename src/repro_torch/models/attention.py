@@ -24,7 +24,7 @@ multiple of the cache).  Prefill's logits and the cache's (pos -> k, v)
 map are the reference's; only a decode after a prompt longer than the
 cache changes, and there it becomes exact.
 
-The MLA half (DeepSeek-V2) comes with the MoE and MLA slice.
+The MLA half (DeepSeek-V2) comes with the MLA slice.
 """
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ _Q_CHUNK = 512
 NEG_INF = -2.0 ** 30
 
 _MLA = ("multi-head latent attention (deepseek-v2) is not ported yet: "
-        "ROADMAP queue 1, item 9, the MoE and MLA slice")
+        "ROADMAP queue 1, item 9, the MLA slice")
 
 
 # ===========================================================================

@@ -1,11 +1,15 @@
-"""The dense decoder stack: prefill and ring-KV decode (twin of the dense
-half of ``repro/models/transformer.py``).
+"""The decoder stack, dense and mixture-of-experts: prefill and ring-KV
+decode (twin of the dense and MoE halves of
+``repro/models/transformer.py``).
 
 ``Transformer`` is an ``nn.Module`` holding the reference's parameter
 tree: ``embed`` (V, d), ``final_norm``, ``head`` (d, V) where embeddings
-are untied, and a ``ModuleList`` of ``DecoderLayer`` (``ln1``, ``attn``,
-``ln2``, ``mlp``).  Weights keep the reference's (d_in, d_out) layout and
-fp32; compute runs in ``cfg.compute_dtype``.  Modules and parameter dicts
+are untied, ``dense_layers`` (a ``ModuleList``, the reference's list of
+``first_k_dense`` leading dense-MLP layers of an MoE config) and
+``layers``, a ``ModuleList`` of ``DecoderLayer`` (``ln1``, ``attn``,
+``ln2``, and ``mlp``, or ``moe`` past ``first_k_dense`` in an MoE
+config).  Weights keep the reference's (d_in, d_out) layout and fp32;
+compute runs in ``cfg.compute_dtype``.  Modules and parameter dicts
 index alike (``lp["attn"]``, ``"head" in params``), so every function
 here takes either.
 
@@ -15,13 +19,16 @@ Public API (mirroring the reference's):
     decode(params, batch, cache, idx, cfg, ...)     -> (logits, cache)
     cache_spec / cache_init(cfg, batch, ...)        -> cache (stacked)
 
-Caches are tensors stacked over layers, ``k``/``v`` (L, B, Sc, K, hd) and
-``pos`` (L, Sc), as the reference's scan stacks them; ``decode`` writes
-the new key of every layer in place.  The reference's scan over layers,
-``constrain_activations`` and ``remat`` have no eager twin.  MoE layers,
-MLA, mamba and shared-attention layers and the encoder raise
-``NotImplementedError`` naming the slice of ROADMAP queue 1, item 9 that
-brings them; ``forward_train`` comes with the training slice.
+Caches are tensors stacked over the ``layers``, ``k``/``v`` (L, B, Sc, K,
+hd) and ``pos`` (L, Sc), as the reference's scan stacks them, and
+``cache["dense"]``, a list of one such dict per dense leading layer;
+``decode`` writes the new key of every layer in place.  Prefill and
+decode discard the MoE layers' aux loss, as the reference's serving path
+does.  The reference's scan over layers, ``constrain_activations`` and
+``remat`` have no eager twin.  MLA, mamba and shared-attention layers
+and the encoder raise ``NotImplementedError`` naming the slice of
+ROADMAP queue 1, item 9 that brings them; ``forward_train`` comes with
+the training slice.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from repro_torch.configs.base import (
     ModelConfig,
 )
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     dense_init,
     embed_init,
@@ -54,11 +62,9 @@ _SLICE = "is not ported yet: ROADMAP queue 1, item 9, the {} slice"
 
 
 def unsupported(cfg: ModelConfig):
-    """The reason the dense stack cannot run ``cfg``, or None."""
+    """The reason the stack cannot run ``cfg``, or None."""
     if cfg.use_mla:
-        return "multi-head latent attention " + _SLICE.format("MoE and MLA")
-    if cfg.is_moe:
-        return "a mixture-of-experts MLP " + _SLICE.format("MoE and MLA")
+        return "multi-head latent attention " + _SLICE.format("MLA")
     if cfg.is_encoder_decoder or cfg.frontend == "audio":
         return "the encoder-decoder stack " + _SLICE.format(
             "encoder-decoder")
@@ -69,7 +75,7 @@ def unsupported(cfg: ModelConfig):
     return None
 
 
-def _require_dense(cfg: ModelConfig) -> None:
+def _require_supported(cfg: ModelConfig) -> None:
     why = unsupported(cfg)
     if why:
         raise NotImplementedError(f"{cfg.name}: {why}")
@@ -99,11 +105,26 @@ def _zeros(shape, device) -> nn.Parameter:
                                     device=device))
 
 
-class DecoderLayer(_Indexed, nn.Module):
-    """Pre-norm attention then pre-norm MLP; norms start at zero (the
-    gemma convention: an offset from 1)."""
+class _Tree(_Indexed, nn.Module):
+    """A nested parameter mapping: a parameter per ``(shape, fan_in)``
+    leaf of ``shapes``, a submodule per nested dict (the MoE layer's
+    ``shared`` experts)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, shapes: dict, device=None):
+        super().__init__()
+        for name, spec in shapes.items():
+            if isinstance(spec, dict):
+                setattr(self, name, _Tree(spec, device))
+            else:
+                setattr(self, name, _empty(spec[0], device))
+
+
+class DecoderLayer(_Indexed, nn.Module):
+    """Pre-norm attention then a pre-norm MLP, or the MoE layer where the
+    config has experts and the layer is not one of the dense leading
+    ones; norms start at zero (the gemma convention: an offset from 1)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, dense: bool = False):
         super().__init__()
         d = cfg.d_model
         self.ln1 = _zeros((d,), device)
@@ -112,28 +133,41 @@ class DecoderLayer(_Indexed, nn.Module):
                    _empty(shape, device))
             for name, (shape, fan) in attn.gqa_shapes(cfg).items()})
         self.ln2 = _zeros((d,), device)
-        self.mlp = nn.ParameterDict({
-            name: _empty(shape, device)
-            for name, (shape, _) in mlp_shapes(d, cfg.d_ff,
-                                               cfg.gated_mlp).items()})
+        if cfg.is_moe and not dense:
+            self.moe = _Tree(moe_lib.moe_shapes(cfg), device)
+        else:
+            self.mlp = nn.ParameterDict({
+                name: _empty(shape, device)
+                for name, (shape, _) in mlp_shapes(d, cfg.d_ff,
+                                                   cfg.gated_mlp).items()})
 
 
 class Transformer(_Indexed, nn.Module):
-    """The dense decoder's parameters (uninitialised until
+    """The decoder's parameters (uninitialised until
     :func:`init_params` or ``repro_torch.convert.lm_params_to_torch``
     fills them)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        _require_dense(cfg)
+        _require_supported(cfg)
         self.cfg = cfg
         V, d = cfg.vocab_size, cfg.d_model
         self.embed = _empty((V, d), device)
         self.final_norm = _zeros((d,), device)
         if not cfg.tie_embeddings:
             self.head = _empty((d, V), device)
+        n_dense = _num_dense(cfg)
+        if n_dense:
+            self.dense_layers = nn.ModuleList(
+                DecoderLayer(cfg, device, dense=True)
+                for _ in range(n_dense))
         self.layers = nn.ModuleList(DecoderLayer(cfg, device)
-                                    for _ in range(cfg.num_layers))
+                                    for _ in range(cfg.num_layers - n_dense))
+
+
+def _num_dense(cfg: ModelConfig) -> int:
+    """The dense-MLP leading layers, held apart from the stacked ones."""
+    return cfg.first_k_dense if cfg.is_moe else 0
 
 
 # ===========================================================================
@@ -188,12 +222,15 @@ def init_params(cfg: ModelConfig, rng=None, device=None) -> Transformer:
     if "head" in model:
         dense_init(model.head, cfg.d_model, rng)
     mlp_fans = mlp_shapes(cfg.d_model, cfg.d_ff, cfg.gated_mlp)
-    for layer in model.layers:
+    for layer in (*getattr(model, "dense_layers", ()), *model.layers):
         for name, (_, fan) in attn.gqa_shapes(cfg).items():
             if fan:
                 dense_init(layer.attn[name], fan, rng)
-        for name, (_, fan) in mlp_fans.items():
-            dense_init(layer.mlp[name], fan, rng)
+        if "moe" in layer:
+            moe_lib.moe_init(layer.moe, cfg, rng)
+        else:
+            for name, (_, fan) in mlp_fans.items():
+                dense_init(layer.mlp[name], fan, rng)
     return model
 
 
@@ -230,15 +267,20 @@ def cache_build(cfg: ModelConfig, batch: int, seq_len: int, dtype,
                 long_mode: bool, make: str, device=None) -> Dict:
     """The stacked cache for decode; ``seq_len`` = max positions.
     make = 'spec' (meta tensors, nothing allocated) | 'init'."""
-    _require_dense(cfg)
+    _require_supported(cfg)
     cache_len = required_cache_len(cfg, seq_len, long_mode)
     dev = torch.device("meta") if make == "spec" else \
         device_lib.resolve(device)
     per_layer = attn.gqa_cache_init(cfg, batch, cache_len,
                                     torch_dtype(dtype), device=dev)
-    L = cfg.num_layers
-    return {"layers": {k: v[None].expand((L,) + v.shape).clone()
-                       for k, v in per_layer.items()}}
+    n_dense = _num_dense(cfg)
+    L = cfg.num_layers - n_dense
+    cache = {"layers": {k: v[None].expand((L,) + v.shape).clone()
+                        for k, v in per_layer.items()}}
+    if n_dense:
+        cache["dense"] = [{k: v.clone() for k, v in per_layer.items()}
+                          for _ in range(n_dense)]
+    return cache
 
 
 cache_spec = functools.partial(cache_build, make="spec")
@@ -253,9 +295,18 @@ def _attn_block_prefill(lp, x, *, positions, window: int, cfg: ModelConfig,
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     a, cache = attn.gqa_prefill(lp["attn"], h, positions=positions,
                                 window=window, cfg=cfg, cache_len=cache_len)
-    x = x + a
+    return _mlp_block(lp, x + a, cfg), cache
+
+
+def _mlp_block(lp, x, cfg: ModelConfig):
+    """The pre-norm MLP or MoE half of a layer; the MoE aux loss is
+    discarded, as the reference's serving path does."""
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h, cfg.act, cfg.gated_mlp), cache
+    if "moe" in lp:
+        m, _ = moe_lib.moe_apply(lp["moe"], h, cfg)
+    else:
+        m = mlp_apply(lp["mlp"], h, cfg.act, cfg.gated_mlp)
+    return x + m
 
 
 @torch.no_grad()
@@ -267,14 +318,24 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     ``min_cache_len`` reserves ring-cache capacity beyond the prompt so
     the caller can decode continuation tokens without re-seating the
     cache."""
-    _require_dense(cfg)
+    _require_supported(cfg)
     dtype = torch_dtype(cfg.compute_dtype)
     x, _, _ = _embed_inputs(params, batch, cfg, dtype)
     B, S = x.shape[:2]
     cache_len = max(required_cache_len(cfg, S, long_mode), min_cache_len)
     positions = torch.arange(S, device=x.device)
-    windows = layer_windows(cfg, long_mode)
-    L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    n_dense = _num_dense(cfg)
+    # the dense leading layers attend globally (window 0), as the
+    # reference's do whatever the config's pattern
+    windows = layer_windows(cfg, long_mode)[n_dense:]
+    cache = {}
+    if n_dense:
+        cache["dense"] = []
+        for lp in params["dense_layers"]:
+            x, c = _attn_block_prefill(lp, x, positions=positions, window=0,
+                                       cfg=cfg, cache_len=cache_len)
+            cache["dense"].append(c)
+    L, K, hd = cfg.num_layers - n_dense, cfg.num_kv_heads, cfg.head_dim
     ck = torch.empty((L, B, cache_len, K, hd), dtype=dtype, device=x.device)
     cv = torch.empty_like(ck)
     cpos = torch.empty((L, cache_len), dtype=torch.int32, device=x.device)
@@ -283,9 +344,10 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                                    window=windows[i], cfg=cfg,
                                    cache_len=cache_len)
         ck[i], cv[i], cpos[i] = c["k"], c["v"], c["pos"]
+    cache["layers"] = {"k": ck, "v": cv, "pos": cpos}
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_head(x[:, -1:, :], _head(params), cfg.final_softcap)
-    return logits, {"layers": {"k": ck, "v": cv, "pos": cpos}}
+    return logits, cache
 
 
 # ===========================================================================
@@ -296,9 +358,7 @@ def _attn_block_decode(lp, x, cache, cache_index: int, *, window: int,
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     a, cache = attn.gqa_decode(lp["attn"], h, cache, cache_index,
                                window=window, cfg=cfg)
-    x = x + a
-    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h, cfg.act, cfg.gated_mlp), cache
+    return _mlp_block(lp, x + a, cfg), cache
 
 
 @torch.no_grad()
@@ -307,11 +367,17 @@ def decode(params, batch: Dict[str, torch.Tensor], cache: Dict,
     """One decode step.  batch['tokens']: (B, 1); ``cache_index`` is the
     token's absolute position.  Returns (logits (B, 1, V) fp32, cache),
     the cache updated in place."""
-    _require_dense(cfg)
+    _require_supported(cfg)
     dtype = torch_dtype(cfg.compute_dtype)
     scale = cfg.final_softcap > 0
     x = embed_tokens(params["embed"], batch["tokens"], scale, dtype)
-    windows = layer_windows(cfg, long_mode)
+    n_dense = _num_dense(cfg)
+    if n_dense:
+        for lp, c in zip(params["dense_layers"], cache["dense"],
+                         strict=True):
+            x, _ = _attn_block_decode(lp, x, c, cache_index, window=0,
+                                      cfg=cfg)
+    windows = layer_windows(cfg, long_mode)[n_dense:]
     layers = cache["layers"]
     for i, lp in enumerate(params["layers"]):
         c = {"k": layers["k"][i], "v": layers["v"][i],
