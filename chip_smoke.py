@@ -290,7 +290,28 @@ any failure raises and exits non-zero:
    the exclusive cumsum in token-major, k-minor order) computed in numpy
    from the card's picks, with the share of assignments dropped (some
    must be);
-17. the ``kernels`` line (with ``launches_by_path["shard"]``, phase 14's
+17. DeepSeek-V2's multi-head latent attention at full published width
+   (d_model 5120, 128 heads with q_lora 1536, kv_lora 512, nope 128, rope
+   64 and v 128; 160 routed experts of d_ff 1536, top-6, 2 shared; the
+   first layer dense with d_ff 12288; vocab 102400, untied head), depth
+   cut from 60 layers to DSV2_LAYERS = 3 (the dense layer and two MoE
+   layers, 37.3 GB of fp32 weights; all 60 are ~943 GB), fp32 weights
+   from ``init_params`` with a seeded generator, built once: (a) bf16 at
+   the published capacity factor 1.25, ``generate`` at batch 4, a
+   512-token prompt and 32 new tokens, its wall and tokens/s, the prefill
+   step (median of 3) and the decode step per token (CUDA events), one
+   decode step traced (busy share, launches, and the device ms of the
+   kernels inside the MLA blocks against the MoE layers), the peak, and
+   the bytes of the stacked latent cache beside those of expanded K/V
+   caches of its shape; no hand kernel launched (its
+   ``launches_by_path["lm_mla"]`` is zeros); (b) fp32 at a dropless
+   capacity (27.0 >= E / K), batch 2, decode's logits at steps 1, 8 and
+   32 against a prefill over the prompt and the tokens so far (max abs
+   diff <= 1e-3, equal argmax); (c) fp32, batch 1, a 2560-token prompt
+   (its MLA prefill takes ``_flash_sdpa`` with v's head dim below q's) and
+   16 new tokens, (b)'s check at steps 1 and 16 against the 2576-slot
+   latent cache;
+18. the ``kernels`` line (with ``launches_by_path["shard"]``, phase 14's
    launches counted in the ranks), the card line, and the result line.
 
 ``--only`` runs one part and prints no result line, to compare two
@@ -301,7 +322,7 @@ N in {328, 329, 515, 1000}, 100 iterations with the fold), each against
 its plain version and timed, ``figures`` phase 7, ``sessions`` phase 8,
 ``fabric`` phase 9, ``store`` phase 10, ``serve`` phase 11, ``obs``
 phase 12, ``dist`` phase 13, ``shard`` phase 14, ``lm`` phase 15,
-``moe`` phase 16.
+``moe`` phase 16, ``mla`` phase 17.
 
 Without a CUDA device, or without the rest of the repository beside it,
 it exits non-zero and prints no result.
@@ -511,6 +532,18 @@ LM_TOL = 1e-3
 # LM_STEPS; (c) the drop rule on the card at (a)'s 4 x 512-token prefill
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 MOE_LAYERS = 8
+
+# phase 17: DeepSeek-V2's multi-head latent attention at full width, depth
+# cut from 60 layers to DSV2_LAYERS (the dense leading layer and two MoE
+# layers: 37.3 GB of fp32 weights; all 60 are ~943 GB).  (a) bf16 generate
+# at the published capacity factor; (b) fp32 decode against prefill at a
+# dropless capacity (MLA_DROPLESS >= E / K = 160 / 6) at LM_STEPS; (c) the
+# same after MLA_LONG's prompt, whose prefill takes _flash_sdpa with v's
+# head dim (128) below q's and k's (192)
+MLA_ARCH = "deepseek-v2-236b"
+DSV2_LAYERS = 3
+MLA_DROPLESS = 27.0
+MLA_LONG = dict(batch=1, prompt=2560, gen=16, steps=(1, 16))
 
 RECORDS = []
 
@@ -1212,9 +1245,11 @@ PROFILED = {"weighted_gram": "gram_kernel",
             "qp_pg_step": "qp_step_kernel", "qp_pg_multi": "qp_multi_"}
 
 
-def _profile(label: str, fn) -> dict:
+def _profile(label: str, fn, blocks=()) -> dict:
     """Trace one call of ``fn`` with torch.profiler: print its device busy
-    share and launches; return the launches of each hand kernel."""
+    share and launches, and where ``blocks`` names ``record_function``
+    ranges that ``fn`` opens, the device ms of the kernels launched inside
+    each; return the launches of each hand kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1233,7 +1268,8 @@ def _profile(label: str, fn) -> dict:
             continue
         # a span is a record_function range: the profiler lists its
         # device-side projection, which is no kernel
-        if getattr(ev, "is_user_annotation", False) or ev.key in SPAN_NAMES:
+        if (getattr(ev, "is_user_annotation", False) or ev.key in SPAN_NAMES
+                or ev.key in blocks):
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -1245,7 +1281,18 @@ def _profile(label: str, fn) -> dict:
             if frag in ev.key:
                 per_kernel[k] += ev.count
     top.sort(reverse=True)
-    emit({"profile": label, "traced_wall_s": wall,
+    block_us = {name: 0.0 for name in blocks}
+    block_calls = {name: 0 for name in blocks}
+    if blocks:
+        for ev in prof.events():
+            # a range's total counts the kernels its child ops launched
+            if ev.name in blocks and \
+                    ev.device_type == torch.autograd.DeviceType.CPU:
+                block_us[ev.name] += ev.device_time_total
+                block_calls[ev.name] += 1
+    extra = {"block_device_ms": {k: v / 1e3 for k, v in block_us.items()},
+             "block_calls": block_calls} if blocks else {}
+    emit({"profile": label, "traced_wall_s": wall, **extra,
           "summary_s": time.perf_counter() - t0,
           "device_busy_s": busy_us / 1e6,
           "device_busy_share": busy_us / 1e6 / wall,
@@ -3653,7 +3700,10 @@ def _decode_vs_prefill(net, cfg, prompts, gen: int, at, long_mode: bool,
 def _timed_steps(net, cfg, prompts, gen: int) -> tuple:
     """The prefill step's ms (3 runs) and the decode step's ms a token
     over ``gen`` greedy tokens, by CUDA events; returns them with the
-    last cache, token and position."""
+    last cache, token and position.  The cache holds S + gen + 1 slots,
+    so that the step a caller traces next, at position S + gen, has a
+    slot of its own (MLA's decode raises past its cache; a global GQA
+    layer's would overwrite position 0)."""
     from repro_torch.launch import serve as serve_lib
     from repro_torch.train import steps
 
@@ -3668,7 +3718,7 @@ def _timed_steps(net, cfg, prompts, gen: int) -> tuple:
         ev1.record()
         torch.cuda.synchronize()
         pre_ms.append(ev0.elapsed_time(ev1))
-    cache = serve_lib._grow_cache(cfg, cache, B, S + gen, False)
+    cache = serve_lib._grow_cache(cfg, cache, B, S + gen + 1, False)
     tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
     idx = S
     ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -3963,6 +4013,211 @@ def lm_moe(by_path: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 17: DeepSeek-V2's multi-head latent attention at full width
+def _cache_bytes(cache: dict, names) -> int:
+    layers = [cache["layers"], *cache.get("dense", ())]
+    return sum(c[n].numel() * c[n].element_size() for c in layers
+               for n in names)
+
+
+def _expanded_kv_bytes(cfg, cache: dict) -> int:
+    """The bytes of expanded per-head K/V caches of the latent cache's
+    shape (its layers, batch and slots), read from meta tensors."""
+    layers = [cache["layers"]["ckv"], *(c["ckv"][None]
+                                        for c in cache.get("dense", ()))]
+    qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    total = 0
+    for ckv in layers:
+        L, B, Sc = ckv.shape[:3]
+        for dim in (qk, cfg.v_head_dim):
+            t = torch.empty((L, B, Sc, cfg.num_heads, dim), dtype=ckv.dtype,
+                            device="meta")
+            total += t.numel() * t.element_size()
+    return total
+
+
+@contextlib.contextmanager
+def _ranges(targets):
+    """Wrap each ``(module, attr, range name)`` function in a
+    ``record_function`` range while the block runs."""
+    real = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+
+    def wrapped(fn, name):
+        def call(*args, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kw)
+        return call
+
+    for (mod, attr, fn), (_, _, name) in zip(real, targets):
+        setattr(mod, attr, wrapped(fn, name))
+    try:
+        yield
+    finally:
+        for mod, attr, fn in real:
+            setattr(mod, attr, fn)
+
+
+def lm_mla(by_path: dict) -> None:
+    """Phase 17: DeepSeek-V2 at full width (DSV2_LAYERS layers) through
+    ``generate`` (bf16, capacity factor 1.25), then decode against prefill
+    in fp32 at a dropless capacity, after a 512- and a 2560-token
+    prompt."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import attention
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe
+    from repro_torch.train import steps
+
+    phase_t0 = time.perf_counter()
+    published = get_config(MLA_ARCH)
+    cfg = published.replace(num_layers=DSV2_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = model_lib.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in net.parameters())
+    emit({"lm_mla": "init", "arch": cfg.name, "layers": cfg.num_layers,
+          "published_layers": published.num_layers,
+          "reduced": {"num_layers": [published.num_layers, cfg.num_layers]},
+          "dense_layers": len(net.dense_layers), "moe_layers": len(net.layers),
+          "heads": cfg.num_heads, "q_lora": cfg.q_lora_rank,
+          "kv_lora": cfg.kv_lora_rank, "nope": cfg.qk_nope_head_dim,
+          "rope": cfg.qk_rope_head_dim, "v_head": cfg.v_head_dim,
+          "experts": cfg.num_experts, "top_k": cfg.moe_top_k,
+          "params": n_params, "param_count_cfg": cfg.param_count(),
+          "published_params_gb": published.param_count() * 4 / 1e9,
+          "init_s": time.perf_counter() - t0,
+          "params_gb": torch.cuda.memory_allocated() / 1e9})
+    # the config's count leaves out the final norm's d_model scales and
+    # each layer's two latent norms
+    norms = cfg.d_model + cfg.num_layers * (cfg.q_lora_rank
+                                            + cfg.kv_lora_rank)
+    if n_params != cfg.param_count() + norms:
+        raise AssertionError(f"{n_params} parameters, the config counts "
+                             f"{cfg.param_count()} + {norms}")
+
+    # (a) bf16 generate at the serving shape, the published capacity
+    a = LM_SERVE
+    B, S, n = a["batch"], a["prompt"], a["gen"]
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            dtype=torch.int32, device="cuda")
+    serve_lib.generate(cfg, net, prompts[:, :64], 2)    # first-call costs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = serve_lib.generate(cfg, net, prompts, n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_path["lm_mla"] = launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    pre_ms, decode_ms, logits, cache, tok, idx = _timed_steps(
+        net, cfg, prompts, n)
+    decode = steps.make_decode_step(cfg)
+    blocks = ("mla_block", "moe_layer")
+    with _ranges([(attention, "mla_decode", "mla_block"),
+                  (moe, "moe_apply", "moe_layer")]):
+        if any(_profile("lm_mla decode step",
+                        lambda: decode(net, tok, cache, idx),
+                        blocks).values()):
+            raise AssertionError("lm_mla decode step: the profiler saw hand "
+                                 "kernels")
+    traced = RECORDS[-1]
+    latent = _cache_bytes(cache, ("ckv", "kr"))
+    expanded = _expanded_kv_bytes(cfg, cache)
+    ok_toks = (toks.shape == (B, n) and int(toks.min()) >= 0
+               and int(toks.max()) < cfg.vocab_size)
+    emit({"lm_mla": "serve/bf16", "arch": cfg.name, "batch": B, "prompt": S,
+          "gen": n, "capacity_factor": cfg.moe_capacity_factor,
+          "wall_s": wall, "tokens_per_s": B * n / wall,
+          "prefill_ms": sorted(pre_ms)[1], "prefill_ms_all": pre_ms,
+          "decode_ms_per_token": decode_ms,
+          "decode_tokens_per_s": B * 1e3 / decode_ms,
+          "decode_device_busy_share": traced["device_busy_share"],
+          "decode_device_launches": traced["device_launches"],
+          "decode_device_ms": traced["device_busy_s"] * 1e3,
+          "decode_mla_blocks_device_ms":
+              traced["block_device_ms"]["mla_block"],
+          "decode_moe_layers_device_ms":
+              traced["block_device_ms"]["moe_layer"],
+          "decode_block_calls": traced["block_calls"],
+          "cache_slots": int(cache["layers"]["pos"].shape[-1]),
+          "latent_cache_bytes": latent,
+          "pos_bytes": _cache_bytes(cache, ("pos",)),
+          "expanded_kv_cache_bytes": expanded,
+          "expanded_over_latent": expanded / latent,
+          "peak_gb": peak, "launches": launches,
+          "tokens_ok": ok_toks, "sample": toks[0, :8].tolist()})
+    if not ok_toks or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"lm_mla: tokens {tuple(toks.shape)} or "
+                             f"logits out of range")
+    if any(launches.values()):
+        raise AssertionError(f"lm_mla launched hand kernels: {launches}")
+    if traced["block_calls"] != {"mla_block": cfg.num_layers,
+                                 "moe_layer": len(net.layers)}:
+        raise AssertionError(f"lm_mla: the traced decode step ran "
+                             f"{traced['block_calls']} blocks")
+    del cache, logits
+
+    # (b) fp32 at a dropless capacity: decode against prefill
+    if not MLA_DROPLESS >= cfg.num_experts / cfg.moe_top_k:
+        raise AssertionError(f"{MLA_DROPLESS} is not dropless")
+    cfg32 = cfg.replace(compute_dtype="float32",
+                        moe_capacity_factor=MLA_DROPLESS)
+    B32 = 2
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    checks = _decode_vs_prefill(net, cfg32, prompts[:B32], max(LM_STEPS),
+                                LM_STEPS, False, "lm_mla/fp32")
+    emit({"lm_mla": "decode_vs_prefill/fp32", "batch": B32, "prompt": S,
+          "capacity_factor": MLA_DROPLESS, "checks": checks, "tol": LM_TOL,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t0})
+
+    # (c) a prompt over the chunk threshold: MLA prefill takes _flash_sdpa
+    # with v narrower than q and k; decode reads the 2576-slot cache
+    c = MLA_LONG
+    long_prompt = torch.randint(0, cfg.vocab_size, (c["batch"], c["prompt"]),
+                                generator=gen, dtype=torch.int32,
+                                device="cuda")
+    flash_calls = []
+    real_flash = attention._flash_sdpa
+
+    def counting_flash(q, k, v, *args, **kw):
+        flash_calls.append((q.shape[1], q.shape[-1], v.shape[-1]))
+        return real_flash(q, k, v, *args, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    attention._flash_sdpa = counting_flash
+    try:
+        checks = _decode_vs_prefill(net, cfg32, long_prompt, c["gen"],
+                                    c["steps"], False, "lm_mla/long")
+    finally:
+        attention._flash_sdpa = real_flash
+    qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    want_call = (c["prompt"], qk, cfg.v_head_dim)
+    emit({"lm_mla": "decode_vs_prefill/long", "batch": c["batch"],
+          "prompt": c["prompt"], "cache_slots": c["prompt"] + c["gen"],
+          "capacity_factor": MLA_DROPLESS, "checks": checks, "tol": LM_TOL,
+          "flash_prefill_layers": flash_calls.count(want_call),
+          "flash_calls": sorted(set(flash_calls)),
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t0})
+    if flash_calls.count(want_call) != cfg.num_layers:
+        raise AssertionError(f"lm_mla/long: the {c['prompt']}-token prefill "
+                             f"took _flash_sdpa with Dv {cfg.v_head_dim} in "
+                             f"{flash_calls.count(want_call)} of "
+                             f"{cfg.num_layers} layers")
+    del net
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_mla", "seconds": time.perf_counter() - phase_t0})
+
+
+# ---------------------------------------------------------------------------
 # phase 2 (continued): the analysis gate on the card
 def analysis_gate(ext, dev) -> None:
     """The launch audit held against the built extension (kernel_info's
@@ -4014,7 +4269,7 @@ def main() -> int:
     ap.add_argument("--only", choices=("large_fit", "multi_mid", "figures",
                                        "sessions", "fabric", "store",
                                        "serve", "obs", "dist", "shard",
-                                       "lm", "moe"),
+                                       "lm", "moe", "mla"),
                     help="run only this part, and print no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -4046,6 +4301,8 @@ def main() -> int:
             lm_serve({})
         elif args.only == "moe":
             lm_moe({})
+        elif args.only == "mla":
+            lm_mla({})
         elif args.only in ("figures", "sessions", "fabric", "store",
                            "serve", "obs"):
             run = {"figures": figures, "sessions": sessions,
@@ -4085,6 +4342,7 @@ def main() -> int:
     shard(by_path, cases)
     lm_serve(by_path)
     lm_moe(by_path)
+    lm_mla(by_path)
     if not all(traced.values()):
         raise AssertionError(f"the profiler saw none of some kernels: "
                              f"{traced}")

@@ -28,12 +28,15 @@ family's serving path (``repro_torch.configs``, ``repro_torch.models``,
 ring-KV decode of qwen2, qwen2.5, gemma2, gemma3 and internvl2, and of
 the mixture-of-experts Phi-3.5-MoE (``repro_torch.models.moe``: top-k
 routing, grouped static-capacity dispatch, shared experts and dense
-leading layers), in plain PyTorch, as the reference's attention and
-experts are plain ``jnp``).  ``python -m repro_torch.launch.serve --arch
-gemma2-2b --reduced --device cpu`` runs it on the CPU, and ``--arch
-phi3.5-moe-42b-a6.6b`` the MoE path; ``pytest tests/test_torch_moe.py``
-holds the MoE layer and stack to the reference, and ``python3
-chip_smoke.py --only moe`` runs Phi-3.5-MoE at full width on the card.
+leading layers), and of DeepSeek-V2 (its multi-head latent attention:
+expanded prefill, absorbed decode, the latent cache), in plain PyTorch,
+as the reference's attention and experts are plain ``jnp``).  ``python
+-m repro_torch.launch.serve --arch gemma2-2b --reduced --device cpu``
+runs it on the CPU, ``--arch phi3.5-moe-42b-a6.6b`` the MoE path and
+``--arch deepseek-v2-236b`` the MLA path; ``pytest
+tests/test_torch_moe.py tests/test_torch_mla.py`` holds them to the
+reference, and ``python3 chip_smoke.py --only moe`` / ``--only mla``
+runs Phi-3.5-MoE / DeepSeek-V2 at full width on the card.
 The four TPU kernels (the square and the tiled
 weighted Gram build, the fused QP step and the fused multi-iteration QP
 solve) and the server's fixed-order product (``gemm_rows``) are CUDA C++

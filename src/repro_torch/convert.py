@@ -74,8 +74,10 @@ def lm_params_to_torch(params, cfg, device=None) -> "transformer.Transformer":
     parameter pytree ``params`` (``embed``, ``final_norm``, ``head`` where
     the embeddings are untied, ``dense_layers`` (a list) where an MoE
     config has dense leading layers, and ``layers`` stacked over L, MoE
-    layers with their ``moe`` and ``moe.shared`` subtrees), on ``device``
-    (``None`` means ``"cuda"``)."""
+    layers with their ``moe`` and ``moe.shared`` subtrees, an MLA config's
+    ``attn`` with ``wdq``, ``q_ln``, ``wuq``, ``wdkv``, ``kv_ln``, ``wuk``,
+    ``wuv``, ``wkr`` and ``wo``), on ``device`` (``None`` means
+    ``"cuda"``)."""
     dev = device_lib.resolve(device)
     model = transformer.Transformer(cfg, dev)
     with torch.no_grad():

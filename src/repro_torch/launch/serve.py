@@ -2,8 +2,8 @@
 (twin of ``repro/launch/serve.py``).
 
 Greedy-decodes synthetic prompts for a selectable architecture of the
-decoder family, dense or mixture-of-experts (reduced configs run on
-the CPU).
+decoder family, dense or mixture-of-experts, with grouped-query or
+latent attention (reduced configs run on the CPU).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
@@ -77,7 +77,7 @@ def _grow_cache(cfg, cache, batch, total_len, long_mode):
            for want, have in zip(layer_caches(spec), layer_caches(cache))
            for k, got in have.items()):
         return cache
-    device = cache["layers"]["k"].device
+    device = cache["layers"]["pos"].device
     target = transformer.cache_init(cfg, batch, total_len, dtype, long_mode,
                                     device=device)
     for dst_layer, src_layer in zip(layer_caches(target),

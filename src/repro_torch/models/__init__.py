@@ -1,6 +1,6 @@
-"""The decoder family's serving path, dense and mixture-of-experts (twin
-of ``repro/models/``, less the MLA half of ``attention.py`` and
-``ssm.py``, which come with later slices)."""
+"""The decoder family's serving path, dense and mixture-of-experts, with
+grouped-query or multi-head latent attention (twin of ``repro/models/``,
+less ``ssm.py``, which comes with a later slice)."""
 from repro_torch.models import (  # noqa: F401
     attention,
     layers,

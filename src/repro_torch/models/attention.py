@@ -1,11 +1,15 @@
 """Attention: grouped-query attention with sliding windows, soft-capping
-and QKV bias (twin of the GQA half of ``repro/models/attention.py``).
+and QKV bias, and DeepSeek-V2's multi-head latent attention (twin of
+``repro/models/attention.py``).
 
-Pure functions over parameter mappings.  Three entry points:
+Pure functions over parameter mappings.  Three entry points per
+mechanism:
 
-- ``gqa_apply``   : full-sequence self attention
-- ``gqa_prefill`` : the same, also returning the populated KV cache
-- ``gqa_decode``  : one token against a KV cache, written in place
+- ``gqa_apply`` / ``mla_apply``     : full-sequence self attention
+- ``gqa_prefill`` / ``mla_prefill`` : the same, also returning the
+  populated cache
+- ``gqa_decode`` / ``mla_decode``   : one token against a cache, written
+  in place
 
 Windows are Python ints (0 = global).  KV caches are ring buffers with an
 explicit per-slot position array; attention masks by position, never by
@@ -24,7 +28,21 @@ multiple of the cache).  Prefill's logits and the cache's (pos -> k, v)
 map are the reference's; only a decode after a prompt longer than the
 cache changes, and there it becomes exact.
 
-The MLA half (DeepSeek-V2) comes with the MLA slice.
+MLA caches the latent: ``ckv`` (B, Sc, kv_lora_rank) and the shared
+rotary key ``kr`` (B, Sc, rope), 576 values a token at DeepSeek-V2's
+widths where expanded keys and values would take H * (nope + rope + v).
+``mla_apply`` / ``mla_prefill`` expand K and V per head and run the
+GQA schedule with v's head dim (128) below q's and k's (192);
+``mla_decode`` absorbs W_uk into the query and W_uv after the weights,
+so it attends in the latent space.  The two forms are equal in exact
+arithmetic only: in bf16 each is held to the reference's same form.
+The absorbed decode keeps the op order XLA compiles the reference's to
+(``_absorbed_scores``): each of the two score products rounded to the
+compute dtype, their bf16 add done in fp32 and never rounded (the sum's
+round trip through bf16 and back to fp32 is folded away), then divided
+by sqrt(nope + rope).  MLA has no window, so its cache never wraps:
+``mla_decode`` at a position past the cache raises (the reference's
+``pos mod Sc`` write would drop the oldest token without a word).
 """
 from __future__ import annotations
 
@@ -34,15 +52,12 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import apply_rope, softcap
+from repro_torch.models.layers import apply_rope, rms_norm, softcap
 
 _CHUNK_THRESHOLD = 2048
 _Q_CHUNK = 512
 
 NEG_INF = -2.0 ** 30
-
-_MLA = ("multi-head latent attention (deepseek-v2) is not ported yet: "
-        "ROADMAP queue 1, item 9, the MLA slice")
 
 
 # ===========================================================================
@@ -272,9 +287,136 @@ def gqa_cache_init(cfg: ModelConfig, batch: int, cache_len: int, dtype,
     }
 
 
-def mla_init(*_a, **_k):
-    raise NotImplementedError(_MLA)
+# ===========================================================================
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ===========================================================================
+def mla_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Parameter name -> (shape, fan_in) in the reference's layout; the
+    latent norms (fan_in 0) start at zero."""
+    d, H = cfg.d_model, cfg.num_heads
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {"wdq": ((d, r_q), d), "q_ln": ((r_q,), 0),
+            "wuq": ((r_q, H * (nope + rope)), r_q),
+            "wdkv": ((d, r_kv), d), "kv_ln": ((r_kv,), 0),
+            "wuk": ((r_kv, H * nope), r_kv), "wuv": ((r_kv, H * vh), r_kv),
+            "wkr": ((d, rope), d), "wo": ((H * vh, d), H * vh)}
 
 
-mla_apply = mla_prefill = mla_decode = mla_cache_spec = mla_cache_init = \
-    mla_init
+def _mla_q(p, x, cfg: ModelConfig, positions):
+    """(q_nope (B, S, H, nope), q_rope (B, S, H, rope)), RoPE applied."""
+    H = cfg.num_heads
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    cq = rms_norm(x @ p["wdq"].to(x.dtype), p["q_ln"], cfg.norm_eps)
+    q = (cq @ p["wuq"].to(x.dtype)).reshape(*x.shape[:-1], H, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(p, x, cfg: ModelConfig, positions):
+    """(ckv (B, S, r_kv) normed, kr (B, S, rope) with RoPE applied)."""
+    ckv = rms_norm(x @ p["wdkv"].to(x.dtype), p["kv_ln"], cfg.norm_eps)
+    kr = (x @ p["wkr"].to(x.dtype))[..., None, :]             # (B,S,1,rope)
+    kr = apply_rope(kr, positions, cfg.rope_theta)[..., 0, :]
+    return ckv, kr
+
+
+def mla_apply(p, x, *, positions, cfg: ModelConfig):
+    """Full-sequence MLA with expanded K/V (the train/prefill form).
+    Returns (out, {"ckv", "kr"}), the latents of every position."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    nope, rope, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    ckv, kr = _mla_latent(p, x, cfg, positions)
+    k_nope = (ckv @ p["wuk"].to(x.dtype)).reshape(B, S, H, nope)
+    v = (ckv @ p["wuv"].to(x.dtype)).reshape(B, S, H, vh)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(B, S, H, rope)], dim=-1)
+    out = _chunked_sdpa(
+        q, k, v, positions, positions,
+        window=0, cap=0.0, scale=1.0 / math.sqrt(nope + rope), causal=True,
+    )
+    return out @ p["wo"].to(x.dtype), {"ckv": ckv, "kr": kr}
+
+
+def mla_prefill(p, x, *, positions, cfg: ModelConfig, cache_len: int):
+    """Like mla_apply but also returns the latent cache, position p at
+    slot p (the cache holds the whole prompt: MLA has no window)."""
+    S = x.shape[1]
+    if cache_len < S:
+        raise ValueError(f"mla_prefill: the cache holds {cache_len} slots, "
+                         f"the prompt {S} tokens")
+    out, lat = mla_apply(p, x, positions=positions, cfg=cfg)
+    cache = {"ckv": ring_layout(lat["ckv"], cache_len, 1),
+             "kr": ring_layout(lat["kr"], cache_len, 1),
+             "pos": ring_layout(positions.to(torch.int32), cache_len, 0,
+                                fill=-1)}
+    return out, cache
+
+
+def _absorbed_scores(q_lat, lat, q_rope, kr, denom: float):
+    """The absorbed decode's fp32 scores (B, H, Sc): q_lat (B, H, r)
+    against the latents lat (B, Sc, r), plus q_rope (B, H, rope) against
+    kr (B, Sc, rope), all in the compute dtype.  Each product is rounded
+    to that dtype and their sum taken in fp32, then divided by ``denom``:
+    the op order XLA compiles the reference's bf16 add to (module doc)."""
+    s_lat = torch.einsum("bhr,bsr->bhs", q_lat, lat)
+    s_rope = torch.einsum("bhe,bse->bhs", q_rope, kr)
+    return (s_lat.float() + s_rope.float()) / denom
+
+
+def mla_decode(p, x, cache, cache_index: int, *, cfg: ModelConfig):
+    """Absorbed-matrix one-token decode in the latent space.  x: (B, 1, d);
+    cache ckv (B, Sc, r_kv), kr (B, Sc, rope), pos (Sc,) (-1 = empty);
+    ``cache_index`` is the token's absolute position (a Python int).  The
+    new latent is written in place at slot ``cache_index``, which must be
+    below Sc (MLA attends to every earlier token; a full cache raises
+    ``ValueError``); returns (out, cache)."""
+    B = x.shape[0]
+    H = cfg.num_heads
+    nope, rope, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r_kv = cfg.kv_lora_rank
+    cache_index = int(cache_index)
+    ckv, kr, cpos = cache["ckv"], cache["kr"], cache["pos"]
+    Sc = ckv.shape[1]
+    if not 0 <= cache_index < Sc:
+        raise ValueError(f"mla_decode: position {cache_index} does not fit "
+                         f"the cache's {Sc} slots")
+    pos = torch.full((1,), cache_index, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, pos)                   # (B,1,H,·)
+    ckv1, kr1 = _mla_latent(p, x, cfg, pos)                   # (B,1,r),(B,1,e)
+    ckv[:, cache_index] = ckv1[:, 0]
+    kr[:, cache_index] = kr1[:, 0]
+    cpos[cache_index] = cache_index
+
+    dt = x.dtype
+    wuk = p["wuk"].to(dt).reshape(r_kv, H, nope)
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], wuk)   # (B,H,r)
+    lat = ckv.to(dt)
+    scores = _absorbed_scores(q_lat, lat, q_rope[:, 0], kr.to(dt),
+                              math.sqrt(nope + rope))
+    valid = (cpos >= 0) & (cpos <= cache_index)
+    scores = torch.where(valid[None, None, :], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(dt)
+    ctx = torch.einsum("bhs,bsr->bhr", w, lat)                # (B,H,r)
+    wuv = p["wuv"].to(dt).reshape(r_kv, H, vh)
+    out = torch.einsum("bhr,rhv->bhv", ctx, wuv).reshape(B, 1, H * vh)
+    return out @ p["wo"].to(dt), cache
+
+
+def mla_cache_spec(cfg: ModelConfig, batch: int, cache_len: int, dtype):
+    """The cache's tensors on the meta device (shapes and dtypes only)."""
+    return mla_cache_init(cfg, batch, cache_len, dtype, device="meta")
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+                   device=None):
+    return {
+        "ckv": torch.zeros((batch, cache_len, cfg.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "kr": torch.zeros((batch, cache_len, cfg.qk_rope_head_dim),
+                          dtype=dtype, device=device),
+        "pos": torch.full((cache_len,), -1, dtype=torch.int32,
+                          device=device),
+    }

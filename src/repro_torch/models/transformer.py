@@ -1,6 +1,6 @@
-"""The decoder stack, dense and mixture-of-experts: prefill and ring-KV
-decode (twin of the dense and MoE halves of
-``repro/models/transformer.py``).
+"""The decoder stack, dense and mixture-of-experts, with grouped-query or
+multi-head latent attention: prefill and ring-KV decode (twin of the
+dense, MoE and MLA halves of ``repro/models/transformer.py``).
 
 ``Transformer`` is an ``nn.Module`` holding the reference's parameter
 tree: ``embed`` (V, d), ``final_norm``, ``head`` (d, V) where embeddings
@@ -8,8 +8,9 @@ are untied, ``dense_layers`` (a ``ModuleList``, the reference's list of
 ``first_k_dense`` leading dense-MLP layers of an MoE config) and
 ``layers``, a ``ModuleList`` of ``DecoderLayer`` (``ln1``, ``attn``,
 ``ln2``, and ``mlp``, or ``moe`` past ``first_k_dense`` in an MoE
-config).  Weights keep the reference's (d_in, d_out) layout and fp32;
-compute runs in ``cfg.compute_dtype``.  Modules and parameter dicts
+config).  ``attn`` holds ``gqa_shapes``' leaves, or ``mla_shapes``' where
+the config has ``use_mla`` (DeepSeek-V2).  Weights keep the reference's
+(d_in, d_out) layout and fp32; compute runs in ``cfg.compute_dtype``.  Modules and parameter dicts
 index alike (``lp["attn"]``, ``"head" in params``), so every function
 here takes either.
 
@@ -19,14 +20,15 @@ Public API (mirroring the reference's):
     decode(params, batch, cache, idx, cfg, ...)     -> (logits, cache)
     cache_spec / cache_init(cfg, batch, ...)        -> cache (stacked)
 
-Caches are tensors stacked over the ``layers``, ``k``/``v`` (L, B, Sc, K,
-hd) and ``pos`` (L, Sc), as the reference's scan stacks them, and
-``cache["dense"]``, a list of one such dict per dense leading layer;
-``decode`` writes the new key of every layer in place.  Prefill and
-decode discard the MoE layers' aux loss, as the reference's serving path
-does.  The reference's scan over layers, ``constrain_activations`` and
-``remat`` have no eager twin.  MLA, mamba and shared-attention layers
-and the encoder raise ``NotImplementedError`` naming the slice of
+Caches are tensors stacked over the ``layers``, as the reference's scan
+stacks them: ``k``/``v`` (L, B, Sc, K, hd), or under MLA the latent
+``ckv`` (L, B, Sc, kv_lora_rank) and ``kr`` (L, B, Sc, rope), and ``pos``
+(L, Sc); and ``cache["dense"]``, a list of one per-layer dict of the
+same names per dense leading layer; ``decode`` writes the new key (or
+latent) of every layer in place.  Prefill and decode discard the MoE
+layers' aux loss, as the reference's serving path does.  The reference's scan over layers, ``constrain_activations`` and
+``remat`` have no eager twin.  Mamba and shared-attention layers and the
+encoder raise ``NotImplementedError`` naming the slice of
 ROADMAP queue 1, item 9 that brings them; ``forward_train`` comes with
 the training slice.
 """
@@ -63,8 +65,6 @@ _SLICE = "is not ported yet: ROADMAP queue 1, item 9, the {} slice"
 
 def unsupported(cfg: ModelConfig):
     """The reason the stack cannot run ``cfg``, or None."""
-    if cfg.use_mla:
-        return "multi-head latent attention " + _SLICE.format("MLA")
     if cfg.is_encoder_decoder or cfg.frontend == "audio":
         return "the encoder-decoder stack " + _SLICE.format(
             "encoder-decoder")
@@ -119,6 +119,10 @@ class _Tree(_Indexed, nn.Module):
                 setattr(self, name, _empty(spec[0], device))
 
 
+def _attn_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    return attn.mla_shapes(cfg) if cfg.use_mla else attn.gqa_shapes(cfg)
+
+
 class DecoderLayer(_Indexed, nn.Module):
     """Pre-norm attention then a pre-norm MLP, or the MoE layer where the
     config has experts and the layer is not one of the dense leading
@@ -131,7 +135,7 @@ class DecoderLayer(_Indexed, nn.Module):
         self.attn = nn.ParameterDict({
             name: (_zeros(shape, device) if not fan else
                    _empty(shape, device))
-            for name, (shape, fan) in attn.gqa_shapes(cfg).items()})
+            for name, (shape, fan) in _attn_shapes(cfg).items()})
         self.ln2 = _zeros((d,), device)
         if cfg.is_moe and not dense:
             self.moe = _Tree(moe_lib.moe_shapes(cfg), device)
@@ -223,7 +227,7 @@ def init_params(cfg: ModelConfig, rng=None, device=None) -> Transformer:
         dense_init(model.head, cfg.d_model, rng)
     mlp_fans = mlp_shapes(cfg.d_model, cfg.d_ff, cfg.gated_mlp)
     for layer in (*getattr(model, "dense_layers", ()), *model.layers):
-        for name, (_, fan) in attn.gqa_shapes(cfg).items():
+        for name, (_, fan) in _attn_shapes(cfg).items():
             if fan:
                 dense_init(layer.attn[name], fan, rng)
         if "moe" in layer:
@@ -271,8 +275,8 @@ def cache_build(cfg: ModelConfig, batch: int, seq_len: int, dtype,
     cache_len = required_cache_len(cfg, seq_len, long_mode)
     dev = torch.device("meta") if make == "spec" else \
         device_lib.resolve(device)
-    per_layer = attn.gqa_cache_init(cfg, batch, cache_len,
-                                    torch_dtype(dtype), device=dev)
+    init = attn.mla_cache_init if cfg.use_mla else attn.gqa_cache_init
+    per_layer = init(cfg, batch, cache_len, torch_dtype(dtype), device=dev)
     n_dense = _num_dense(cfg)
     L = cfg.num_layers - n_dense
     cache = {"layers": {k: v[None].expand((L,) + v.shape).clone()
@@ -293,8 +297,13 @@ cache_init = functools.partial(cache_build, make="init")
 def _attn_block_prefill(lp, x, *, positions, window: int, cfg: ModelConfig,
                         cache_len: int):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    a, cache = attn.gqa_prefill(lp["attn"], h, positions=positions,
-                                window=window, cfg=cfg, cache_len=cache_len)
+    if cfg.use_mla:
+        a, cache = attn.mla_prefill(lp["attn"], h, positions=positions,
+                                    cfg=cfg, cache_len=cache_len)
+    else:
+        a, cache = attn.gqa_prefill(lp["attn"], h, positions=positions,
+                                    window=window, cfg=cfg,
+                                    cache_len=cache_len)
     return _mlp_block(lp, x + a, cfg), cache
 
 
@@ -321,7 +330,7 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     _require_supported(cfg)
     dtype = torch_dtype(cfg.compute_dtype)
     x, _, _ = _embed_inputs(params, batch, cfg, dtype)
-    B, S = x.shape[:2]
+    S = x.shape[1]
     cache_len = max(required_cache_len(cfg, S, long_mode), min_cache_len)
     positions = torch.arange(S, device=x.device)
     n_dense = _num_dense(cfg)
@@ -335,16 +344,17 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             x, c = _attn_block_prefill(lp, x, positions=positions, window=0,
                                        cfg=cfg, cache_len=cache_len)
             cache["dense"].append(c)
-    L, K, hd = cfg.num_layers - n_dense, cfg.num_kv_heads, cfg.head_dim
-    ck = torch.empty((L, B, cache_len, K, hd), dtype=dtype, device=x.device)
-    cv = torch.empty_like(ck)
-    cpos = torch.empty((L, cache_len), dtype=torch.int32, device=x.device)
+    L = cfg.num_layers - n_dense
+    stacked = {}
     for i, lp in enumerate(params["layers"]):
         x, c = _attn_block_prefill(lp, x, positions=positions,
                                    window=windows[i], cfg=cfg,
                                    cache_len=cache_len)
-        ck[i], cv[i], cpos[i] = c["k"], c["v"], c["pos"]
-    cache["layers"] = {"k": ck, "v": cv, "pos": cpos}
+        for name, t in c.items():
+            if name not in stacked:
+                stacked[name] = t.new_empty((L,) + t.shape)
+            stacked[name][i] = t
+    cache["layers"] = stacked
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lm_head(x[:, -1:, :], _head(params), cfg.final_softcap)
     return logits, cache
@@ -356,8 +366,12 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 def _attn_block_decode(lp, x, cache, cache_index: int, *, window: int,
                        cfg: ModelConfig):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    a, cache = attn.gqa_decode(lp["attn"], h, cache, cache_index,
-                               window=window, cfg=cfg)
+    if cfg.use_mla:
+        a, cache = attn.mla_decode(lp["attn"], h, cache, cache_index,
+                                   cfg=cfg)
+    else:
+        a, cache = attn.gqa_decode(lp["attn"], h, cache, cache_index,
+                                   window=window, cfg=cfg)
     return _mlp_block(lp, x + a, cfg), cache
 
 
@@ -380,8 +394,7 @@ def decode(params, batch: Dict[str, torch.Tensor], cache: Dict,
     windows = layer_windows(cfg, long_mode)[n_dense:]
     layers = cache["layers"]
     for i, lp in enumerate(params["layers"]):
-        c = {"k": layers["k"][i], "v": layers["v"][i],
-             "pos": layers["pos"][i]}
+        c = {name: t[i] for name, t in layers.items()}
         x, _ = _attn_block_decode(lp, x, c, cache_index, window=windows[i],
                                   cfg=cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -32,7 +32,7 @@ from repro_torch.convert import lm_params_to_torch
 from repro_torch.launch import serve
 from repro_torch.models import model, transformer
 from repro_torch.train import steps
-from test_torch_models import (SERVED, _batch, _close, _close_cache,
+from test_torch_models import (STACKS, _batch, _close, _close_cache,
                                _close_logits, _models, _np)
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -45,7 +45,7 @@ def _extra(jb, tb):
             {k: v for k, v in tb.items() if k != "tokens"})
 
 
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", STACKS)
 def test_generate_fp32_tokens_equal_the_reference(arch):
     jcfg, cfg, params, net = _models(arch, "float32")
     jb, tb = _batch(cfg, 2, 12)
@@ -56,7 +56,7 @@ def test_generate_fp32_tokens_equal_the_reference(arch):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", STACKS)
 def test_generate_bf16_logits_match_the_reference(arch):
     """Prefill, the cache re-seated for generation, then 7 decode steps,
     each package fed the reference's greedy tokens."""

@@ -16,7 +16,14 @@ bf16 logits are held within atol = max(3e-2, 0.15 sigma), rtol = 3e-2
 accurate as the reference's own (within 1.5x its distance from the fp32
 logits).  Caches are compared after sorting each layer's slots by
 position: the port seats each key at slot ``pos mod cache_len`` (the
-reference's layout, rolled).
+reference's layout, rolled).  A bf16 cache entry carries the noise of
+every layer below it: the caches of a layer with two or more below it
+(only the 3-layer deepseek-v2 case has one) are held within atol = 6e-2,
+rtol = 3e-2.  On ``test_generate_bf16_logits_match_the_reference``'s
+inputs that layer's ``ckv``/``kr`` differ between the packages by up to
+0.035 / 0.031, where each package is 0.055-0.058 / 0.036-0.047 from its
+fp32 run (the layers below: 0.031 / 0.023 between the packages, 0.036-
+0.043 from fp32), so one element in 2432 misses a flat 3e-2.
 """
 import dataclasses
 import functools
@@ -51,15 +58,24 @@ _jflash = jax.jit(jattn._flash_sdpa, static_argnames=(
 
 DENSE = ("qwen2-0.5b", "qwen2.5-32b", "gemma2-2b", "gemma3-12b",
          "internvl2-2b")
-# the mixture-of-experts archs the stack runs (deepseek-v2 waits for MLA)
-MOE = ("phi3.5-moe-42b-a6.6b",)
+# the mixture-of-experts archs the stack runs (deepseek-v2 with its latent
+# attention and a dense leading layer)
+MOE = ("phi3.5-moe-42b-a6.6b", "deepseek-v2-236b")
 SERVED = DENSE + MOE
 OTHERS = tuple(a for a in jconfigs.ARCHS if a not in SERVED)
+# a served arch at another depth: deepseek-v2 with 3 layers, so that the
+# stacked latent cache holds two layers (name -> (arch, config changes))
+DSV2_3L = "deepseek-v2-236b:3-layers"
+VARIANTS = {DSV2_3L: ("deepseek-v2-236b", {"num_layers": 3})}
+# the cases of the stack's parity tests
+STACKS = SERVED + tuple(VARIANTS)
 DTYPES = ("float32", "bfloat16")
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        "bfloat16": dict(atol=3e-2, rtol=3e-2)}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# a bf16 cache entry with two or more layers below it (module doc)
+DEEP_CACHE_TOL = dict(atol=6e-2, rtol=3e-2)
 
 
 def _np(x):
@@ -92,19 +108,24 @@ def _pair(x, dtype):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_params(arch, seed):
+def _reference_params(name, seed):
     """The reference's init (the compute dtype does not enter it)."""
-    params = jmodel.init_params(jconfigs.get_reduced_config(arch),
-                                jax.random.key(seed))
+    arch, over = VARIANTS.get(name, (name, {}))
+    params = jmodel.init_params(
+        jconfigs.get_reduced_config(arch).replace(**over),
+        jax.random.key(seed))
     return params, jax.tree.map(np.asarray, params)
 
 
-def _models(arch, dtype, seed=0):
+def _models(name, dtype, seed=0):
     """Both packages' reduced configs at ``dtype`` and the same weights:
-    the reference's tree and a fresh port model holding it."""
-    jcfg = jconfigs.get_reduced_config(arch).replace(compute_dtype=dtype)
-    cfg = configs.get_reduced_config(arch).replace(compute_dtype=dtype)
-    params, tree = _reference_params(arch, seed)
+    the reference's tree and a fresh port model holding it.  ``name`` is
+    an arch or a key of ``VARIANTS``."""
+    arch, over = VARIANTS.get(name, (name, {}))
+    over = dict(over, compute_dtype=dtype)
+    jcfg = jconfigs.get_reduced_config(arch).replace(**over)
+    cfg = configs.get_reduced_config(arch).replace(**over)
+    params, tree = _reference_params(name, seed)
     return jcfg, cfg, params, lm_params_to_torch(tree, cfg, device="cpu")
 
 
@@ -119,19 +140,30 @@ def _batch(cfg, B, S, seed=1):
 
 
 def _close_cache(got, want, dtype):
-    """Each layer's cache, slots sorted by position, equal positions and
-    k/v within tolerance."""
-    gl, wl = got["layers"], want["layers"]
-    gpos, wpos = gl["pos"].numpy(), np.asarray(wl["pos"])
-    assert gpos.shape == wpos.shape
-    for i in range(gpos.shape[0]):
-        go, wo = np.argsort(gpos[i]), np.argsort(wpos[i])
-        np.testing.assert_array_equal(gpos[i][go], wpos[i][wo])
-        valid = wpos[i][wo] >= 0
-        for name in ("k", "v"):
-            np.testing.assert_allclose(
-                _np(gl[name][i])[:, go][:, valid],
-                _np(wl[name][i])[:, wo][:, valid], **TOL[dtype])
+    """Each layer's cache (each dense leading layer's, then the stacked
+    layers'), slots sorted by position, equal positions and every other
+    entry (k/v, or MLA's ckv/kr) within tolerance (module doc)."""
+    dense = got.get("dense", ())
+    assert len(dense) == len(want.get("dense", ()))
+    pairs = [({k: v[None] for k, v in g.items()},
+              {k: v[None] for k, v in w.items()})
+             for g, w in zip(dense, want.get("dense", ()))]
+    pairs.append((got["layers"], want["layers"]))
+    depth = 0
+    for gl, wl in pairs:
+        gpos, wpos = gl["pos"].numpy(), np.asarray(wl["pos"])
+        assert gpos.shape == wpos.shape and set(gl) == set(wl)
+        for i in range(gpos.shape[0]):
+            tol = (DEEP_CACHE_TOL if dtype == "bfloat16" and depth >= 2
+                   else TOL[dtype])
+            depth += 1
+            go, wo = np.argsort(gpos[i]), np.argsort(wpos[i])
+            np.testing.assert_array_equal(gpos[i][go], wpos[i][wo])
+            valid = wpos[i][wo] >= 0
+            for name in sorted(set(gl) - {"pos"}):
+                np.testing.assert_allclose(
+                    _np(gl[name][i])[:, go][:, valid],
+                    _np(wl[name][i])[:, wo][:, valid], **tol)
 
 
 # ---------------------------------------------------------------------------
@@ -365,7 +397,7 @@ def test_layer_windows_and_cache_len(arch, long_mode):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", STACKS)
 def test_prefill_and_decode_match_the_reference(dtype, arch):
     """Prefill's logits and its caches sorted by position, then two
     decode steps' logits and caches."""
@@ -388,7 +420,7 @@ def test_prefill_and_decode_match_the_reference(dtype, arch):
     _close_cache(cache, jcache, dtype)
 
 
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", STACKS)
 def test_bf16_is_as_accurate_as_the_reference(arch):
     """Each package's bf16 prefill logits against the reference's fp32
     ones: the port's distance at most 1.5x the reference's own."""
@@ -406,9 +438,10 @@ def test_bf16_is_as_accurate_as_the_reference(arch):
 def test_prefill_takes_the_flash_schedule(arch):
     """A prompt over the chunk threshold (2560 > 2048, a multiple of the
     512-query block) prefills through ``_flash_sdpa`` in both packages;
-    one layer, fp32, batch 1."""
+    one stacked layer, fp32, batch 1."""
     jcfg, cfg, params, net = _models(arch, "float32")
-    one = dict(num_layers=1)
+    # one stacked layer (after the dense leading one, where there is one)
+    one = dict(num_layers=1 + len(getattr(net, "dense_layers", ())))
     jcfg, cfg = jcfg.replace(**one), cfg.replace(**one)
     params = dict(params, layers=jax.tree.map(lambda a: a[:1],
                                               params["layers"]))
@@ -468,13 +501,15 @@ def test_param_specs_and_init_match_the_reference_tree(arch):
     jax.tree.map(np.testing.assert_array_equal, ta, tb)
     assert all(np.isfinite(x).all() for x in jax.tree.leaves(ta))
     assert abs(ta["embed"].std() - 0.02) < 0.002
-    wq = ta["layers"]["attn"]["wq"]
+    # the query's (or MLA's query down-) projection, fan-in d_model
+    wq = ta["layers"]["attn"]["wdq" if red.use_mla else "wq"]
     assert abs(wq.std() - red.d_model ** -0.5) < 0.1 * red.d_model ** -0.5
     assert (ta["final_norm"] == 0).all() and (ta["layers"]["ln1"] == 0).all()
 
 
 def _tree_shapes(net) -> dict:
-    """The reference-layout tree of a (meta) model, shapes only."""
+    """The reference-layout tree of a (meta) model, shapes only: ``layers``
+    stacked over L, ``dense_layers`` a list of per-layer trees."""
     out: dict = {}
     L = len(net.layers)
     for name, t in net.named_parameters():
@@ -482,12 +517,18 @@ def _tree_shapes(net) -> dict:
         if parts[0] == "layers":
             if parts[1] != "0":
                 continue
-            node = out.setdefault("layers", {})
-            for key in parts[2:-1]:
-                node = node.setdefault(key, {})
-            node[parts[-1]] = (L,) + tuple(t.shape)
+            node, shape = out.setdefault("layers", {}), (L,) + tuple(t.shape)
+        elif parts[0] == "dense_layers":
+            dense = out.setdefault("dense_layers", [])
+            i = int(parts[1])
+            dense.extend({} for _ in range(i + 1 - len(dense)))
+            node, shape = dense[i], tuple(t.shape)
         else:
             out[parts[0]] = tuple(t.shape)
+            continue
+        for key in parts[2:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = shape
     return out
 
 

@@ -10,7 +10,7 @@ stack) go through both packages.  Tolerances are tests/test_torch_models
 fp32 the routing must be the reference's exactly: the top-k picks, the
 slots and the kept mask.  Cases: reduced Phi-3.5-MoE (16 -> 4 experts,
 top-2) and the MoE layer of reduced DeepSeek-V2 (a shared expert; its
-MLA is not ported), dropless (capacity factor 8.0) and at 1.0, at 64
+latent attention is tests/test_torch_mla.py's), dropless (capacity factor 8.0) and at 1.0, at 64
 tokens (32 groups), 12 (4), 21 (1 group: capacity round(10.5) = 10 by
 Python's half-to-even rule, where round-half-up would give 11) and 1;
 exact router ties.  The stack: reduced Phi-3.5-MoE runs in the shared
@@ -371,16 +371,3 @@ def test_convert_round_trip_is_bitwise(variant):
     with pytest.raises(ValueError, match="moe.router"):
         lm_params_to_torch(bad, cfg, device="cpu")
 
-
-def test_mla_still_raises_naming_its_slice():
-    """DeepSeek-V2's MoE layer is ported, its latent attention is not: the
-    stack refuses it and names the MLA slice."""
-    cfg = configs.get_reduced_config(DSV2)
-    assert transformer.unsupported(cfg).endswith("the MLA slice")
-    for make in (lambda: transformer.Transformer(cfg, "meta"),
-                 lambda: transformer.prefill(None, {}, cfg),
-                 lambda: transformer.cache_spec(cfg, 2, 64, torch.bfloat16,
-                                                False)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1, item 9, the MLA slice"):
-            make()
