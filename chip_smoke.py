@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--out FILE] [--only large_fit|multi_mid|figures|
                                                sessions|fabric|store|serve|
-                                               obs|dist|shard|lm|moe]
+                                               obs|dist|shard|lm|moe|mla|
+                                               ssm]
 
 Runs from the root of a checkout, on a machine with one CUDA card, the
 CUDA toolkit and ninja; it builds the hand kernels itself into
@@ -311,7 +312,30 @@ any failure raises and exits non-zero:
    (its MLA prefill takes ``_flash_sdpa`` with v's head dim below q's) and
    16 new tokens, (b)'s check at steps 1 and 16 against the 2576-slot
    latent cache;
-18. the ``kernels`` line (with ``launches_by_path["shard"]``, phase 14's
+18. Mamba2's state-space serving path at mamba2-130m's full published
+   size, nothing cut (24 layers, d_model 768, d_inner 1536, 24 SSM heads
+   of 64, d_state 128, 1 group, conv width 4, chunk 256, vocab 50288 with
+   a tied head: 128,989,632 parameters, the config's count plus the final
+   norm and, per layer, ``conv_b`` and the heads' third vector, less the
+   second norm it books), fp32 weights from ``init_params`` with a seeded
+   generator: (a) bf16, ``generate`` at batch 4, a 512-token prompt and
+   32 new tokens, its wall and tokens/s, the prefill step (median of 3)
+   and the decode step per token (CUDA events), one decode step traced
+   (busy share, launches, the device ms inside the 24 mamba blocks), the
+   peak, and the stacked cache (``h`` (24, 4, 24, 64, 128) fp32 and
+   ``conv`` (24, 4, 3, 1792) bf16) with its bytes; no hand kernel
+   launched (its ``launches_by_path["lm_ssm"]`` is zeros); (b) fp32,
+   batch 2, decode's logits at steps 1, 8 and 32 against a prefill over
+   the prompt and the tokens so far (max abs diff <= 1e-3, equal
+   argmax); (c) fp32, batch 1, (b)'s check after a 4100-token prompt (16
+   whole chunks and a 4-token tail padded with dt = 0; every layer's SSD
+   over 17 chunks) at steps 1 and 16, and after a 2-token prompt (one
+   chunk of 2, shorter than the conv window) at steps 1 and 8; (d) bf16,
+   batch 1, a 32768-token prefill (128 chunks), its ms (median of 3) and
+   peak, its cache's bytes a batch row those of (a); (e) the module's
+   CLI (``serve.main``) with no ``--device``, at full size: its tokens
+   on the card;
+19. the ``kernels`` line (with ``launches_by_path["shard"]``, phase 14's
    launches counted in the ranks), the card line, and the result line.
 
 ``--only`` runs one part and prints no result line, to compare two
@@ -322,7 +346,7 @@ N in {328, 329, 515, 1000}, 100 iterations with the fold), each against
 its plain version and timed, ``figures`` phase 7, ``sessions`` phase 8,
 ``fabric`` phase 9, ``store`` phase 10, ``serve`` phase 11, ``obs``
 phase 12, ``dist`` phase 13, ``shard`` phase 14, ``lm`` phase 15,
-``moe`` phase 16, ``mla`` phase 17.
+``moe`` phase 16, ``mla`` phase 17, ``ssm`` phase 18.
 
 Without a CUDA device, or without the rest of the repository beside it,
 it exits non-zero and prints no result.
@@ -332,6 +356,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -544,6 +569,17 @@ MLA_ARCH = "deepseek-v2-236b"
 DSV2_LAYERS = 3
 MLA_DROPLESS = 27.0
 MLA_LONG = dict(batch=1, prompt=2560, gen=16, steps=(1, 16))
+
+# phase 18: Mamba2's state-space serving path at mamba2-130m's full size,
+# nothing cut.  (a) bf16 generate at lm's serving shape; (b) fp32 decode
+# against prefill at LM_STEPS; (c) fp32 after SSM_PROMPTS' prompts: 16
+# whole chunks and a 4-token tail, and 2 tokens (shorter than the conv
+# window); (d) a bf16 prefill of SSM_PREFILL tokens (128 chunks; long_500k's
+# 524288 would need ~13 GB a layer for the intra-chunk L matrices alone)
+SSM_ARCH = "mamba2-130m"
+SSM_PROMPTS = (dict(prompt=4100, gen=16, steps=(1, 16)),
+               dict(prompt=2, gen=8, steps=(1, 8)))
+SSM_PREFILL = 32768
 
 RECORDS = []
 
@@ -4218,6 +4254,210 @@ def lm_mla(by_path: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 18: Mamba2's state-space serving path at mamba2-130m's full size
+def lm_ssm(by_path: dict) -> None:
+    """Phase 18: mamba2-130m at full size through ``generate`` (bf16),
+    then decode against prefill in fp32 after a 512-, a 4100- and a
+    2-token prompt, then a 32768-token bf16 prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import ssm
+    from repro_torch.train import steps
+
+    phase_t0 = time.perf_counter()
+    cfg = get_config(SSM_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = model_lib.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in net.parameters())
+    # the config's count leaves out the final norm's d_model scales, and
+    # per layer it books a second norm (d_model) that a mamba layer lacks,
+    # and neither conv_b (conv_ch) nor the third H-wide vector
+    conv_ch = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+    extra = cfg.d_model + cfg.num_layers * (conv_ch + cfg.ssm_nheads
+                                            - cfg.d_model)
+    emit({"lm_ssm": "init", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "d_inner": cfg.d_inner,
+          "ssm_heads": cfg.ssm_nheads, "head_dim": cfg.ssm_head_dim,
+          "d_state": cfg.ssm_state, "groups": cfg.ssm_ngroups,
+          "conv": cfg.ssm_conv, "chunk": cfg.ssm_chunk,
+          "vocab": cfg.vocab_size, "tied": cfg.tie_embeddings,
+          "params": n_params, "param_count_cfg": cfg.param_count(),
+          "param_count_extra": extra, "init_s": time.perf_counter() - t0,
+          "params_gb": torch.cuda.memory_allocated() / 1e9})
+    if n_params != cfg.param_count() + extra:
+        raise AssertionError(f"{n_params} parameters, the config counts "
+                             f"{cfg.param_count()} + {extra}")
+
+    def cache_shapes(cache, B):
+        got = {k: (tuple(v.shape), str(v.dtype)) for k, v in
+               cache["layers"].items()}
+        want = {"h": ((cfg.num_layers, B, cfg.ssm_nheads, cfg.ssm_head_dim,
+                       cfg.ssm_state), "torch.float32"),
+                "conv": ((cfg.num_layers, B, cfg.ssm_conv - 1, conv_ch),
+                         "torch.bfloat16")}
+        if got != want or set(cache) != {"layers"}:
+            raise AssertionError(f"lm_ssm: the cache holds {got}, not "
+                                 f"{want}")
+        return {k: _cache_bytes(cache, (k,)) for k in want}
+
+    # (a) bf16 generate at the serving shape
+    a = LM_SERVE
+    B, S, n = a["batch"], a["prompt"], a["gen"]
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            dtype=torch.int32, device="cuda")
+    serve_lib.generate(cfg, net, prompts[:, :64], 2)    # first-call costs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = serve_lib.generate(cfg, net, prompts, n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_path["lm_ssm"] = launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    pre_ms, decode_ms, logits, cache, tok, idx = _timed_steps(
+        net, cfg, prompts, n)
+    cache_bytes = cache_shapes(cache, B)
+    decode = steps.make_decode_step(cfg)
+    with _ranges([(ssm, "mamba_decode", "mamba_block")]):
+        if any(_profile("lm_ssm decode step",
+                        lambda: decode(net, tok, cache, idx),
+                        ("mamba_block",)).values()):
+            raise AssertionError("lm_ssm decode step: the profiler saw hand "
+                                 "kernels")
+    traced = RECORDS[-1]
+    ok_toks = (toks.shape == (B, n) and int(toks.min()) >= 0
+               and int(toks.max()) < cfg.vocab_size)
+    emit({"lm_ssm": "serve/bf16", "arch": cfg.name, "batch": B, "prompt": S,
+          "gen": n, "wall_s": wall, "tokens_per_s": B * n / wall,
+          "prefill_ms": sorted(pre_ms)[1], "prefill_ms_all": pre_ms,
+          "decode_ms_per_token": decode_ms,
+          "decode_tokens_per_s": B * 1e3 / decode_ms,
+          "decode_device_busy_share": traced["device_busy_share"],
+          "decode_device_launches": traced["device_launches"],
+          "decode_device_ms": traced["device_busy_s"] * 1e3,
+          "decode_mamba_blocks_device_ms":
+              traced["block_device_ms"]["mamba_block"],
+          "decode_block_calls": traced["block_calls"],
+          "cache_bytes": cache_bytes, "peak_gb": peak, "launches": launches,
+          "tokens_ok": ok_toks, "sample": toks[0, :8].tolist()})
+    if not ok_toks or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"lm_ssm: tokens {tuple(toks.shape)} or "
+                             f"logits out of range")
+    if any(launches.values()):
+        raise AssertionError(f"lm_ssm launched hand kernels: {launches}")
+    if traced["block_calls"] != {"mamba_block": cfg.num_layers}:
+        raise AssertionError(f"lm_ssm: the traced decode step ran "
+                             f"{traced['block_calls']} blocks")
+    del cache, logits
+
+    # (b) fp32: decode against prefill after the 512-token prompt
+    cfg32 = cfg.replace(compute_dtype="float32")
+    B32 = 2
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    checks = _decode_vs_prefill(net, cfg32, prompts[:B32], max(LM_STEPS),
+                                LM_STEPS, False, "lm_ssm/fp32")
+    emit({"lm_ssm": "decode_vs_prefill/fp32", "batch": B32, "prompt": S,
+          "checks": checks, "tol": LM_TOL,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t0})
+
+    # (c) fp32, batch 1: a padded tail, and a prompt shorter than the
+    # conv window; every SSD call's (padded length, chunk) recorded
+    ssd_calls = []
+    real_ssd = ssm.ssd_chunked
+
+    def counting_ssd(x, *args, **kw):
+        ssd_calls.append((x.shape[1], args[4]))
+        return real_ssd(x, *args, **kw)
+
+    for c in SSM_PROMPTS:
+        prompt = torch.randint(0, cfg.vocab_size, (1, c["prompt"]),
+                               generator=gen, dtype=torch.int32,
+                               device="cuda")
+        chunk = min(cfg.ssm_chunk, c["prompt"])
+        want_call = (-(-c["prompt"] // chunk) * chunk, chunk)
+        ssd_calls.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ssm.ssd_chunked = counting_ssd
+        try:
+            checks = _decode_vs_prefill(net, cfg32, prompt, c["gen"],
+                                        c["steps"], False,
+                                        f"lm_ssm/prompt{c['prompt']}")
+        finally:
+            ssm.ssd_chunked = real_ssd
+        emit({"lm_ssm": f"decode_vs_prefill/prompt{c['prompt']}",
+              "batch": 1, "prompt": c["prompt"], "chunk": chunk,
+              "padded": want_call[0], "chunks": want_call[0] // chunk,
+              "checks": checks, "tol": LM_TOL,
+              "prompt_ssd_calls": ssd_calls[:cfg.num_layers],
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "seconds": time.perf_counter() - t0})
+        # the prompt's prefill runs first, one SSD call a layer
+        if ssd_calls[:cfg.num_layers] != [want_call] * cfg.num_layers:
+            raise AssertionError(f"lm_ssm: the {c['prompt']}-token prefill "
+                                 f"ran SSD over {ssd_calls[:cfg.num_layers]}"
+                                 f", not {want_call} in each layer")
+
+    # (d) bf16, batch 1: a long prefill; the cache a batch row of (a)'s
+    prefill = steps.make_prefill_step(cfg)
+    long_prompt = torch.randint(0, cfg.vocab_size, (1, SSM_PREFILL),
+                                generator=gen, dtype=torch.int32,
+                                device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    long_ms = []
+    for _ in range(3):
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        logits, cache = prefill(net, {"tokens": long_prompt})
+        ev1.record()
+        torch.cuda.synchronize()
+        long_ms.append(ev0.elapsed_time(ev1))
+    long_bytes = cache_shapes(cache, 1)
+    emit({"lm_ssm": "prefill/bf16", "batch": 1, "prompt": SSM_PREFILL,
+          "chunks": SSM_PREFILL // cfg.ssm_chunk,
+          "prefill_ms": sorted(long_ms)[1], "prefill_ms_all": long_ms,
+          "tokens_per_s": SSM_PREFILL * 1e3 / sorted(long_ms)[1],
+          "cache_bytes": long_bytes,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("lm_ssm: the long prefill's logits are not "
+                             "finite")
+    if {k: v * B for k, v in long_bytes.items()} != cache_bytes:
+        raise AssertionError(f"lm_ssm: a {SSM_PREFILL}-token cache holds "
+                             f"{long_bytes} a row, the {S}-token one "
+                             f"{cache_bytes} for {B}")
+    del net, cache, logits
+    torch.cuda.empty_cache()
+
+    # (e) the module's CLI with no --device: full size, on the card
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        toks = serve_lib.main(["--arch", SSM_ARCH, "--batch", "2",
+                               "--prompt-len", "64", "--gen", "4"])
+    emit({"lm_ssm": "cli", "argv": f"--arch {SSM_ARCH} --batch 2 "
+          "--prompt-len 64 --gen 4", "device": str(toks.device),
+          "printed": out.getvalue().strip(),
+          "seconds": time.perf_counter() - t0})
+    if toks.device.type != "cuda" or tuple(toks.shape) != (2, 4) or \
+            "generated (2, 4) on cuda" not in out.getvalue():
+        raise AssertionError(f"lm_ssm: the CLI gave {tuple(toks.shape)} on "
+                             f"{toks.device}: {out.getvalue()!r}")
+    del toks
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_ssm", "seconds": time.perf_counter() - phase_t0})
+
+
+# ---------------------------------------------------------------------------
 # phase 2 (continued): the analysis gate on the card
 def analysis_gate(ext, dev) -> None:
     """The launch audit held against the built extension (kernel_info's
@@ -4269,7 +4509,7 @@ def main() -> int:
     ap.add_argument("--only", choices=("large_fit", "multi_mid", "figures",
                                        "sessions", "fabric", "store",
                                        "serve", "obs", "dist", "shard",
-                                       "lm", "moe", "mla"),
+                                       "lm", "moe", "mla", "ssm"),
                     help="run only this part, and print no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -4303,6 +4543,8 @@ def main() -> int:
             lm_moe({})
         elif args.only == "mla":
             lm_mla({})
+        elif args.only == "ssm":
+            lm_ssm({})
         elif args.only in ("figures", "sessions", "fabric", "store",
                            "serve", "obs"):
             run = {"figures": figures, "sessions": sessions,
@@ -4343,6 +4585,7 @@ def main() -> int:
     lm_serve(by_path)
     lm_moe(by_path)
     lm_mla(by_path)
+    lm_ssm(by_path)
     if not all(traced.values()):
         raise AssertionError(f"the profiler saw none of some kernels: "
                              f"{traced}")

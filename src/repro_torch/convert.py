@@ -76,8 +76,12 @@ def lm_params_to_torch(params, cfg, device=None) -> "transformer.Transformer":
     config has dense leading layers, and ``layers`` stacked over L, MoE
     layers with their ``moe`` and ``moe.shared`` subtrees, an MLA config's
     ``attn`` with ``wdq``, ``q_ln``, ``wuq``, ``wdkv``, ``kv_ln``, ``wuk``,
-    ``wuv``, ``wkr`` and ``wo``), on ``device`` (``None`` means
-    ``"cuda"``)."""
+    ``wuv``, ``wkr`` and ``wo``, a mamba2 layer's ``ln1`` and ``mamba``
+    with ``in_proj``, ``conv_w``, ``conv_b``, ``A_log``, ``D``,
+    ``dt_bias``, ``norm`` and ``out_proj``), on ``device`` (``None``
+    means ``"cuda"``).  The walk is by parameter name, so every family's
+    leaves (``layers.<i>.mamba.in_proj``, ...) cross without a case of
+    their own."""
     dev = device_lib.resolve(device)
     model = transformer.Transformer(cfg, dev)
     with torch.no_grad():

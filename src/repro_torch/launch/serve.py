@@ -3,11 +3,14 @@
 
 Greedy-decodes synthetic prompts for a selectable architecture of the
 decoder family, dense or mixture-of-experts, with grouped-query or
-latent attention (reduced configs run on the CPU).
+latent attention, or Mamba2's attention-free stack, whose recurrent
+state and conv window are the same size at every length (reduced
+configs run on the CPU).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
         --reduced --batch 4 --prompt-len 64 --gen 32 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
 
 ``--device`` defaults to the card (``cuda``) and raises without one.
 """
@@ -68,8 +71,9 @@ def generate(cfg, params, prompts, gen_len: int, extra=None,
 
 def _grow_cache(cfg, cache, batch, total_len, long_mode):
     """Re-seat a prefill cache into a buffer sized for prefill+generation
-    (kept as it is where the sizes already agree): the stacked layers'
-    and, in an MoE config with dense leading layers, each of theirs."""
+    (kept as it is where the sizes already agree, as a mamba stack's
+    always do): the stacked layers' and, in an MoE config with dense
+    leading layers, each of theirs."""
     dtype = torch_dtype(cfg.compute_dtype)
     spec = transformer.cache_spec(cfg, batch, total_len, dtype, long_mode)
     layer_caches = lambda c: [c["layers"], *c.get("dense", ())]
@@ -77,7 +81,7 @@ def _grow_cache(cfg, cache, batch, total_len, long_mode):
            for want, have in zip(layer_caches(spec), layer_caches(cache))
            for k, got in have.items()):
         return cache
-    device = cache["layers"]["pos"].device
+    device = next(iter(cache["layers"].values())).device
     target = transformer.cache_init(cfg, batch, total_len, dtype, long_mode,
                                     device=device)
     for dst_layer, src_layer in zip(layer_caches(target),

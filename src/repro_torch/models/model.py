@@ -3,7 +3,11 @@
 ``input_specs(cfg, shape)`` returns meta-device tensors (shape and dtype,
 nothing allocated: the port's ``ShapeDtypeStruct``) for every input of
 the step that the shape's ``step_kind`` selects; ``make_inputs`` makes
-concrete ones from an explicit ``torch.Generator``.
+concrete ones from an explicit ``torch.Generator``.  A decode step's
+cache is the stack's (``transformer.cache_spec``): KV or latent slots
+with ``pos``, or a mamba2 layer's ``h`` and ``conv`` (the mamba leaves
+of ``init_params``' tree: ``layers.<i>.mamba.in_proj``, ``conv_w``,
+``conv_b``, ``A_log``, ``D``, ``dt_bias``, ``norm``, ``out_proj``).
 
 Modality frontends are STUBS, as in the reference: VLM configs receive
 pre-computed patch embeddings with the trunk's d_model.

@@ -1,6 +1,7 @@
 """The decoder stack, dense and mixture-of-experts, with grouped-query or
-multi-head latent attention: prefill and ring-KV decode (twin of the
-dense, MoE and MLA halves of ``repro/models/transformer.py``).
+multi-head latent attention, and Mamba2's attention-free stack: prefill
+and ring-KV or recurrent decode (twin of the dense, MoE, MLA and mamba
+halves of ``repro/models/transformer.py``).
 
 ``Transformer`` is an ``nn.Module`` holding the reference's parameter
 tree: ``embed`` (V, d), ``final_norm``, ``head`` (d, V) where embeddings
@@ -8,8 +9,10 @@ are untied, ``dense_layers`` (a ``ModuleList``, the reference's list of
 ``first_k_dense`` leading dense-MLP layers of an MoE config) and
 ``layers``, a ``ModuleList`` of ``DecoderLayer`` (``ln1``, ``attn``,
 ``ln2``, and ``mlp``, or ``moe`` past ``first_k_dense`` in an MoE
-config).  ``attn`` holds ``gqa_shapes``' leaves, or ``mla_shapes``' where
-the config has ``use_mla`` (DeepSeek-V2).  Weights keep the reference's
+config), or of ``MambaLayer`` (``ln1`` and ``mamba``, ``ssm.mamba_shapes``'
+leaves; no MLP) where every layer is a mamba layer (mamba2).  ``attn``
+holds ``gqa_shapes``' leaves, or ``mla_shapes``' where the config has
+``use_mla`` (DeepSeek-V2).  Weights keep the reference's
 (d_in, d_out) layout and fp32; compute runs in ``cfg.compute_dtype``.  Modules and parameter dicts
 index alike (``lp["attn"]``, ``"head" in params``), so every function
 here takes either.
@@ -23,13 +26,16 @@ Public API (mirroring the reference's):
 Caches are tensors stacked over the ``layers``, as the reference's scan
 stacks them: ``k``/``v`` (L, B, Sc, K, hd), or under MLA the latent
 ``ckv`` (L, B, Sc, kv_lora_rank) and ``kr`` (L, B, Sc, rope), and ``pos``
-(L, Sc); and ``cache["dense"]``, a list of one per-layer dict of the
+(L, Sc); a mamba stack's state ``h`` (L, B, H, P, N) fp32 and conv window
+``conv`` (L, B, w-1, conv_ch), the same size at every length (no
+``pos``); and ``cache["dense"]``, a list of one per-layer dict of the
 same names per dense leading layer; ``decode`` writes the new key (or
-latent) of every layer in place.  Prefill and decode discard the MoE
-layers' aux loss, as the reference's serving path does.  The reference's scan over layers, ``constrain_activations`` and
-``remat`` have no eager twin.  Mamba and shared-attention layers and the
-encoder raise ``NotImplementedError`` naming the slice of
-ROADMAP queue 1, item 9 that brings them; ``forward_train`` comes with
+latent, or state and window) of every layer in place.  Prefill and
+decode discard the MoE layers' aux loss, as the reference's serving path does.  The reference's scan over layers, ``constrain_activations`` and
+``remat`` have no eager twin.  The hybrid stack (mamba layers with a
+shared attention block, zamba2) and the encoder raise
+``NotImplementedError`` naming the slice of ROADMAP queue 1, item 9 that
+brings them; ``forward_train`` comes with
 the training slice.
 """
 from __future__ import annotations
@@ -49,6 +55,7 @@ from repro_torch.configs.base import (
 )
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     dense_init,
     embed_init,
@@ -68,9 +75,10 @@ def unsupported(cfg: ModelConfig):
     if cfg.is_encoder_decoder or cfg.frontend == "audio":
         return "the encoder-decoder stack " + _SLICE.format(
             "encoder-decoder")
-    if (cfg.shared_attn_period
+    if not cfg.is_ssm_only and (
+            cfg.shared_attn_period
             or any(k.startswith("mamba") for k in cfg.layer_kinds())):
-        return "a mamba or shared-attention layer " + _SLICE.format(
+        return "a shared-attention (hybrid) layer " + _SLICE.format(
             "SSM and hybrid")
     return None
 
@@ -146,6 +154,16 @@ class DecoderLayer(_Indexed, nn.Module):
                                                    cfg.gated_mlp).items()})
 
 
+class MambaLayer(_Indexed, nn.Module):
+    """A pre-norm Mamba2 block and its residual: ``ln1`` (zeros, an
+    offset from 1) and the ``mamba`` leaves; no MLP, no ``ln2``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.ln1 = _zeros((cfg.d_model,), device)
+        self.mamba = _Tree(ssm_lib.mamba_shapes(cfg), device)
+
+
 class Transformer(_Indexed, nn.Module):
     """The decoder's parameters (uninitialised until
     :func:`init_params` or ``repro_torch.convert.lm_params_to_torch``
@@ -165,7 +183,8 @@ class Transformer(_Indexed, nn.Module):
             self.dense_layers = nn.ModuleList(
                 DecoderLayer(cfg, device, dense=True)
                 for _ in range(n_dense))
-        self.layers = nn.ModuleList(DecoderLayer(cfg, device)
+        layer = MambaLayer if cfg.is_ssm_only else DecoderLayer
+        self.layers = nn.ModuleList(layer(cfg, device)
                                     for _ in range(cfg.num_layers - n_dense))
 
 
@@ -227,6 +246,9 @@ def init_params(cfg: ModelConfig, rng=None, device=None) -> Transformer:
         dense_init(model.head, cfg.d_model, rng)
     mlp_fans = mlp_shapes(cfg.d_model, cfg.d_ff, cfg.gated_mlp)
     for layer in (*getattr(model, "dense_layers", ()), *model.layers):
+        if "mamba" in layer:
+            ssm_lib.mamba_init(layer.mamba, cfg, rng)
+            continue
         for name, (_, fan) in _attn_shapes(cfg).items():
             if fan:
                 dense_init(layer.attn[name], fan, rng)
@@ -275,8 +297,13 @@ def cache_build(cfg: ModelConfig, batch: int, seq_len: int, dtype,
     cache_len = required_cache_len(cfg, seq_len, long_mode)
     dev = torch.device("meta") if make == "spec" else \
         device_lib.resolve(device)
-    init = attn.mla_cache_init if cfg.use_mla else attn.gqa_cache_init
-    per_layer = init(cfg, batch, cache_len, torch_dtype(dtype), device=dev)
+    if cfg.is_ssm_only:
+        per_layer = ssm_lib.mamba_cache_init(cfg, batch, torch_dtype(dtype),
+                                             device=dev)
+    else:
+        init = attn.mla_cache_init if cfg.use_mla else attn.gqa_cache_init
+        per_layer = init(cfg, batch, cache_len, torch_dtype(dtype),
+                         device=dev)
     n_dense = _num_dense(cfg)
     L = cfg.num_layers - n_dense
     cache = {"layers": {k: v[None].expand((L,) + v.shape).clone()
@@ -305,6 +332,19 @@ def _attn_block_prefill(lp, x, *, positions, window: int, cfg: ModelConfig,
                                     window=window, cfg=cfg,
                                     cache_len=cache_len)
     return _mlp_block(lp, x + a, cfg), cache
+
+
+def _mamba_block(lp, x, cfg: ModelConfig, cache=None):
+    """The pre-norm Mamba2 block and its residual: over the sequence with
+    its cache (``cache`` None), or one recurrent step writing ``cache``
+    in place."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if cache is None:
+        out, cache = ssm_lib.mamba_apply(lp["mamba"], h, cfg,
+                                         return_cache=True)
+    else:
+        out, cache = ssm_lib.mamba_decode(lp["mamba"], h, cache, cfg)
+    return x + out, cache
 
 
 def _mlp_block(lp, x, cfg: ModelConfig):
@@ -347,9 +387,12 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     L = cfg.num_layers - n_dense
     stacked = {}
     for i, lp in enumerate(params["layers"]):
-        x, c = _attn_block_prefill(lp, x, positions=positions,
-                                   window=windows[i], cfg=cfg,
-                                   cache_len=cache_len)
+        if "mamba" in lp:
+            x, c = _mamba_block(lp, x, cfg)
+        else:
+            x, c = _attn_block_prefill(lp, x, positions=positions,
+                                       window=windows[i], cfg=cfg,
+                                       cache_len=cache_len)
         for name, t in c.items():
             if name not in stacked:
                 stacked[name] = t.new_empty((L,) + t.shape)
@@ -395,7 +438,10 @@ def decode(params, batch: Dict[str, torch.Tensor], cache: Dict,
     layers = cache["layers"]
     for i, lp in enumerate(params["layers"]):
         c = {name: t[i] for name, t in layers.items()}
-        x, _ = _attn_block_decode(lp, x, c, cache_index, window=windows[i],
-                                  cfg=cfg)
+        if "mamba" in lp:
+            x, _ = _mamba_block(lp, x, cfg, c)
+        else:
+            x, _ = _attn_block_decode(lp, x, c, cache_index,
+                                      window=windows[i], cfg=cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return lm_head(x, _head(params), cfg.final_softcap), cache

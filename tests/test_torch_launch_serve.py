@@ -198,15 +198,24 @@ def test_device_defaults_to_cuda_and_raises_without_a_card(capsys):
     assert "generated (2, 4) on cpu" in capsys.readouterr().out
 
 
-def test_module_cli_runs_on_the_cpu_without_jax():
-    """``python -m repro_torch.launch.serve`` in a fresh interpreter (the
-    vision-prefix arch), which must not import jax or the reference."""
+# the module's CLI in a fresh interpreter: (arch, prompt length, tokens
+# generated) for the vision-prefix, MLA and mamba stacks
+CLI = (("internvl2-2b", 8, 3), ("deepseek-v2-236b", 16, 4),
+       ("mamba2-130m", 40, 4))
+
+
+@pytest.mark.parametrize("arch,prompt_len,gen", CLI,
+                         ids=[c[0] for c in CLI])
+def test_module_cli_runs_on_the_cpu_without_jax(arch, prompt_len, gen):
+    """``python -m repro_torch.launch.serve --arch <arch> --reduced
+    --device cpu`` in a fresh interpreter, which must not import jax or
+    the reference."""
     env = dict(os.environ)
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
     code = ("import runpy, sys\n"
-            "sys.argv = ['serve', '--arch', 'internvl2-2b', '--reduced', "
-            "'--device', 'cpu', '--batch', '2', '--prompt-len', '8', "
-            "'--gen', '3']\n"
+            f"sys.argv = ['serve', '--arch', '{arch}', '--reduced', "
+            f"'--device', 'cpu', '--batch', '2', '--prompt-len', "
+            f"'{prompt_len}', '--gen', '{gen}']\n"
             "runpy.run_module('repro_torch.launch.serve', "
             "run_name='__main__')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -215,4 +224,4 @@ def test_module_cli_runs_on_the_cpu_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "generated (2, 3) on cpu" in proc.stdout
+    assert f"generated (2, {gen}) on cpu" in proc.stdout

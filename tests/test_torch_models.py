@@ -1,6 +1,6 @@
-"""The port's dense decoder family (``repro_torch.configs``,
+"""The port's decoder family (``repro_torch.configs``,
 ``repro_torch.models``) against the reference's (``repro.configs``,
-``repro.models``) on the CPU.
+``repro.models``) on the CPU: dense, MoE, MLA and mamba2's stack.
 
 The same seeded numpy inputs and the same weights (carried across with
 ``repro_torch.convert.lm_params_to_torch``) go through both packages.
@@ -16,7 +16,8 @@ bf16 logits are held within atol = max(3e-2, 0.15 sigma), rtol = 3e-2
 accurate as the reference's own (within 1.5x its distance from the fp32
 logits).  Caches are compared after sorting each layer's slots by
 position: the port seats each key at slot ``pos mod cache_len`` (the
-reference's layout, rolled).  A bf16 cache entry carries the noise of
+reference's layout, rolled); a mamba stack's cache (the state ``h`` and
+the conv window, no ``pos``) is compared as it is.  A bf16 cache entry carries the noise of
 every layer below it: the caches of a layer with two or more below it
 (only the 3-layer deepseek-v2 case has one) are held within atol = 6e-2,
 rtol = 3e-2.  On ``test_generate_bf16_logits_match_the_reference``'s
@@ -43,7 +44,7 @@ from repro.models import transformer as jtrans
 from repro_torch import configs
 from repro_torch.configs import base
 from repro_torch.convert import lm_params_to_numpy, lm_params_to_torch
-from repro_torch.models import attention, layers, model, transformer
+from repro_torch.models import attention, layers, model, ssm, transformer
 
 # the reference's functions compiled once per shape (their op-by-op
 # dispatch would compile every primitive at every test's shapes)
@@ -61,7 +62,10 @@ DENSE = ("qwen2-0.5b", "qwen2.5-32b", "gemma2-2b", "gemma3-12b",
 # the mixture-of-experts archs the stack runs (deepseek-v2 with its latent
 # attention and a dense leading layer)
 MOE = ("phi3.5-moe-42b-a6.6b", "deepseek-v2-236b")
-SERVED = DENSE + MOE
+# the attention-free state-space stack
+SSM = ("mamba2-130m",)
+ATTENTION = DENSE + MOE
+SERVED = ATTENTION + SSM
 OTHERS = tuple(a for a in jconfigs.ARCHS if a not in SERVED)
 # a served arch at another depth: deepseek-v2 with 3 layers, so that the
 # stacked latent cache holds two layers (name -> (arch, config changes))
@@ -69,6 +73,11 @@ DSV2_3L = "deepseek-v2-236b:3-layers"
 VARIANTS = {DSV2_3L: ("deepseek-v2-236b", {"num_layers": 3})}
 # the cases of the stack's parity tests
 STACKS = SERVED + tuple(VARIANTS)
+# phi3.5 with a dense leading layer, so that an MoE stack's tree without
+# MLA holds ``dense_layers`` (a case of the converter's round trip only)
+PHI_DENSE1 = "phi3.5-moe-42b-a6.6b:1-dense"
+_NAMED = dict(VARIANTS, **{
+    PHI_DENSE1: ("phi3.5-moe-42b-a6.6b", {"first_k_dense": 1})})
 DTYPES = ("float32", "bfloat16")
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        "bfloat16": dict(atol=3e-2, rtol=3e-2)}
@@ -110,7 +119,7 @@ def _pair(x, dtype):
 @functools.lru_cache(maxsize=None)
 def _reference_params(name, seed):
     """The reference's init (the compute dtype does not enter it)."""
-    arch, over = VARIANTS.get(name, (name, {}))
+    arch, over = _NAMED.get(name, (name, {}))
     params = jmodel.init_params(
         jconfigs.get_reduced_config(arch).replace(**over),
         jax.random.key(seed))
@@ -120,8 +129,8 @@ def _reference_params(name, seed):
 def _models(name, dtype, seed=0):
     """Both packages' reduced configs at ``dtype`` and the same weights:
     the reference's tree and a fresh port model holding it.  ``name`` is
-    an arch or a key of ``VARIANTS``."""
-    arch, over = VARIANTS.get(name, (name, {}))
+    an arch or a key of ``VARIANTS`` or ``_NAMED``."""
+    arch, over = _NAMED.get(name, (name, {}))
     over = dict(over, compute_dtype=dtype)
     jcfg = jconfigs.get_reduced_config(arch).replace(**over)
     cfg = configs.get_reduced_config(arch).replace(**over)
@@ -142,7 +151,8 @@ def _batch(cfg, B, S, seed=1):
 def _close_cache(got, want, dtype):
     """Each layer's cache (each dense leading layer's, then the stacked
     layers'), slots sorted by position, equal positions and every other
-    entry (k/v, or MLA's ckv/kr) within tolerance (module doc)."""
+    entry (k/v, or MLA's ckv/kr) within tolerance; a cache without
+    ``pos`` (mamba's ``h`` and ``conv``) entry by entry (module doc)."""
     dense = got.get("dense", ())
     assert len(dense) == len(want.get("dense", ()))
     pairs = [({k: v[None] for k, v in g.items()},
@@ -151,6 +161,17 @@ def _close_cache(got, want, dtype):
     pairs.append((got["layers"], want["layers"]))
     depth = 0
     for gl, wl in pairs:
+        assert set(gl) == set(wl)
+        if "pos" not in gl:
+            for i in range(next(iter(gl.values())).shape[0]):
+                tol = (DEEP_CACHE_TOL if dtype == "bfloat16" and depth >= 2
+                       else TOL[dtype])
+                depth += 1
+                for name in sorted(gl):
+                    assert gl[name][i].shape == wl[name][i].shape
+                    np.testing.assert_allclose(_np(gl[name][i]),
+                                               _np(wl[name][i]), **tol)
+            continue
         gpos, wpos = gl["pos"].numpy(), np.asarray(wl["pos"])
         assert gpos.shape == wpos.shape and set(gl) == set(wl)
         for i in range(gpos.shape[0]):
@@ -434,7 +455,7 @@ def test_bf16_is_as_accurate_as_the_reference(arch):
     assert port <= 1.5 * ref + 1e-3, (port, ref)
 
 
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", ATTENTION)
 def test_prefill_takes_the_flash_schedule(arch):
     """A prompt over the chunk threshold (2560 > 2048, a multiple of the
     512-query block) prefills through ``_flash_sdpa`` in both packages;
@@ -470,7 +491,7 @@ def test_cache_and_input_specs_match_the_reference(arch, long_mode):
         assert str(s.dtype).split(".")[-1] == str(jspec["layers"][name].dtype)
     init = transformer.cache_init(cfg, 2, 64, "float32", long_mode,
                                   device="cpu")
-    assert (init["layers"]["pos"] == -1).all()
+    assert _empty_cache(init)
     for name in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
         shape, jshape = base.SHAPES[name], jbase.SHAPES[name]
         assert model.use_long_mode(cfg, shape) == \
@@ -501,10 +522,22 @@ def test_param_specs_and_init_match_the_reference_tree(arch):
     jax.tree.map(np.testing.assert_array_equal, ta, tb)
     assert all(np.isfinite(x).all() for x in jax.tree.leaves(ta))
     assert abs(ta["embed"].std() - 0.02) < 0.002
-    # the query's (or MLA's query down-) projection, fan-in d_model
-    wq = ta["layers"]["attn"]["wdq" if red.use_mla else "wq"]
+    # the query's (MLA's query down-, mamba's input) projection, fan-in
+    # d_model
+    if "mamba" in ta["layers"]:
+        wq = ta["layers"]["mamba"]["in_proj"]
+    else:
+        wq = ta["layers"]["attn"]["wdq" if red.use_mla else "wq"]
     assert abs(wq.std() - red.d_model ** -0.5) < 0.1 * red.d_model ** -0.5
     assert (ta["final_norm"] == 0).all() and (ta["layers"]["ln1"] == 0).all()
+
+
+def _empty_cache(cache) -> bool:
+    """Every slot empty (pos -1), or a mamba cache all zeros."""
+    layers = cache["layers"]
+    if "pos" in layers:
+        return bool((layers["pos"] == -1).all())
+    return not any(t.any() for t in layers.values())
 
 
 def _tree_shapes(net) -> dict:
@@ -544,7 +577,7 @@ def test_make_inputs(arch):
         assert set(a) == set(specs)
         for k, v in a.items():
             if k == "cache":
-                assert (v["layers"]["pos"] == -1).all()
+                assert _empty_cache(v)
             elif k == "cache_index":
                 assert v == 0
             else:
@@ -565,14 +598,71 @@ def test_other_families_raise_naming_their_slice(arch):
             make()
 
 
-def test_convert_round_trip_is_bitwise():
-    for arch in ("gemma2-2b", "internvl2-2b", "qwen2-0.5b"):
-        jcfg, cfg, params, net = _models(arch, "float32", seed=11)
-        tree = lm_params_to_numpy(net)
-        want = jax.tree.map(np.asarray, params)
-        assert jax.tree.structure(tree) == jax.tree.structure(want)
-        jax.tree.map(np.testing.assert_array_equal, tree, want)
-        assert ("head" in net) == (not cfg.tie_embeddings)
-    bad = dict(want, embed=want["embed"][:, :-1])
-    with pytest.raises(ValueError, match="embed"):
+def test_a_shared_attention_period_alone_still_raises():
+    """A config with ``shared_attn_period`` and no mamba kinds belongs to
+    the hybrid slice: the stack refuses it rather than build it without
+    its shared block."""
+    cfg = configs.get_reduced_config("qwen2-0.5b").replace(
+        shared_attn_period=2)
+    assert transformer.unsupported(
+        configs.get_reduced_config("qwen2-0.5b")) is None
+    with pytest.raises(NotImplementedError, match="SSM and hybrid"):
+        transformer.Transformer(cfg, "meta")
+
+
+def _dense_leaves(cfg, tree, net):
+    assert ("head" in net) == (not cfg.tie_embeddings)
+
+
+def _moe_leaves(cfg, tree, net):
+    assert isinstance(tree["layers"]["moe"]["gate"], np.ndarray)
+    assert ("dense_layers" in tree) == bool(cfg.first_k_dense)
+
+
+def _mla_leaves(cfg, tree, net):
+    names = set(attention.mla_shapes(cfg))
+    assert set(tree["layers"]["attn"]) == names
+    assert set(tree["dense_layers"][0]["attn"]) == names
+    assert tree["layers"]["attn"]["wuk"].shape[0] == len(net.layers)
+
+
+def _mamba_leaves(cfg, tree, net):
+    assert set(tree["layers"]) == {"ln1", "mamba"}
+    assert set(tree["layers"]["mamba"]) == set(ssm.mamba_shapes(cfg))
+    assert "head" not in tree and "head" not in net
+
+
+# the converter's round trip: case -> (the leaf cut short, which the
+# error must name; the family's leaf-name check)
+ROUND_TRIP = {
+    "gemma2-2b": (("embed",), _dense_leaves),
+    "internvl2-2b": (("embed",), _dense_leaves),
+    "qwen2-0.5b": (("embed",), _dense_leaves),
+    "phi3.5-moe-42b-a6.6b": (("layers", "moe", "router"), _moe_leaves),
+    PHI_DENSE1: (("layers", "moe", "router"), _moe_leaves),
+    "deepseek-v2-236b": (("layers", "attn", "wuk"), _mla_leaves),
+    DSV2_3L: (("layers", "attn", "wuk"), _mla_leaves),
+    "mamba2-130m": (("layers", "mamba", "conv_w"), _mamba_leaves),
+}
+
+
+@pytest.mark.parametrize("case", ROUND_TRIP)
+def test_convert_round_trip_is_bitwise(case):
+    """The reference's tree crosses to the port and back bitwise, each
+    family's leaves where its stack keeps them (dense, MoE with and
+    without ``dense_layers``, MLA, mamba); a wrong shape names its
+    leaf."""
+    path, leaves = ROUND_TRIP[case]
+    jcfg, cfg, params, net = _models(case, "float32", seed=11)
+    tree = lm_params_to_numpy(net)
+    want = jax.tree.map(np.asarray, params)
+    assert jax.tree.structure(tree) == jax.tree.structure(want)
+    jax.tree.map(np.testing.assert_array_equal, tree, want)
+    leaves(cfg, tree, net)
+    bad = jax.tree.map(lambda a: a, want)
+    node = bad
+    for key in path[:-1]:
+        node = node[key]
+    node[path[-1]] = node[path[-1]][..., :-1]
+    with pytest.raises(ValueError, match=".".join(path[-2:])):
         lm_params_to_torch(bad, cfg, device="cpu")

@@ -17,8 +17,8 @@ exact router ties.  The stack: reduced Phi-3.5-MoE runs in the shared
 parity tests of tests/test_torch_models.py and tests/test_torch_launch_
 serve.py (``SERVED``); here its variant with a dense leading layer
 (``first_k_dense=1``, set in both packages, the reference's
-``dense_layers`` list), both in the port-only decode check and the
-convert round trip.
+``dense_layers`` list), in the port-only decode check; its convert round
+trip is a case of tests/test_torch_models.py's.
 """
 import functools
 
@@ -34,7 +34,7 @@ from repro.models import model as jmodel
 from repro.models import moe as jmoe
 from repro.train import steps as jsteps
 from repro_torch import configs
-from repro_torch.convert import lm_params_to_numpy, lm_params_to_torch
+from repro_torch.convert import lm_params_to_torch
 from repro_torch.launch import serve
 from repro_torch.models import moe, transformer
 from repro_torch.train import steps
@@ -355,19 +355,3 @@ def test_dropless_decode_equals_prefill(variant):
                                        cache, t, cfg)
         full, _ = transformer.prefill(net, {"tokens": toks[:, :t + 1]}, cfg)
         assert float((dl - full).abs().max()) <= 1e-4
-
-
-@pytest.mark.parametrize("variant", sorted(VARIANTS))
-def test_convert_round_trip_is_bitwise(variant):
-    jcfg, cfg, params, net = _stack(variant, "float32", seed=11)
-    tree = lm_params_to_numpy(net)
-    want = jax.tree.map(np.asarray, params)
-    assert jax.tree.structure(tree) == jax.tree.structure(want)
-    jax.tree.map(np.testing.assert_array_equal, tree, want)
-    assert isinstance(tree["layers"]["moe"]["gate"], np.ndarray)
-    assert ("dense_layers" in tree) == bool(VARIANTS[variant])
-    bad = jax.tree.map(lambda a: a, want)
-    bad["layers"]["moe"]["router"] = want["layers"]["moe"]["router"][..., :-1]
-    with pytest.raises(ValueError, match="moe.router"):
-        lm_params_to_torch(bad, cfg, device="cpu")
-
