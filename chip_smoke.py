@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--out FILE] [--only large_fit|multi_mid|figures|
                                                sessions|fabric|store|serve|
                                                obs|dist|shard|lm|moe|mla|
-                                               ssm]
+                                               ssm|hybrid]
 
 Runs from the root of a checkout, on a machine with one CUDA card, the
 CUDA toolkit and ninja; it builds the hand kernels itself into
@@ -335,7 +335,34 @@ any failure raises and exits non-zero:
    peak, its cache's bytes a batch row those of (a); (e) the module's
    CLI (``serve.main``) with no ``--device``, at full size: its tokens
    on the card;
-19. the ``kernels`` line (with ``launches_by_path["shard"]``, phase 14's
+19. Zamba2's hybrid serving path at zamba2-1.2b's full published size,
+   nothing cut (38 Mamba2 layers at d_model 2048, d_inner 4096, 64 SSM
+   heads of 64, d_state 64, 1 group, conv width 4, chunk 256; one
+   weight-tied shared block, MHA with 32 heads over 32 KV heads of 64,
+   d_ff 8192 SwiGLU, after layers 5, 11, 17, 23, 29 and 35; vocab 32000
+   with a tied head), fp32 weights from ``init_params`` with a seeded
+   generator: (a) bf16, ``generate`` at batch 4, a 512-token prompt and
+   32 new tokens, its wall and tokens/s, the prefill step (median of 3)
+   and the decode step per token (CUDA events), one decode step traced
+   (busy share, launches, the device ms inside the 38 mamba blocks
+   against the 6 shared-block calls), the peak, the uniform cache's
+   bytes by entry (``h`` (38, 4, 64, 64, 64) fp32, ``conv`` (38, 4, 3,
+   4224), ``k``/``v`` (38, 4, 545, 32, 64), ``pos`` (38, 545)) and those
+   of the 32 unflagged layers' KV slots, which no step reads; no hand
+   kernel launched (its ``launches_by_path["lm_hybrid"]`` is zeros);
+   (b) fp32, batch 2, decode's logits at steps 1, 8 and 32 against a
+   prefill over the prompt and the tokens so far (max abs diff <= 1e-3,
+   equal argmax); (c) long mode, fp32, batch 1, (b)'s check at steps 1
+   and 16 of 16 new tokens after a 4610- and a 4608-token prompt, both
+   over the 4096 window and not multiples of it, so the shared block's
+   ring wraps: 4610 is 18 chunks and a 2-token padded tail, and not a
+   multiple of the 512-query block, so its attention takes the plain
+   schedule; 4608 takes ``_flash_sdpa`` (each prompt's schedule and
+   SSD lengths checked); (d) the module's CLI (``serve.main``) with no ``--device``, at
+   full size: its tokens on the card; (e) the model's parameter count
+   equal to 1,104,937,856, the reference's leaf count, with one
+   ``shared_attn`` module (the tied block);
+20. the ``kernels`` line (with ``launches_by_path["shard"]``, phase 14's
    launches counted in the ranks), the card line, and the result line.
 
 ``--only`` runs one part and prints no result line, to compare two
@@ -346,7 +373,8 @@ N in {328, 329, 515, 1000}, 100 iterations with the fold), each against
 its plain version and timed, ``figures`` phase 7, ``sessions`` phase 8,
 ``fabric`` phase 9, ``store`` phase 10, ``serve`` phase 11, ``obs``
 phase 12, ``dist`` phase 13, ``shard`` phase 14, ``lm`` phase 15,
-``moe`` phase 16, ``mla`` phase 17, ``ssm`` phase 18.
+``moe`` phase 16, ``mla`` phase 17, ``ssm`` phase 18, ``hybrid`` phase
+19.
 
 Without a CUDA device, or without the rest of the repository beside it,
 it exits non-zero and prints no result.
@@ -580,6 +608,20 @@ SSM_ARCH = "mamba2-130m"
 SSM_PROMPTS = (dict(prompt=4100, gen=16, steps=(1, 16)),
                dict(prompt=2, gen=8, steps=(1, 8)))
 SSM_PREFILL = 32768
+# phase 19: Zamba2's hybrid serving path at zamba2-1.2b's full published
+# size, nothing cut.  (a) bf16 generate at lm's serving shape; (b) fp32
+# decode against prefill at LM_STEPS; (c) long mode after HYBRID_LONG's
+# prompts, both over the 4096 window and not multiples of it, so the
+# shared block's ring wraps: 4610 (18 chunks and a 2-token padded tail;
+# not a multiple of the 512-query block, so attention takes the plain
+# schedule) and 4608 (18 whole chunks; the flash schedule); (d) the CLI;
+# (e) the parameter count, the reference's leaf count with one tied
+# shared block after HYBRID_FLAGGED
+HYBRID_ARCH = "zamba2-1.2b"
+HYBRID_PARAMS = 1_104_937_856
+HYBRID_FLAGGED = (5, 11, 17, 23, 29, 35)
+HYBRID_LONG = (dict(prompt=4610, gen=16, steps=(1, 16), flash=False),
+               dict(prompt=4608, gen=16, steps=(1, 16), flash=True))
 
 RECORDS = []
 
@@ -4458,6 +4500,226 @@ def lm_ssm(by_path: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 19: Zamba2's hybrid serving path at zamba2-1.2b's full size
+def lm_hybrid(by_path: dict) -> None:
+    """Phase 19: zamba2-1.2b at full size through ``generate`` (bf16),
+    then decode against prefill in fp32 after a 512-token prompt and, in
+    long mode, after a 4610-token one, then the module's CLI."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import attention, ssm, transformer
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import steps
+
+    phase_t0 = time.perf_counter()
+    cfg = get_config(HYBRID_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = model_lib.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    # (e) the parameter count: one tied block, not one a flagged layer
+    n_params = sum(p.numel() for p in net.parameters())
+    n_shared = sum(1 for name, _ in net.named_modules()
+                   if name.split(".")[-1] == "shared_attn")
+    shared_params = sum(p.numel() for p in net.shared_attn.parameters())
+    flagged = transformer.shared_attn_layers(cfg)
+    emit({"lm_hybrid": "init", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "d_inner": cfg.d_inner,
+          "ssm_heads": cfg.ssm_nheads, "head_dim": cfg.ssm_head_dim,
+          "d_state": cfg.ssm_state, "groups": cfg.ssm_ngroups,
+          "conv": cfg.ssm_conv, "chunk": cfg.ssm_chunk,
+          "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+          "attn_head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab_size, "tied": cfg.tie_embeddings,
+          "shared_after": list(flagged), "shared_modules": n_shared,
+          "shared_params": shared_params, "params": n_params,
+          "params_reference": HYBRID_PARAMS,
+          "params_equal": n_params == HYBRID_PARAMS,
+          "init_s": time.perf_counter() - t0,
+          "params_gb": torch.cuda.memory_allocated() / 1e9})
+    if n_params != HYBRID_PARAMS or n_shared != 1:
+        raise AssertionError(f"lm_hybrid: {n_params} parameters in "
+                             f"{n_shared} shared blocks, the reference "
+                             f"holds {HYBRID_PARAMS} in one")
+    if flagged != HYBRID_FLAGGED:
+        raise AssertionError(f"lm_hybrid: the shared block follows layers "
+                             f"{flagged}")
+
+    def cache_bytes(cache, B, slots):
+        got = {k: (tuple(v.shape), str(v.dtype)) for k, v in
+               cache["layers"].items()}
+        L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+        conv_ch = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+        kv = ((L, B, slots, K, hd), "torch.bfloat16")
+        want = {"h": ((L, B, cfg.ssm_nheads, cfg.ssm_head_dim,
+                       cfg.ssm_state), "torch.float32"),
+                "conv": ((L, B, cfg.ssm_conv - 1, conv_ch),
+                         "torch.bfloat16"),
+                "k": kv, "v": kv, "pos": ((L, slots), "torch.int32")}
+        if got != want or set(cache) != {"layers"}:
+            raise AssertionError(f"lm_hybrid: the cache holds {got}, not "
+                                 f"{want}")
+        return {k: _cache_bytes(cache, (k,)) for k in want}
+
+    # (a) bf16 generate at the serving shape
+    a = LM_SERVE
+    B, S, n = a["batch"], a["prompt"], a["gen"]
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            dtype=torch.int32, device="cuda")
+    serve_lib.generate(cfg, net, prompts[:, :64], 2)    # first-call costs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = serve_lib.generate(cfg, net, prompts, n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_path["lm_hybrid"] = launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    pre_ms, decode_ms, logits, cache, tok, idx = _timed_steps(
+        net, cfg, prompts, n)
+    slots = S + n + 1
+    by_entry = cache_bytes(cache, B, slots)
+    unread = cfg.num_layers - len(flagged)
+    unread_kv = (by_entry["k"] + by_entry["v"]) * unread // cfg.num_layers
+    decode = steps.make_decode_step(cfg)
+    blocks = ("mamba_block", "shared_block")
+    # the stack's only attention blocks are the shared block's calls
+    with _ranges([(ssm, "mamba_decode", "mamba_block"),
+                  (transformer, "_attn_block_decode", "shared_block")]):
+        if any(_profile("lm_hybrid decode step",
+                        lambda: decode(net, tok, cache, idx),
+                        blocks).values()):
+            raise AssertionError("lm_hybrid decode step: the profiler saw "
+                                 "hand kernels")
+    traced = RECORDS[-1]
+    ok_toks = (toks.shape == (B, n) and int(toks.min()) >= 0
+               and int(toks.max()) < cfg.vocab_size)
+    emit({"lm_hybrid": "serve/bf16", "arch": cfg.name, "batch": B,
+          "prompt": S, "gen": n, "wall_s": wall,
+          "tokens_per_s": B * n / wall,
+          "prefill_ms": sorted(pre_ms)[1], "prefill_ms_all": pre_ms,
+          "decode_ms_per_token": decode_ms,
+          "decode_tokens_per_s": B * 1e3 / decode_ms,
+          "decode_device_busy_share": traced["device_busy_share"],
+          "decode_device_launches": traced["device_launches"],
+          "decode_device_ms": traced["device_busy_s"] * 1e3,
+          "decode_mamba_blocks_device_ms":
+              traced["block_device_ms"]["mamba_block"],
+          "decode_shared_blocks_device_ms":
+              traced["block_device_ms"]["shared_block"],
+          "decode_block_calls": traced["block_calls"],
+          "cache_slots": slots, "cache_bytes": by_entry,
+          "cache_bytes_total": sum(by_entry.values()),
+          "unread_kv_layers": unread, "unread_kv_bytes": unread_kv,
+          "peak_gb": peak, "launches": launches, "tokens_ok": ok_toks,
+          "sample": toks[0, :8].tolist()})
+    if not ok_toks or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"lm_hybrid: tokens {tuple(toks.shape)} or "
+                             f"logits out of range")
+    if any(launches.values()):
+        raise AssertionError(f"lm_hybrid launched hand kernels: {launches}")
+    want_calls = {"mamba_block": cfg.num_layers, "shared_block": len(flagged)}
+    if traced["block_calls"] != want_calls:
+        raise AssertionError(f"lm_hybrid: the traced decode step ran "
+                             f"{traced['block_calls']}, not {want_calls}")
+    del cache, logits
+
+    # (b) fp32: decode against prefill after the 512-token prompt
+    cfg32 = cfg.replace(compute_dtype="float32")
+    B32 = 2
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    checks = _decode_vs_prefill(net, cfg32, prompts[:B32], max(LM_STEPS),
+                                LM_STEPS, False, "lm_hybrid/fp32")
+    emit({"lm_hybrid": "decode_vs_prefill/fp32", "batch": B32, "prompt": S,
+          "checks": checks, "tol": LM_TOL,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t0})
+
+    # (c) long mode, fp32, batch 1: the shared block's ring wraps; each
+    # prompt's attention schedule and SSD calls (padded length, chunk)
+    # recorded
+    calls = {"flash": [], "plain": [], "ssd": []}
+    real = (attention._flash_sdpa, attention._sdpa, ssm.ssd_chunked)
+
+    def counting(name, fn):
+        def call(x, *args, **kw):
+            calls[name].append((x.shape[1], args[4]) if name == "ssd"
+                               else x.shape[1])
+            return fn(x, *args, **kw)
+        return call
+
+    chunk = cfg.ssm_chunk
+    for c in HYBRID_LONG:
+        S_long = c["prompt"]
+        prompt = torch.randint(0, cfg.vocab_size, (1, S_long), generator=gen,
+                               dtype=torch.int32, device="cuda")
+        want_ssd = (-(-S_long // chunk) * chunk, chunk)
+        for v in calls.values():
+            v.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (attention._flash_sdpa, attention._sdpa,
+         ssm.ssd_chunked) = (counting("flash", real[0]),
+                             counting("plain", real[1]),
+                             counting("ssd", real[2]))
+        try:
+            checks = _decode_vs_prefill(net, cfg32, prompt, c["gen"],
+                                        c["steps"], True,
+                                        f"lm_hybrid/long{S_long}")
+        finally:
+            attention._flash_sdpa, attention._sdpa, ssm.ssd_chunked = real
+        cache_len = transformer.required_cache_len(cfg, S_long, True)
+        # the prompt's prefill: one attention call a shared block
+        took = {k: calls[k].count(S_long) for k in ("flash", "plain")}
+        emit({"lm_hybrid": f"decode_vs_prefill/long{S_long}", "batch": 1,
+              "prompt": S_long, "window": cfg.long_context_window,
+              "cache_len": cache_len, "checks": checks, "tol": LM_TOL,
+              "prompt_attention_calls": took, "padded": want_ssd[0],
+              "chunks": want_ssd[0] // chunk,
+              "prompt_ssd_calls": calls["ssd"][:cfg.num_layers],
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "seconds": time.perf_counter() - t0})
+        if cache_len != cfg.long_context_window:
+            raise AssertionError(f"lm_hybrid/long{S_long}: {cache_len} "
+                                 f"slots, not the "
+                                 f"{cfg.long_context_window}-slot ring")
+        want_took = {"flash": len(flagged) if c["flash"] else 0,
+                     "plain": 0 if c["flash"] else len(flagged)}
+        if took != want_took:
+            raise AssertionError(f"lm_hybrid/long{S_long}: the prompt's "
+                                 f"shared blocks took {took}, not "
+                                 f"{want_took}")
+        if calls["ssd"][:cfg.num_layers] != [want_ssd] * cfg.num_layers:
+            raise AssertionError(f"lm_hybrid/long{S_long}: the prefill ran "
+                                 f"SSD over {calls['ssd'][:cfg.num_layers]}"
+                                 f", not {want_ssd} in each layer")
+    del net
+    torch.cuda.empty_cache()
+
+    # (d) the module's CLI with no --device: full size, on the card
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        toks = serve_lib.main(["--arch", HYBRID_ARCH, "--batch", "2",
+                               "--prompt-len", "64", "--gen", "4"])
+    emit({"lm_hybrid": "cli", "argv": f"--arch {HYBRID_ARCH} --batch 2 "
+          "--prompt-len 64 --gen 4", "device": str(toks.device),
+          "printed": out.getvalue().strip(),
+          "seconds": time.perf_counter() - t0})
+    if toks.device.type != "cuda" or tuple(toks.shape) != (2, 4) or \
+            "generated (2, 4) on cuda" not in out.getvalue():
+        raise AssertionError(f"lm_hybrid: the CLI gave {tuple(toks.shape)} "
+                             f"on {toks.device}: {out.getvalue()!r}")
+    del toks
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_hybrid", "seconds": time.perf_counter() - phase_t0})
+
+
+# ---------------------------------------------------------------------------
 # phase 2 (continued): the analysis gate on the card
 def analysis_gate(ext, dev) -> None:
     """The launch audit held against the built extension (kernel_info's
@@ -4509,9 +4771,11 @@ def main() -> int:
     ap.add_argument("--only", choices=("large_fit", "multi_mid", "figures",
                                        "sessions", "fabric", "store",
                                        "serve", "obs", "dist", "shard",
-                                       "lm", "moe", "mla", "ssm"),
+                                       "lm", "moe", "mla", "ssm",
+                                       "hybrid"),
                     help="run only this part, and print no result line")
     args = ap.parse_args()
+    script_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
               file=sys.stderr)
@@ -4545,6 +4809,8 @@ def main() -> int:
             lm_mla({})
         elif args.only == "ssm":
             lm_ssm({})
+        elif args.only == "hybrid":
+            lm_hybrid({})
         elif args.only in ("figures", "sessions", "fabric", "store",
                            "serve", "obs"):
             run = {"figures": figures, "sessions": sessions,
@@ -4586,6 +4852,7 @@ def main() -> int:
     lm_moe(by_path)
     lm_mla(by_path)
     lm_ssm(by_path)
+    lm_hybrid(by_path)
     if not all(traced.values()):
         raise AssertionError(f"the profiler saw none of some kernels: "
                              f"{traced}")
@@ -4609,6 +4876,7 @@ def main() -> int:
             "ms": large["ms"], "plain_ms": large["plain_ms"],
             "bound_ms": large["bound_ms"], "bound_by": large["bound_by"],
             "library_ms": large["library_ms"], "cases": cases[kname]})
+    emit({"script": "wall", "seconds": time.perf_counter() - script_t0})
     emit({"kernels": kernels})
     write_records(args.out)
     print(smi, flush=True)

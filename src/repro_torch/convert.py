@@ -11,8 +11,8 @@ Nothing here imports the reference: the twin is found by the class name.
 ``lm_params_to_torch`` / ``lm_params_to_numpy`` do the same for the
 decoder's weights: the reference's parameter pytree (numpy leaves,
 ``layers`` stacked along a leading L axis, an MoE config's
-``dense_layers`` a list) to the port's ``Transformer`` and back, each
-leaf bitwise.
+``dense_layers`` a list, a hybrid config's ``shared_attn`` one layer's
+tree) to the port's ``Transformer`` and back, each leaf bitwise.
 """
 from __future__ import annotations
 
@@ -78,7 +78,8 @@ def lm_params_to_torch(params, cfg, device=None) -> "transformer.Transformer":
     ``attn`` with ``wdq``, ``q_ln``, ``wuq``, ``wdkv``, ``kv_ln``, ``wuk``,
     ``wuv``, ``wkr`` and ``wo``, a mamba2 layer's ``ln1`` and ``mamba``
     with ``in_proj``, ``conv_w``, ``conv_b``, ``A_log``, ``D``,
-    ``dt_bias``, ``norm`` and ``out_proj``), on ``device`` (``None``
+    ``dt_bias``, ``norm`` and ``out_proj``, and a hybrid stack's
+    ``shared_attn``, one unstacked layer tree), on ``device`` (``None``
     means ``"cuda"``).  The walk is by parameter name, so every family's
     leaves (``layers.<i>.mamba.in_proj``, ...) cross without a case of
     their own."""
@@ -97,7 +98,8 @@ def lm_params_to_torch(params, cfg, device=None) -> "transformer.Transformer":
 def lm_params_to_numpy(model) -> dict:
     """The reference's parameter pytree of a port ``Transformer``: numpy
     leaves, ``layers`` stacked along a leading L axis, ``dense_layers`` a
-    list of per-layer trees."""
+    list of per-layer trees, and every other subtree (a hybrid stack's
+    ``shared_attn``) nested as it is."""
     tree: dict = {}
     per_layer: dict = {}
     for name, t in model.named_parameters():
@@ -111,7 +113,7 @@ def lm_params_to_numpy(model) -> dict:
             dense.extend({} for _ in range(i + 1 - len(dense)))
             _put(dense[i], parts[2:], leaf)
         else:
-            tree[parts[0]] = leaf
+            _put(tree, parts, leaf)
     layers: dict = {}
     for path, leaves in per_layer.items():
         _put(layers, path, np.stack(leaves))

@@ -3,14 +3,16 @@
 
 Greedy-decodes synthetic prompts for a selectable architecture of the
 decoder family, dense or mixture-of-experts, with grouped-query or
-latent attention, or Mamba2's attention-free stack, whose recurrent
-state and conv window are the same size at every length (reduced
-configs run on the CPU).
+latent attention, Mamba2's attention-free stack, whose recurrent state
+and conv window are the same size at every length, or Zamba2's hybrid
+stack, which adds a KV slot to every layer for its shared attention
+block (reduced configs run on the CPU).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
         --reduced --batch 4 --prompt-len 64 --gen 32 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
 
 ``--device`` defaults to the card (``cuda``) and raises without one.
 """
@@ -73,7 +75,8 @@ def _grow_cache(cfg, cache, batch, total_len, long_mode):
     """Re-seat a prefill cache into a buffer sized for prefill+generation
     (kept as it is where the sizes already agree, as a mamba stack's
     always do): the stacked layers' and, in an MoE config with dense
-    leading layers, each of theirs."""
+    leading layers, each of theirs.  A hybrid stack's KV slots grow, its
+    mamba state and window are carried whole."""
     dtype = torch_dtype(cfg.compute_dtype)
     spec = transformer.cache_spec(cfg, batch, total_len, dtype, long_mode)
     layer_caches = lambda c: [c["layers"], *c.get("dense", ())]

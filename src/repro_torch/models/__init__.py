@@ -1,7 +1,8 @@
 """The decoder family's serving path, dense and mixture-of-experts, with
-grouped-query or multi-head latent attention, and Mamba2's state-space
-stack (twin of ``repro/models/``; the hybrid stack's shared attention and
-the encoder come with later slices)."""
+grouped-query or multi-head latent attention, Mamba2's state-space stack
+and Zamba2's hybrid one, whose mamba layers share one weight-tied
+attention block (twin of ``repro/models/``; the encoder comes with a
+later slice)."""
 from repro_torch.models import (  # noqa: F401
     attention,
     layers,

@@ -7,7 +7,8 @@ concrete ones from an explicit ``torch.Generator``.  A decode step's
 cache is the stack's (``transformer.cache_spec``): KV or latent slots
 with ``pos``, or a mamba2 layer's ``h`` and ``conv`` (the mamba leaves
 of ``init_params``' tree: ``layers.<i>.mamba.in_proj``, ``conv_w``,
-``conv_b``, ``A_log``, ``D``, ``dt_bias``, ``norm``, ``out_proj``).
+``conv_b``, ``A_log``, ``D``, ``dt_bias``, ``norm``, ``out_proj``), or in
+a zamba2 layer both (the shared block's tree is ``shared_attn``).
 
 Modality frontends are STUBS, as in the reference: VLM configs receive
 pre-computed patch embeddings with the trunk's d_model.

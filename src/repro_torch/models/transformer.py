@@ -1,7 +1,7 @@
 """The decoder stack, dense and mixture-of-experts, with grouped-query or
-multi-head latent attention, and Mamba2's attention-free stack: prefill
-and ring-KV or recurrent decode (twin of the dense, MoE, MLA and mamba
-halves of ``repro/models/transformer.py``).
+multi-head latent attention, Mamba2's attention-free stack and Zamba2's
+hybrid one: prefill and ring-KV or recurrent decode (twin of the dense,
+MoE, MLA, mamba and hybrid halves of ``repro/models/transformer.py``).
 
 ``Transformer`` is an ``nn.Module`` holding the reference's parameter
 tree: ``embed`` (V, d), ``final_norm``, ``head`` (d, V) where embeddings
@@ -10,9 +10,12 @@ are untied, ``dense_layers`` (a ``ModuleList``, the reference's list of
 ``layers``, a ``ModuleList`` of ``DecoderLayer`` (``ln1``, ``attn``,
 ``ln2``, and ``mlp``, or ``moe`` past ``first_k_dense`` in an MoE
 config), or of ``MambaLayer`` (``ln1`` and ``mamba``, ``ssm.mamba_shapes``'
-leaves; no MLP) where every layer is a mamba layer (mamba2).  ``attn``
-holds ``gqa_shapes``' leaves, or ``mla_shapes``' where the config has
-``use_mla`` (DeepSeek-V2).  Weights keep the reference's
+leaves; no MLP) where every stacked layer is a mamba layer (mamba2,
+zamba2).  ``attn`` holds ``gqa_shapes``' leaves, or ``mla_shapes``' where
+the config has ``use_mla`` (DeepSeek-V2).  A hybrid config (a
+``MAMBA_SHARED_ATTN`` kind, zamba2) adds ``shared_attn``: one dense
+``DecoderLayer`` whose weights every flagged layer reuses after its
+mamba block (``shared_attn_layers``).  Weights keep the reference's
 (d_in, d_out) layout and fp32; compute runs in ``cfg.compute_dtype``.  Modules and parameter dicts
 index alike (``lp["attn"]``, ``"head" in params``), so every function
 here takes either.
@@ -28,15 +31,16 @@ stacks them: ``k``/``v`` (L, B, Sc, K, hd), or under MLA the latent
 ``ckv`` (L, B, Sc, kv_lora_rank) and ``kr`` (L, B, Sc, rope), and ``pos``
 (L, Sc); a mamba stack's state ``h`` (L, B, H, P, N) fp32 and conv window
 ``conv`` (L, B, w-1, conv_ch), the same size at every length (no
-``pos``); and ``cache["dense"]``, a list of one per-layer dict of the
+``pos``); a hybrid stack's both, in every layer (the reference's uniform
+layout: an unflagged layer's ``k``/``v`` stay zeros and its ``pos`` -1);
+and ``cache["dense"]``, a list of one per-layer dict of the
 same names per dense leading layer; ``decode`` writes the new key (or
 latent, or state and window) of every layer in place.  Prefill and
-decode discard the MoE layers' aux loss, as the reference's serving path does.  The reference's scan over layers, ``constrain_activations`` and
-``remat`` have no eager twin.  The hybrid stack (mamba layers with a
-shared attention block, zamba2) and the encoder raise
-``NotImplementedError`` naming the slice of ROADMAP queue 1, item 9 that
-brings them; ``forward_train`` comes with
-the training slice.
+decode discard the MoE layers' aux loss, as the reference's serving path does.  The reference's scan over layers, ``lax.cond``
+on the shared block's flag (here a branch on the layer index),
+``constrain_activations`` and ``remat`` have no eager twin.  The encoder
+raises ``NotImplementedError`` naming the slice of ROADMAP queue 1, item
+9 that brings it; ``forward_train`` comes with the training slice.
 """
 from __future__ import annotations
 
@@ -75,11 +79,10 @@ def unsupported(cfg: ModelConfig):
     if cfg.is_encoder_decoder or cfg.frontend == "audio":
         return "the encoder-decoder stack " + _SLICE.format(
             "encoder-decoder")
-    if not cfg.is_ssm_only and (
-            cfg.shared_attn_period
-            or any(k.startswith("mamba") for k in cfg.layer_kinds())):
-        return "a shared-attention (hybrid) layer " + _SLICE.format(
-            "SSM and hybrid")
+    scanned = cfg.layer_kinds()[_num_dense(cfg):]
+    if len({k.startswith("mamba") for k in scanned}) > 1:
+        return ("a stack that mixes mamba and attention layers has no "
+                "twin: the reference's scan takes one kind of layer")
     return None
 
 
@@ -129,6 +132,10 @@ class _Tree(_Indexed, nn.Module):
 
 def _attn_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     return attn.mla_shapes(cfg) if cfg.use_mla else attn.gqa_shapes(cfg)
+
+
+def _kv_cache_init(cfg: ModelConfig):
+    return attn.mla_cache_init if cfg.use_mla else attn.gqa_cache_init
 
 
 class DecoderLayer(_Indexed, nn.Module):
@@ -183,14 +190,30 @@ class Transformer(_Indexed, nn.Module):
             self.dense_layers = nn.ModuleList(
                 DecoderLayer(cfg, device, dense=True)
                 for _ in range(n_dense))
-        layer = MambaLayer if cfg.is_ssm_only else DecoderLayer
+        layer = MambaLayer if _is_mamba(cfg) else DecoderLayer
         self.layers = nn.ModuleList(layer(cfg, device)
                                     for _ in range(cfg.num_layers - n_dense))
+        if _is_hybrid(cfg):
+            # one tied block, reused at every flagged layer
+            self.shared_attn = DecoderLayer(cfg, device, dense=True)
 
 
 def _num_dense(cfg: ModelConfig) -> int:
     """The dense-MLP leading layers, held apart from the stacked ones."""
     return cfg.first_k_dense if cfg.is_moe else 0
+
+
+def _is_mamba(cfg: ModelConfig) -> bool:
+    """Whether the stacked layers are mamba layers (the reference's
+    ``is_mamba``: ``unsupported`` refuses a stack that mixes kinds)."""
+    return cfg.layer_kinds()[_num_dense(cfg)].startswith("mamba")
+
+
+def _is_hybrid(cfg: ModelConfig) -> bool:
+    """Whether the stack holds the shared attention block (the
+    reference's ``has_shared``); a ``shared_attn_period`` alone does not
+    add it."""
+    return MAMBA_SHARED_ATTN in cfg.layer_kinds()
 
 
 # ===========================================================================
@@ -207,6 +230,24 @@ def layer_windows(cfg: ModelConfig, long_mode: bool) -> Tuple[int, ...]:
         else:  # mamba layers: window unused
             out.append(0)
     return tuple(out)
+
+
+def shared_attn_layers(cfg: ModelConfig) -> Tuple[int, ...]:
+    """The layers the shared attention block follows (zamba2)."""
+    return tuple(i for i, k in enumerate(cfg.layer_kinds())
+                 if k == MAMBA_SHARED_ATTN)
+
+
+def _shared_block(params, cfg: ModelConfig, long_mode: bool):
+    """The shared block, the stacked layers it follows (indices into
+    ``layers``) and its window: ``long_context_window`` in long mode,
+    else global; (None, an empty set, 0) outside a hybrid stack."""
+    if not _is_hybrid(cfg):
+        return None, frozenset(), 0
+    n_dense = _num_dense(cfg)
+    flagged = frozenset(i - n_dense for i in shared_attn_layers(cfg))
+    return (params["shared_attn"], flagged,
+            cfg.long_context_window if long_mode else 0)
 
 
 def _has_attention(cfg: ModelConfig) -> bool:
@@ -245,7 +286,8 @@ def init_params(cfg: ModelConfig, rng=None, device=None) -> Transformer:
     if "head" in model:
         dense_init(model.head, cfg.d_model, rng)
     mlp_fans = mlp_shapes(cfg.d_model, cfg.d_ff, cfg.gated_mlp)
-    for layer in (*getattr(model, "dense_layers", ()), *model.layers):
+    for layer in (*getattr(model, "dense_layers", ()), *model.layers,
+                  *([model.shared_attn] if "shared_attn" in model else ())):
         if "mamba" in layer:
             ssm_lib.mamba_init(layer.mamba, cfg, rng)
             continue
@@ -297,13 +339,18 @@ def cache_build(cfg: ModelConfig, batch: int, seq_len: int, dtype,
     cache_len = required_cache_len(cfg, seq_len, long_mode)
     dev = torch.device("meta") if make == "spec" else \
         device_lib.resolve(device)
-    if cfg.is_ssm_only:
+    kv_init = _kv_cache_init(cfg)
+    if _is_mamba(cfg):
         per_layer = ssm_lib.mamba_cache_init(cfg, batch, torch_dtype(dtype),
                                              device=dev)
+        if _is_hybrid(cfg):
+            # the uniform layout: a KV slot in every layer, read only at
+            # the flagged ones
+            per_layer.update(kv_init(cfg, batch, cache_len,
+                                     torch_dtype(dtype), device=dev))
     else:
-        init = attn.mla_cache_init if cfg.use_mla else attn.gqa_cache_init
-        per_layer = init(cfg, batch, cache_len, torch_dtype(dtype),
-                         device=dev)
+        per_layer = kv_init(cfg, batch, cache_len, torch_dtype(dtype),
+                            device=dev)
     n_dense = _num_dense(cfg)
     L = cfg.num_layers - n_dense
     cache = {"layers": {k: v[None].expand((L,) + v.shape).clone()
@@ -384,6 +431,7 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             x, c = _attn_block_prefill(lp, x, positions=positions, window=0,
                                        cfg=cfg, cache_len=cache_len)
             cache["dense"].append(c)
+    shared, flagged, shared_w = _shared_block(params, cfg, long_mode)
     L = cfg.num_layers - n_dense
     stacked = {}
     for i, lp in enumerate(params["layers"]):
@@ -393,6 +441,15 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             x, c = _attn_block_prefill(lp, x, positions=positions,
                                        window=windows[i], cfg=cfg,
                                        cache_len=cache_len)
+        if shared is not None:
+            if i in flagged:
+                x, kv = _attn_block_prefill(shared, x, positions=positions,
+                                            window=shared_w, cfg=cfg,
+                                            cache_len=cache_len)
+            else:   # an empty slot, as the reference's cond writes
+                kv = _kv_cache_init(cfg)(cfg, x.shape[0], cache_len,
+                                         x.dtype, device=x.device)
+            c = {**c, **kv}
         for name, t in c.items():
             if name not in stacked:
                 stacked[name] = t.new_empty((L,) + t.shape)
@@ -435,6 +492,7 @@ def decode(params, batch: Dict[str, torch.Tensor], cache: Dict,
             x, _ = _attn_block_decode(lp, x, c, cache_index, window=0,
                                       cfg=cfg)
     windows = layer_windows(cfg, long_mode)[n_dense:]
+    shared, flagged, shared_w = _shared_block(params, cfg, long_mode)
     layers = cache["layers"]
     for i, lp in enumerate(params["layers"]):
         c = {name: t[i] for name, t in layers.items()}
@@ -443,5 +501,9 @@ def decode(params, batch: Dict[str, torch.Tensor], cache: Dict,
         else:
             x, _ = _attn_block_decode(lp, x, c, cache_index,
                                       window=windows[i], cfg=cfg)
+        if i in flagged:
+            # the tied weights over this layer's own KV slot
+            x, _ = _attn_block_decode(shared, x, c, cache_index,
+                                      window=shared_w, cfg=cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return lm_head(x, _head(params), cfg.final_softcap), cache

@@ -7,8 +7,8 @@ fp32 compute: logits within atol = rtol = 1e-4 and greedy tokens equal.
 bf16 compute: only logits are compared (a last-bit difference may flip a
 near-tie), teacher-forced with the reference's tokens, within the bounds
 of tests/test_torch_models.py.  Long mode (the windowed variant of gemma2
-and gemma3, window and cache 64 in the reduced configs) at prompts of 64,
-96 and 128: the reference's decode after a prompt longer than the cache
+and gemma3, and zamba2's shared block, window and cache 64 in the reduced
+configs) at prompts of 64, 96 and 128: the reference's decode after a prompt longer than the cache
 is off unless the prompt is a multiple of it (its prefill keeps the last
 keys in slots 0..63, its decode writes position p at slot p mod 64); the
 port seats keys at ``pos mod cache_len`` and is held to its own prefill
@@ -37,7 +37,7 @@ from test_torch_models import (STACKS, _batch, _close, _close_cache,
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
-LONG = ("gemma2-2b", "gemma3-12b")
+LONG = ("gemma2-2b", "gemma3-12b", "zamba2-1.2b")
 
 
 def _extra(jb, tb):
@@ -199,9 +199,9 @@ def test_device_defaults_to_cuda_and_raises_without_a_card(capsys):
 
 
 # the module's CLI in a fresh interpreter: (arch, prompt length, tokens
-# generated) for the vision-prefix, MLA and mamba stacks
+# generated) for the vision-prefix, MLA, mamba and hybrid stacks
 CLI = (("internvl2-2b", 8, 3), ("deepseek-v2-236b", 16, 4),
-       ("mamba2-130m", 40, 4))
+       ("mamba2-130m", 40, 4), ("zamba2-1.2b", 40, 4))
 
 
 @pytest.mark.parametrize("arch,prompt_len,gen", CLI,

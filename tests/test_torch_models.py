@@ -1,6 +1,7 @@
 """The port's decoder family (``repro_torch.configs``,
 ``repro_torch.models``) against the reference's (``repro.configs``,
-``repro.models``) on the CPU: dense, MoE, MLA and mamba2's stack.
+``repro.models``) on the CPU: dense, MoE, MLA, mamba2's stack and
+zamba2's hybrid one.
 
 The same seeded numpy inputs and the same weights (carried across with
 ``repro_torch.convert.lm_params_to_torch``) go through both packages.
@@ -16,8 +17,9 @@ bf16 logits are held within atol = max(3e-2, 0.15 sigma), rtol = 3e-2
 accurate as the reference's own (within 1.5x its distance from the fp32
 logits).  Caches are compared after sorting each layer's slots by
 position: the port seats each key at slot ``pos mod cache_len`` (the
-reference's layout, rolled); a mamba stack's cache (the state ``h`` and
-the conv window, no ``pos``) is compared as it is.  A bf16 cache entry carries the noise of
+reference's layout, rolled); a mamba layer's state ``h`` and conv
+window ``conv`` are compared as they are, beside the KV slot in a hybrid
+stack.  A bf16 cache entry carries the noise of
 every layer below it: the caches of a layer with two or more below it
 (only the 3-layer deepseek-v2 case has one) are held within atol = 6e-2,
 rtol = 3e-2.  On ``test_generate_bf16_logits_match_the_reference``'s
@@ -64,8 +66,10 @@ DENSE = ("qwen2-0.5b", "qwen2.5-32b", "gemma2-2b", "gemma3-12b",
 MOE = ("phi3.5-moe-42b-a6.6b", "deepseek-v2-236b")
 # the attention-free state-space stack
 SSM = ("mamba2-130m",)
+# the mamba stack with the weight-tied shared attention block
+HYBRID = ("zamba2-1.2b",)
 ATTENTION = DENSE + MOE
-SERVED = ATTENTION + SSM
+SERVED = ATTENTION + SSM + HYBRID
 OTHERS = tuple(a for a in jconfigs.ARCHS if a not in SERVED)
 # a served arch at another depth: deepseek-v2 with 3 layers, so that the
 # stacked latent cache holds two layers (name -> (arch, config changes))
@@ -76,7 +80,11 @@ STACKS = SERVED + tuple(VARIANTS)
 # phi3.5 with a dense leading layer, so that an MoE stack's tree without
 # MLA holds ``dense_layers`` (a case of the converter's round trip only)
 PHI_DENSE1 = "phi3.5-moe-42b-a6.6b:1-dense"
-_NAMED = dict(VARIANTS, **{
+# a shared_attn_period without mamba+shared_attn kinds, which adds no
+# shared block (test_a_shared_attention_period_alone_still_raises)
+PERIOD_ONLY = {f"{arch}:period-2": (arch, {"shared_attn_period": 2})
+               for arch in ("qwen2-0.5b", "mamba2-130m")}
+_NAMED = dict(VARIANTS, **PERIOD_ONLY, **{
     PHI_DENSE1: ("phi3.5-moe-42b-a6.6b", {"first_k_dense": 1})})
 DTYPES = ("float32", "bfloat16")
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
@@ -148,11 +156,16 @@ def _batch(cfg, B, S, seed=1):
     return jb, tb
 
 
+# the cache entries laid out over slots, one position each (``pos``)
+SLOTTED = ("k", "v", "ckv", "kr")
+
+
 def _close_cache(got, want, dtype):
     """Each layer's cache (each dense leading layer's, then the stacked
-    layers'), slots sorted by position, equal positions and every other
-    entry (k/v, or MLA's ckv/kr) within tolerance; a cache without
-    ``pos`` (mamba's ``h`` and ``conv``) entry by entry (module doc)."""
+    layers'): the slotted entries (k/v, or MLA's ckv/kr) with their
+    slots sorted by position, equal positions and values within
+    tolerance; every other entry (mamba's ``h`` and ``conv``, also beside
+    a hybrid layer's KV slot) as it is (module doc)."""
     dense = got.get("dense", ())
     assert len(dense) == len(want.get("dense", ()))
     pairs = [({k: v[None] for k, v in g.items()},
@@ -162,26 +175,23 @@ def _close_cache(got, want, dtype):
     depth = 0
     for gl, wl in pairs:
         assert set(gl) == set(wl)
-        if "pos" not in gl:
-            for i in range(next(iter(gl.values())).shape[0]):
-                tol = (DEEP_CACHE_TOL if dtype == "bfloat16" and depth >= 2
-                       else TOL[dtype])
-                depth += 1
-                for name in sorted(gl):
-                    assert gl[name][i].shape == wl[name][i].shape
-                    np.testing.assert_allclose(_np(gl[name][i]),
-                                               _np(wl[name][i]), **tol)
-            continue
-        gpos, wpos = gl["pos"].numpy(), np.asarray(wl["pos"])
-        assert gpos.shape == wpos.shape and set(gl) == set(wl)
-        for i in range(gpos.shape[0]):
+        assert ("pos" in gl) == any(name in gl for name in SLOTTED)
+        for i in range(next(iter(gl.values())).shape[0]):
             tol = (DEEP_CACHE_TOL if dtype == "bfloat16" and depth >= 2
                    else TOL[dtype])
             depth += 1
-            go, wo = np.argsort(gpos[i]), np.argsort(wpos[i])
-            np.testing.assert_array_equal(gpos[i][go], wpos[i][wo])
-            valid = wpos[i][wo] >= 0
-            for name in sorted(set(gl) - {"pos"}):
+            for name in sorted(set(gl) - {"pos", *SLOTTED}):
+                assert gl[name][i].shape == wl[name][i].shape
+                np.testing.assert_allclose(_np(gl[name][i]),
+                                           _np(wl[name][i]), **tol)
+            if "pos" not in gl:
+                continue
+            gpos, wpos = gl["pos"][i].numpy(), np.asarray(wl["pos"][i])
+            assert gpos.shape == wpos.shape
+            go, wo = np.argsort(gpos), np.argsort(wpos)
+            np.testing.assert_array_equal(gpos[go], wpos[wo])
+            valid = wpos[wo] >= 0
+            for name in sorted(set(gl) & set(SLOTTED)):
                 np.testing.assert_allclose(
                     _np(gl[name][i])[:, go][:, valid],
                     _np(wl[name][i])[:, wo][:, valid], **tol)
@@ -533,35 +543,38 @@ def test_param_specs_and_init_match_the_reference_tree(arch):
 
 
 def _empty_cache(cache) -> bool:
-    """Every slot empty (pos -1), or a mamba cache all zeros."""
+    """Every slot empty (pos -1) and every other entry (k/v, mamba's
+    state and window) zeros."""
     layers = cache["layers"]
-    if "pos" in layers:
-        return bool((layers["pos"] == -1).all())
-    return not any(t.any() for t in layers.values())
+    if "pos" in layers and not bool((layers["pos"] == -1).all()):
+        return False
+    return not any(t.any() for k, t in layers.items() if k != "pos")
 
 
 def _tree_shapes(net) -> dict:
     """The reference-layout tree of a (meta) model, shapes only: ``layers``
-    stacked over L, ``dense_layers`` a list of per-layer trees."""
+    stacked over L, ``dense_layers`` a list of per-layer trees, every
+    other subtree (``shared_attn``) nested as it is."""
     out: dict = {}
     L = len(net.layers)
     for name, t in net.named_parameters():
         parts = name.split(".")
+        shape = tuple(t.shape)
         if parts[0] == "layers":
             if parts[1] != "0":
                 continue
-            node, shape = out.setdefault("layers", {}), (L,) + tuple(t.shape)
+            node, path, shape = out.setdefault("layers", {}), parts[2:], \
+                (L,) + shape
         elif parts[0] == "dense_layers":
             dense = out.setdefault("dense_layers", [])
             i = int(parts[1])
             dense.extend({} for _ in range(i + 1 - len(dense)))
-            node, shape = dense[i], tuple(t.shape)
+            node, path = dense[i], parts[2:]
         else:
-            out[parts[0]] = tuple(t.shape)
-            continue
-        for key in parts[2:-1]:
+            node, path = out, parts
+        for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[parts[-1]] = shape
+        node[path[-1]] = shape
     return out
 
 
@@ -599,15 +612,40 @@ def test_other_families_raise_naming_their_slice(arch):
 
 
 def test_a_shared_attention_period_alone_still_raises():
-    """A config with ``shared_attn_period`` and no mamba kinds belongs to
-    the hybrid slice: the stack refuses it rather than build it without
-    its shared block."""
-    cfg = configs.get_reduced_config("qwen2-0.5b").replace(
-        shared_attn_period=2)
-    assert transformer.unsupported(
-        configs.get_reduced_config("qwen2-0.5b")) is None
-    with pytest.raises(NotImplementedError, match="SSM and hybrid"):
-        transformer.Transformer(cfg, "meta")
+    """A ``shared_attn_period`` without ``mamba+shared_attn`` kinds adds
+    no shared block, as in the reference (its ``has_shared`` reads the
+    kinds): a dense and a mamba stack with period 2 run plain, their
+    trees, prefill logits and caches and two decode steps the
+    reference's, the period touching only ``required_cache_len``.  What
+    still raises is a stack whose layers mix mamba and attention kinds,
+    which the reference's uniform scan cannot hold."""
+    for name in PERIOD_ONLY:
+        jcfg, cfg, params, net = _models(name, "float32")
+        assert cfg.shared_attn_period == 2 and "shared_attn" not in net
+        assert "shared_attn" not in params
+        assert transformer.shared_attn_layers(cfg) == ()
+        for long_mode in (False, True):
+            for S in (14, 4608):
+                assert transformer.required_cache_len(cfg, S, long_mode) \
+                    == jtrans.required_cache_len(jcfg, S, long_mode)
+        jb, tb = _batch(cfg, 2, 14)
+        got, cache = transformer.prefill(net, tb, cfg, min_cache_len=20)
+        want, jcache = _jprefill(params, jb, jcfg, min_cache_len=20)
+        _close(got, want)
+        _close_cache(cache, jcache, "float32")
+        for t in range(2):
+            tok = np.full((2, 1), 7 + t, np.int32)
+            got, cache = transformer.decode(
+                net, {"tokens": torch.from_numpy(tok)}, cache, 14 + t, cfg)
+            want, jcache = _jdecode(params, {"tokens": jnp.asarray(tok)},
+                                    jcache, jnp.int32(14 + t), jcfg)
+            _close(got, want)
+        _close_cache(cache, jcache, "float32")
+    mixed = configs.get_reduced_config("qwen2-0.5b").replace(
+        layer_pattern=(base.MAMBA, base.ATTN_GLOBAL), shared_attn_period=2)
+    with pytest.raises(NotImplementedError, match="mixes mamba and "
+                       "attention"):
+        transformer.Transformer(mixed, "meta")
 
 
 def _dense_leaves(cfg, tree, net):
@@ -632,6 +670,15 @@ def _mamba_leaves(cfg, tree, net):
     assert "head" not in tree and "head" not in net
 
 
+def _hybrid_leaves(cfg, tree, net):
+    _mamba_leaves(cfg, tree, net)
+    shared = tree["shared_attn"]
+    assert set(shared) == {"ln1", "attn", "ln2", "mlp"}
+    assert set(shared["attn"]) == set(attention.gqa_shapes(cfg))
+    # one layer's tree, not stacked over the layers
+    assert shared["attn"]["wq"].shape == attention.gqa_shapes(cfg)["wq"][0]
+
+
 # the converter's round trip: case -> (the leaf cut short, which the
 # error must name; the family's leaf-name check)
 ROUND_TRIP = {
@@ -643,6 +690,7 @@ ROUND_TRIP = {
     "deepseek-v2-236b": (("layers", "attn", "wuk"), _mla_leaves),
     DSV2_3L: (("layers", "attn", "wuk"), _mla_leaves),
     "mamba2-130m": (("layers", "mamba", "conv_w"), _mamba_leaves),
+    "zamba2-1.2b": (("shared_attn", "attn", "wq"), _hybrid_leaves),
 }
 
 
@@ -650,8 +698,8 @@ ROUND_TRIP = {
 def test_convert_round_trip_is_bitwise(case):
     """The reference's tree crosses to the port and back bitwise, each
     family's leaves where its stack keeps them (dense, MoE with and
-    without ``dense_layers``, MLA, mamba); a wrong shape names its
-    leaf."""
+    without ``dense_layers``, MLA, mamba, the hybrid's shared block); a
+    wrong shape names its leaf."""
     path, leaves = ROUND_TRIP[case]
     jcfg, cfg, params, net = _models(case, "float32", seed=11)
     tree = lm_params_to_numpy(net)
