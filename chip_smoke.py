@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--out FILE] [--only large_fit|multi_mid|figures|
                                                sessions|fabric|store|serve|
                                                obs|dist|shard|lm|moe|mla|
-                                               ssm|hybrid]
+                                               ssm|hybrid|encdec]
 
 Runs from the root of a checkout, on a machine with one CUDA card, the
 CUDA toolkit and ninja; it builds the hand kernels itself into
@@ -362,7 +362,29 @@ any failure raises and exits non-zero:
    full size: its tokens on the card; (e) the model's parameter count
    equal to 1,104,937,856, the reference's leaf count, with one
    ``shared_attn`` module (the tied block);
-20. the ``kernels`` line (with ``launches_by_path["shard"]``, phase 14's
+20. Whisper's encoder-decoder serving path at whisper-small's full
+   published size, nothing cut (12 encoder and 12 decoder layers,
+   d_model 768, 12 heads of 64 (MHA), d_ff 3072 with an ungated
+   tanh-GELU, vocab 51872 with a tied head, 1500 stub frames; the
+   decoder's position table at whisper's published 448 positions), fp32
+   weights from ``init_params`` with a seeded generator: (a) bf16,
+   ``generate`` at batch 4, a 224-token prompt and 224 new tokens, which
+   fill the table, its wall and tokens/s, the encoder alone over 4 x 1500
+   frames and the whole prefill step (each the median of 3) and the
+   decode step per token (CUDA events), one decode step traced (busy
+   share, launches, the device ms of the 12 cross-attention blocks
+   against the rest), the peak, the cache's bytes by entry (``k``/``v``
+   (12, 4, 448, 12, 64), ``xk``/``xv`` (12, 4, 1500, 12, 64), ``pos``
+   (12, 448)) and those of ``xk``/``xv``, which no decode step rewrites
+   (held ``torch.equal`` across the traced step); no hand kernel
+   launched (its ``launches_by_path["lm_encdec"]`` is zeros); (b) fp32,
+   batch 2, the same frames, decode's logits at steps 1, 8 and 32
+   against a prefill over the prompt and the tokens so far (max abs diff
+   <= 1e-3, equal argmax); (c) the module's CLI (``serve.main``) with no
+   ``--device``, at full size: its tokens on the card; (d) the model's
+   parameter count at the 448-row table equal to 239,562,240, the
+   reference's leaf count;
+21. the ``kernels`` line (with ``launches_by_path["shard"]``, phase 14's
    launches counted in the ranks), the card line, and the result line.
 
 ``--only`` runs one part and prints no result line, to compare two
@@ -374,7 +396,7 @@ its plain version and timed, ``figures`` phase 7, ``sessions`` phase 8,
 ``fabric`` phase 9, ``store`` phase 10, ``serve`` phase 11, ``obs``
 phase 12, ``dist`` phase 13, ``shard`` phase 14, ``lm`` phase 15,
 ``moe`` phase 16, ``mla`` phase 17, ``ssm`` phase 18, ``hybrid`` phase
-19.
+19, ``encdec`` phase 20.
 
 Without a CUDA device, or without the rest of the repository beside it,
 it exits non-zero and prints no result.
@@ -622,6 +644,16 @@ HYBRID_PARAMS = 1_104_937_856
 HYBRID_FLAGGED = (5, 11, 17, 23, 29, 35)
 HYBRID_LONG = (dict(prompt=4610, gen=16, steps=(1, 16), flash=False),
                dict(prompt=4608, gen=16, steps=(1, 16), flash=True))
+# phase 20: Whisper's encoder-decoder serving path at whisper-small's full
+# published size, nothing cut, with whisper's published 448-position
+# decoder context as the table's rows.  (a) bf16 generate at ENCDEC_SERVE,
+# whose prompt and new tokens fill the table, over 1500 stub frames a row;
+# (b) fp32 decode against prefill at LM_STEPS; (c) the CLI; (d) the
+# parameter count, the reference's leaf count at the 448-row table
+ENCDEC_ARCH = "whisper-small"
+ENCDEC_ROWS = 448
+ENCDEC_SERVE = dict(batch=4, prompt=224, gen=224)
+ENCDEC_PARAMS = 239_562_240
 
 RECORDS = []
 
@@ -3743,17 +3775,19 @@ def shard(by_path: dict, cases: dict) -> None:
 # ---------------------------------------------------------------------------
 # phase 15: the dense decoder's serving path at Gemma-2 2B's full width
 def _decode_vs_prefill(net, cfg, prompts, gen: int, at, long_mode: bool,
-                       label: str) -> list:
+                       label: str, extra=None) -> list:
     """Greedy decode ``gen`` tokens after ``prompts``; at each step in
     ``at``, decode's logits against a prefill over the prompt and the
-    tokens generated so far (max abs diff <= LM_TOL, equal argmax)."""
+    tokens generated so far (max abs diff <= LM_TOL, equal argmax).
+    ``extra`` joins every prefill's batch (whisper's ``frames``)."""
     from repro_torch.launch import serve as serve_lib
     from repro_torch.train import steps
 
     prefill = steps.make_prefill_step(cfg, long_mode)
     decode = steps.make_decode_step(cfg, long_mode)
     B, S = prompts.shape
-    logits, cache = prefill(net, {"tokens": prompts})
+    extra = extra or {}
+    logits, cache = prefill(net, {"tokens": prompts, **extra})
     cache = serve_lib._grow_cache(cfg, cache, B, S + gen, long_mode)
     seq, idx, out = prompts, S, []
     tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
@@ -3761,7 +3795,7 @@ def _decode_vs_prefill(net, cfg, prompts, gen: int, at, long_mode: bool,
         seq = torch.cat([seq, tok], dim=1)
         logits, cache, idx = decode(net, tok, cache, idx)
         if step in at:
-            full, _ = prefill(net, {"tokens": seq})
+            full, _ = prefill(net, {"tokens": seq, **extra})
             err = float((logits - full).abs().max())
             same = bool(torch.equal(logits.argmax(-1), full.argmax(-1)))
             out.append({"step": step, "positions": S + step,
@@ -3775,13 +3809,14 @@ def _decode_vs_prefill(net, cfg, prompts, gen: int, at, long_mode: bool,
     return out
 
 
-def _timed_steps(net, cfg, prompts, gen: int) -> tuple:
+def _timed_steps(net, cfg, prompts, gen: int, extra=None) -> tuple:
     """The prefill step's ms (3 runs) and the decode step's ms a token
     over ``gen`` greedy tokens, by CUDA events; returns them with the
     last cache, token and position.  The cache holds S + gen + 1 slots,
     so that the step a caller traces next, at position S + gen, has a
     slot of its own (MLA's decode raises past its cache; a global GQA
-    layer's would overwrite position 0)."""
+    layer's would overwrite position 0).  ``extra`` joins the prefill's
+    batch (whisper's ``frames``)."""
     from repro_torch.launch import serve as serve_lib
     from repro_torch.train import steps
 
@@ -3792,7 +3827,7 @@ def _timed_steps(net, cfg, prompts, gen: int) -> tuple:
     for _ in range(3):
         ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         ev0.record()
-        logits, cache = prefill(net, {"tokens": prompts})
+        logits, cache = prefill(net, {"tokens": prompts, **(extra or {})})
         ev1.record()
         torch.cuda.synchronize()
         pre_ms.append(ev0.elapsed_time(ev1))
@@ -4720,6 +4755,180 @@ def lm_hybrid(by_path: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 20: Whisper's encoder-decoder serving path at whisper-small's full
+# size
+def lm_encdec(by_path: dict) -> None:
+    """Phase 20: whisper-small at full size with a 448-row decoder table
+    through ``generate`` (bf16) over 1500 stub frames a row, the encoder
+    and the prefill timed apart, then decode against prefill in fp32, the
+    module's CLI and the parameter count."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import transformer
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.train import steps
+
+    phase_t0 = time.perf_counter()
+    cfg = get_config(ENCDEC_ARCH)
+    a = ENCDEC_SERVE
+    B, S, n = a["batch"], a["prompt"], a["gen"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = model_lib.init_params(
+        cfg, gen, InputShape("serve", ENCDEC_ROWS, B, "prefill"),
+        device="cuda")
+    torch.cuda.synchronize()
+    # (d) the parameter count at the 448-row table
+    n_params = sum(p.numel() for p in net.parameters())
+    emit({"lm_encdec": "init", "arch": cfg.name,
+          "decoder_layers": cfg.num_layers,
+          "encoder_layers": cfg.num_encoder_layers, "d_model": cfg.d_model,
+          "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+          "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "act": cfg.act,
+          "gated": cfg.gated_mlp, "vocab": cfg.vocab_size,
+          "tied": cfg.tie_embeddings, "frames": cfg.encoder_seq,
+          "pos_dec_rows": net.pos_dec.shape[0], "params": n_params,
+          "param_count_cfg": cfg.param_count(),
+          "params_reference": ENCDEC_PARAMS,
+          "params_equal": n_params == ENCDEC_PARAMS,
+          "init_s": time.perf_counter() - t0,
+          "params_gb": torch.cuda.memory_allocated() / 1e9})
+    if n_params != ENCDEC_PARAMS or net.pos_dec.shape[0] != ENCDEC_ROWS:
+        raise AssertionError(f"lm_encdec: {n_params} parameters with a "
+                             f"{net.pos_dec.shape[0]}-row table, the "
+                             f"reference holds {ENCDEC_PARAMS} at "
+                             f"{ENCDEC_ROWS}")
+
+    def cache_bytes(cache, slots):
+        got = {k: (tuple(v.shape), str(v.dtype)) for k, v in
+               cache["layers"].items()}
+        L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+        kv = ((L, B, slots, K, hd), "torch.bfloat16")
+        xkv = ((L, B, cfg.encoder_seq, K, hd), "torch.bfloat16")
+        want = {"k": kv, "v": kv, "pos": ((L, slots), "torch.int32"),
+                "xk": xkv, "xv": xkv}
+        if got != want or set(cache) != {"layers"}:
+            raise AssertionError(f"lm_encdec: the cache holds {got}, not "
+                                 f"{want}")
+        return {k: _cache_bytes(cache, (k,)) for k in want}
+
+    # (a) bf16 generate: the prompt and the new tokens fill the table
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            dtype=torch.int32, device="cuda")
+    frames = torch.randn((B, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         dtype=torch_dtype(cfg.compute_dtype), device="cuda")
+    extra = {"frames": frames}
+    serve_lib.generate(cfg, net, prompts[:, :16], 2, extra=extra)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = serve_lib.generate(cfg, net, prompts, n, extra=extra)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_path["lm_encdec"] = launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    enc_ms = []
+    for _ in range(3):
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        enc_out = transformer._encode(net, frames, cfg)
+        ev1.record()
+        torch.cuda.synchronize()
+        enc_ms.append(ev0.elapsed_time(ev1))
+    del enc_out
+    # generate's n - 1 decode steps; the cache then holds the table's rows
+    pre_ms, decode_ms, logits, cache, tok, idx = _timed_steps(
+        net, cfg, prompts, n - 1, extra)
+    slots = S + n
+    by_entry = cache_bytes(cache, slots)
+    cross_before = [cache["layers"][k].clone() for k in ("xk", "xv")]
+    decode = steps.make_decode_step(cfg)
+    with _ranges([(transformer, "_cross_block", "cross_block")]):
+        if any(_profile("lm_encdec decode step",
+                        lambda: decode(net, tok, cache, idx),
+                        ("cross_block",)).values()):
+            raise AssertionError("lm_encdec decode step: the profiler saw "
+                                 "hand kernels")
+    traced = RECORDS[-1]
+    cross_kept = all(torch.equal(cache["layers"][k], t) for k, t in
+                     zip(("xk", "xv"), cross_before))
+    del cross_before
+    cross_ms = traced["block_device_ms"]["cross_block"]
+    ok_toks = (toks.shape == (B, n) and int(toks.min()) >= 0
+               and int(toks.max()) < cfg.vocab_size)
+    emit({"lm_encdec": "serve/bf16", "arch": cfg.name, "batch": B,
+          "prompt": S, "gen": n, "frames": cfg.encoder_seq,
+          "wall_s": wall, "tokens_per_s": B * n / wall,
+          "encoder_ms": sorted(enc_ms)[1], "encoder_ms_all": enc_ms,
+          "prefill_ms": sorted(pre_ms)[1], "prefill_ms_all": pre_ms,
+          "decode_ms_per_token": decode_ms,
+          "decode_tokens_per_s": B * 1e3 / decode_ms,
+          "decode_traced_at": idx,
+          "decode_device_busy_share": traced["device_busy_share"],
+          "decode_device_launches": traced["device_launches"],
+          "decode_device_ms": traced["device_busy_s"] * 1e3,
+          "decode_cross_blocks_device_ms": cross_ms,
+          "decode_rest_device_ms": traced["device_busy_s"] * 1e3 - cross_ms,
+          "decode_block_calls": traced["block_calls"],
+          "cache_slots": slots, "cache_bytes": by_entry,
+          "cache_bytes_total": sum(by_entry.values()),
+          "not_rewritten_by_decode_bytes": by_entry["xk"] + by_entry["xv"],
+          "cross_cache_unchanged_by_decode": cross_kept,
+          "peak_gb": peak, "launches": launches, "tokens_ok": ok_toks,
+          "sample": toks[0, :8].tolist()})
+    if not ok_toks or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"lm_encdec: tokens {tuple(toks.shape)} or "
+                             f"logits out of range")
+    if any(launches.values()):
+        raise AssertionError(f"lm_encdec launched hand kernels: {launches}")
+    if traced["block_calls"] != {"cross_block": cfg.num_layers}:
+        raise AssertionError(f"lm_encdec: the traced decode step ran "
+                             f"{traced['block_calls']} cross blocks, not "
+                             f"{cfg.num_layers}")
+    if not cross_kept:
+        raise AssertionError("lm_encdec: a decode step rewrote xk/xv")
+    del cache, logits
+
+    # (b) fp32, batch 2, the same frames: decode against prefill
+    cfg32 = cfg.replace(compute_dtype="float32")
+    B32 = 2
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    checks = _decode_vs_prefill(net, cfg32, prompts[:B32], max(LM_STEPS),
+                                LM_STEPS, False, "lm_encdec/fp32",
+                                extra={"frames": frames[:B32]})
+    emit({"lm_encdec": "decode_vs_prefill/fp32", "batch": B32, "prompt": S,
+          "checks": checks, "tol": LM_TOL,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t0})
+    del net, frames, extra
+    torch.cuda.empty_cache()
+
+    # (c) the module's CLI with no --device: full size, on the card
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        toks = serve_lib.main(["--arch", ENCDEC_ARCH, "--batch", "2",
+                               "--prompt-len", "64", "--gen", "4"])
+    emit({"lm_encdec": "cli", "argv": f"--arch {ENCDEC_ARCH} --batch 2 "
+          "--prompt-len 64 --gen 4", "device": str(toks.device),
+          "printed": out.getvalue().strip(),
+          "seconds": time.perf_counter() - t0})
+    if toks.device.type != "cuda" or tuple(toks.shape) != (2, 4) or \
+            "generated (2, 4) on cuda" not in out.getvalue():
+        raise AssertionError(f"lm_encdec: the CLI gave {tuple(toks.shape)} "
+                             f"on {toks.device}: {out.getvalue()!r}")
+    del toks
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_encdec", "seconds": time.perf_counter() - phase_t0})
+
+
+# ---------------------------------------------------------------------------
 # phase 2 (continued): the analysis gate on the card
 def analysis_gate(ext, dev) -> None:
     """The launch audit held against the built extension (kernel_info's
@@ -4772,7 +4981,7 @@ def main() -> int:
                                        "sessions", "fabric", "store",
                                        "serve", "obs", "dist", "shard",
                                        "lm", "moe", "mla", "ssm",
-                                       "hybrid"),
+                                       "hybrid", "encdec"),
                     help="run only this part, and print no result line")
     args = ap.parse_args()
     script_t0 = time.perf_counter()
@@ -4811,6 +5020,8 @@ def main() -> int:
             lm_ssm({})
         elif args.only == "hybrid":
             lm_hybrid({})
+        elif args.only == "encdec":
+            lm_encdec({})
         elif args.only in ("figures", "sessions", "fabric", "store",
                            "serve", "obs"):
             run = {"figures": figures, "sessions": sessions,
@@ -4853,6 +5064,7 @@ def main() -> int:
     lm_mla(by_path)
     lm_ssm(by_path)
     lm_hybrid(by_path)
+    lm_encdec(by_path)
     if not all(traced.values()):
         raise AssertionError(f"the profiler saw none of some kernels: "
                              f"{traced}")

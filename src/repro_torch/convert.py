@@ -12,7 +12,8 @@ Nothing here imports the reference: the twin is found by the class name.
 decoder's weights: the reference's parameter pytree (numpy leaves,
 ``layers`` stacked along a leading L axis, an MoE config's
 ``dense_layers`` a list, a hybrid config's ``shared_attn`` one layer's
-tree) to the port's ``Transformer`` and back, each leaf bitwise.
+tree, an encoder-decoder's ``encoder.layers`` stacked too) to the port's
+``Transformer`` and back, each leaf bitwise.
 """
 from __future__ import annotations
 
@@ -54,14 +55,30 @@ def _put(node: dict, path, leaf) -> None:
     node[path[-1]] = leaf
 
 
+# the reference's stacked subtrees, by path: the layers each leaf of which
+# holds every layer's array along a leading axis
+_STACKED = (("layers",), ("encoder", "layers"))
+
+
+def _stack_of(parts):
+    """The stacked subtree a parameter name's ``parts`` lie in, or None."""
+    for stack in _STACKED:
+        if tuple(parts[:len(stack)]) == stack:
+            return stack
+    return None
+
+
 def _leaf(params, name: str) -> np.ndarray:
     """The reference tree's array for the port's parameter ``name``:
-    ``layers.<i>.<path>`` is row i of a leaf stacked over L, and
-    ``dense_layers.<i>.<path>`` a leaf of the i-th entry of a list."""
+    ``layers.<i>.<path>`` (and ``encoder.layers.<i>.<path>``) is row i of
+    a leaf stacked over L, and ``dense_layers.<i>.<path>`` a leaf of the
+    i-th entry of a list."""
     parts = name.split(".")
     row = None
-    if parts[0] == "layers":
-        row, parts = int(parts[1]), ["layers"] + parts[2:]
+    stack = _stack_of(parts)
+    if stack:
+        n = len(stack)
+        row, parts = int(parts[n]), list(stack) + parts[n + 1:]
     src = params
     for key in parts:
         src = src[int(key)] if isinstance(src, (list, tuple)) else src[key]
@@ -79,12 +96,15 @@ def lm_params_to_torch(params, cfg, device=None) -> "transformer.Transformer":
     ``wuv``, ``wkr`` and ``wo``, a mamba2 layer's ``ln1`` and ``mamba``
     with ``in_proj``, ``conv_w``, ``conv_b``, ``A_log``, ``D``,
     ``dt_bias``, ``norm`` and ``out_proj``, and a hybrid stack's
-    ``shared_attn``, one unstacked layer tree), on ``device`` (``None``
+    ``shared_attn``, one unstacked layer tree, and an encoder-decoder's
+    ``encoder`` (``layers`` stacked, ``final_norm``), ``pos_enc`` and
+    ``pos_dec``, whose rows the model takes), on ``device`` (``None``
     means ``"cuda"``).  The walk is by parameter name, so every family's
     leaves (``layers.<i>.mamba.in_proj``, ...) cross without a case of
     their own."""
     dev = device_lib.resolve(device)
-    model = transformer.Transformer(cfg, dev)
+    rows = np.shape(params["pos_dec"])[0] if cfg.is_encoder_decoder else 0
+    model = transformer.Transformer(cfg, dev, max_seq=rows)
     with torch.no_grad():
         for name, t in model.named_parameters():
             src = _leaf(params, name)
@@ -97,16 +117,18 @@ def lm_params_to_torch(params, cfg, device=None) -> "transformer.Transformer":
 
 def lm_params_to_numpy(model) -> dict:
     """The reference's parameter pytree of a port ``Transformer``: numpy
-    leaves, ``layers`` stacked along a leading L axis, ``dense_layers`` a
-    list of per-layer trees, and every other subtree (a hybrid stack's
-    ``shared_attn``) nested as it is."""
+    leaves, ``layers`` (and ``encoder.layers``) stacked along a leading L
+    axis, ``dense_layers`` a list of per-layer trees, and every other
+    subtree (a hybrid stack's ``shared_attn``) nested as it is."""
     tree: dict = {}
     per_layer: dict = {}
     for name, t in model.named_parameters():
         parts = name.split(".")
         leaf = t.detach().cpu().numpy()
-        if parts[0] == "layers":
-            per_layer.setdefault(tuple(parts[2:]), []).append(leaf)
+        stack = _stack_of(parts)
+        if stack:
+            path = stack + tuple(parts[len(stack) + 1:])
+            per_layer.setdefault(path, []).append(leaf)
         elif parts[0] == "dense_layers":
             dense = tree.setdefault("dense_layers", [])
             i = int(parts[1])
@@ -114,8 +136,6 @@ def lm_params_to_numpy(model) -> dict:
             _put(dense[i], parts[2:], leaf)
         else:
             _put(tree, parts, leaf)
-    layers: dict = {}
     for path, leaves in per_layer.items():
-        _put(layers, path, np.stack(leaves))
-    tree["layers"] = layers
+        _put(tree, path, np.stack(leaves))
     return tree

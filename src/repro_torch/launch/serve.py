@@ -4,15 +4,17 @@
 Greedy-decodes synthetic prompts for a selectable architecture of the
 decoder family, dense or mixture-of-experts, with grouped-query or
 latent attention, Mamba2's attention-free stack, whose recurrent state
-and conv window are the same size at every length, or Zamba2's hybrid
+and conv window are the same size at every length, Zamba2's hybrid
 stack, which adds a KV slot to every layer for its shared attention
-block (reduced configs run on the CPU).
+block, or Whisper's encoder-decoder over random stub frames, whose
+cross K/V the prefill caches (reduced configs run on the CPU).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
         --reduced --batch 4 --prompt-len 64 --gen 32 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small
 
 ``--device`` defaults to the card (``cuda``) and raises without one.
 """
@@ -76,7 +78,8 @@ def _grow_cache(cfg, cache, batch, total_len, long_mode):
     (kept as it is where the sizes already agree, as a mamba stack's
     always do): the stacked layers' and, in an MoE config with dense
     leading layers, each of theirs.  A hybrid stack's KV slots grow, its
-    mamba state and window are carried whole."""
+    mamba state and window are carried whole, as are an encoder-decoder's
+    cross ``xk``/``xv``, which prefill fills to the spec's shape."""
     dtype = torch_dtype(cfg.compute_dtype)
     spec = transformer.cache_spec(cfg, batch, total_len, dtype, long_mode)
     layer_caches = lambda c: [c["layers"], *c.get("dense", ())]
@@ -121,6 +124,10 @@ def main(argv=None):
     if cfg.frontend == "vision":
         extra["vision_embeds"] = torch.randn(
             (args.batch, cfg.num_prefix_tokens, cfg.d_model), generator=gen,
+            dtype=torch_dtype(cfg.compute_dtype), device=dev)
+    if cfg.frontend == "audio":
+        extra["frames"] = torch.randn(
+            (args.batch, cfg.encoder_seq, cfg.d_model), generator=gen,
             dtype=torch_dtype(cfg.compute_dtype), device=dev)
 
     t0 = time.perf_counter()

@@ -11,6 +11,10 @@ mechanism:
 - ``gqa_decode`` / ``mla_decode``   : one token against a cache, written
   in place
 
+and, for the encoder-decoder (whisper), ``gqa_cross``: attention over
+the encoder's K/V, which ``project_kv`` makes once at prefill and the
+cache keeps for decode.
+
 Windows are Python ints (0 = global).  KV caches are ring buffers with an
 explicit per-slot position array; attention masks by position, never by
 slot.  Long sequences (above ``_CHUNK_THRESHOLD``) take the online-softmax
@@ -82,7 +86,7 @@ def _project_q(p, x, H, hd):
     return q.reshape(*x.shape[:-1], H, hd)
 
 
-def _project_kv(p, x, K, hd):
+def project_kv(p, x, K, hd):
     k = x @ p["wk"].to(x.dtype)
     v = x @ p["wv"].to(x.dtype)
     if "bk" in p:
@@ -186,20 +190,34 @@ def _chunked_sdpa(q, k, v, q_pos, k_pos, **kw):
 
 
 def gqa_apply(p, x, *, positions, window: int, cfg: ModelConfig,
-              use_rope: bool = True, kv_x=None, causal: bool = True,
-              kv_positions=None):
-    """Self (or cross, via kv_x) attention over a full sequence."""
+              use_rope: bool = True, causal: bool = True):
+    """Self attention over a full sequence (bidirectional with
+    ``causal=False``, as whisper's encoder)."""
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _project_q(p, x, H, hd)
-    k, v = _project_kv(p, kv_x if kv_x is not None else x, K, hd)
-    k_pos = kv_positions if kv_positions is not None else positions
+    k, v = project_kv(p, x, K, hd)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, k_pos, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     out = _chunked_sdpa(
-        q, k, v, positions, k_pos,
+        q, k, v, positions, positions,
         window=window, cap=cfg.attn_softcap,
         scale=1.0 / math.sqrt(hd), causal=causal,
+    )
+    return out @ p["wo"].to(x.dtype)
+
+
+def gqa_cross(p, x, k, v, *, positions, cfg: ModelConfig, cap: float):
+    """Cross attention of x (B, S, d) at ``positions`` over the encoder's
+    keys and values k, v (B, Se, K, hd) from :func:`project_kv`: no
+    RoPE, no mask (every frame is visible), the scores soft-capped at
+    ``cap``."""
+    hd = cfg.head_dim
+    q = _project_q(p, x, cfg.num_heads, hd)
+    k_pos = torch.arange(k.shape[1], device=x.device)
+    out = _chunked_sdpa(
+        q, k.to(x.dtype), v.to(x.dtype), positions, k_pos,
+        window=0, cap=cap, scale=1.0 / math.sqrt(hd), causal=False,
     )
     return out @ p["wo"].to(x.dtype)
 
@@ -225,7 +243,7 @@ def gqa_prefill(p, x, *, positions, window: int, cfg: ModelConfig,
     slot ``pos mod cache_len`` (see the module doc)."""
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _project_q(p, x, H, hd)
-    k, v = _project_kv(p, x, K, hd)
+    k, v = project_kv(p, x, K, hd)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -252,7 +270,7 @@ def gqa_decode(p, x, cache, cache_index: int, *, window: int,
     Sc = cache["k"].shape[1]
     pos = torch.full((1,), cache_index, dtype=torch.int32, device=x.device)
     q = _project_q(p, x, H, hd)
-    k1, v1 = _project_kv(p, x, K, hd)
+    k1, v1 = project_kv(p, x, K, hd)
     if use_rope:
         q = apply_rope(q, pos, cfg.rope_theta)
         k1 = apply_rope(k1, pos, cfg.rope_theta)

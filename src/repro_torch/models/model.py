@@ -8,10 +8,13 @@ cache is the stack's (``transformer.cache_spec``): KV or latent slots
 with ``pos``, or a mamba2 layer's ``h`` and ``conv`` (the mamba leaves
 of ``init_params``' tree: ``layers.<i>.mamba.in_proj``, ``conv_w``,
 ``conv_b``, ``A_log``, ``D``, ``dt_bias``, ``norm``, ``out_proj``), or in
-a zamba2 layer both (the shared block's tree is ``shared_attn``).
+a zamba2 layer both (the shared block's tree is ``shared_attn``), and in
+a whisper layer the cross block's ``xk``/``xv`` beside its KV slots.
 
 Modality frontends are STUBS, as in the reference: VLM configs receive
-pre-computed patch embeddings with the trunk's d_model.
+pre-computed patch embeddings, audio configs pre-computed frame
+embeddings (``frames``, (B, encoder_seq, d_model)), both with the
+trunk's d_model.
 """
 from __future__ import annotations
 
@@ -48,21 +51,31 @@ def _generator(rng, dev: torch.device):
     return torch.Generator(device=dev).manual_seed(int(rng))
 
 
+def _max_seq(cfg: ModelConfig, shape: InputShape = None) -> int:
+    """The ``max_seq`` the reference's ``init_params`` sizes whisper's
+    decoder position table by: the workload's positions, or 4096 without
+    a ``shape``."""
+    return max_positions(cfg, shape) if shape is not None else 4096
+
+
 def init_params(cfg: ModelConfig, rng, shape: InputShape = None,
                 device=None) -> transformer.Transformer:
     """A randomly initialised ``Transformer`` on ``device`` (``None``
     means ``"cuda"``), drawn from ``rng`` (a ``torch.Generator`` on that
-    device, or an int seed).  ``shape`` is the reference's argument: only
-    the encoder-decoder's position tables (not ported) depend on it."""
+    device, or an int seed).  Only the encoder-decoder's ``pos_dec``
+    depends on ``shape``: ``max_positions(cfg, shape)`` rows, or 4096
+    without one, as in the reference."""
     dev = device_lib.resolve(device)
-    return transformer.init_params(cfg, _generator(rng, dev), device=dev)
+    return transformer.init_params(cfg, _generator(rng, dev), device=dev,
+                                   max_seq=_max_seq(cfg, shape))
 
 
 def param_specs(cfg: ModelConfig, shape: InputShape = None
                 ) -> transformer.Transformer:
     """The model on the meta device: every parameter's shape and dtype,
     nothing allocated."""
-    return transformer.init_params(cfg, None, device="meta")
+    return transformer.init_params(cfg, None, device="meta",
+                                   max_seq=_max_seq(cfg, shape))
 
 
 def _text_len(cfg: ModelConfig, seq_len: int) -> int:

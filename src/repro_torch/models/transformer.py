@@ -1,7 +1,8 @@
 """The decoder stack, dense and mixture-of-experts, with grouped-query or
-multi-head latent attention, Mamba2's attention-free stack and Zamba2's
-hybrid one: prefill and ring-KV or recurrent decode (twin of the dense,
-MoE, MLA, mamba and hybrid halves of ``repro/models/transformer.py``).
+multi-head latent attention, Mamba2's attention-free stack, Zamba2's
+hybrid one and Whisper's encoder-decoder: prefill and ring-KV or
+recurrent decode (twin of the serving half of
+``repro/models/transformer.py``).
 
 ``Transformer`` is an ``nn.Module`` holding the reference's parameter
 tree: ``embed`` (V, d), ``final_norm``, ``head`` (d, V) where embeddings
@@ -15,13 +16,19 @@ zamba2).  ``attn`` holds ``gqa_shapes``' leaves, or ``mla_shapes``' where
 the config has ``use_mla`` (DeepSeek-V2).  A hybrid config (a
 ``MAMBA_SHARED_ATTN`` kind, zamba2) adds ``shared_attn``: one dense
 ``DecoderLayer`` whose weights every flagged layer reuses after its
-mamba block (``shared_attn_layers``).  Weights keep the reference's
-(d_in, d_out) layout and fp32; compute runs in ``cfg.compute_dtype``.  Modules and parameter dicts
-index alike (``lp["attn"]``, ``"head" in params``), so every function
-here takes either.
+mamba block (``shared_attn_layers``).  An encoder-decoder config
+(whisper) adds ``encoder`` (``layers``, a ``ModuleList`` of dense
+``DecoderLayer`` without a cross block, and ``final_norm``), the learned
+position tables ``pos_enc`` (encoder_seq, d) and ``pos_dec``
+(max(max_seq, 1), d), and in every decoder layer ``ln_x`` and ``cross``
+(``gqa_shapes``' leaves); it has no RoPE anywhere.  Weights keep the
+reference's (d_in, d_out) layout and fp32; compute runs in
+``cfg.compute_dtype``.  Modules and parameter dicts index alike
+(``lp["attn"]``, ``"head" in params``), so every function here takes
+either.
 
 Public API (mirroring the reference's):
-    init_params(cfg, rng, device)                  -> Transformer
+    init_params(cfg, rng, device, max_seq)         -> Transformer
     prefill(params, batch, cfg, long_mode, ...)     -> (logits, cache)
     decode(params, batch, cache, idx, cfg, ...)     -> (logits, cache)
     cache_spec / cache_init(cfg, batch, ...)        -> cache (stacked)
@@ -33,14 +40,26 @@ stacks them: ``k``/``v`` (L, B, Sc, K, hd), or under MLA the latent
 ``conv`` (L, B, w-1, conv_ch), the same size at every length (no
 ``pos``); a hybrid stack's both, in every layer (the reference's uniform
 layout: an unflagged layer's ``k``/``v`` stay zeros and its ``pos`` -1);
-and ``cache["dense"]``, a list of one per-layer dict of the
-same names per dense leading layer; ``decode`` writes the new key (or
-latent, or state and window) of every layer in place.  Prefill and
-decode discard the MoE layers' aux loss, as the reference's serving path does.  The reference's scan over layers, ``lax.cond``
-on the shared block's flag (here a branch on the layer index),
-``constrain_activations`` and ``remat`` have no eager twin.  The encoder
-raises ``NotImplementedError`` naming the slice of ROADMAP queue 1, item
-9 that brings it; ``forward_train`` comes with the training slice.
+an encoder-decoder layer's ``k``/``v``/``pos`` and the cross block's
+``xk``/``xv`` (L, B, encoder_seq, K, hd), projected once at prefill and
+read, never written, by decode; and ``cache["dense"]``, a list of one
+per-layer dict of the same names per dense leading layer; ``decode``
+writes the new key (or latent, or state and window) of every layer in
+place.  Prefill and
+decode discard the MoE layers' aux loss, as the reference's serving path
+does.  The reference's scan over layers, ``lax.cond`` on the shared
+block's flag (here a branch on the layer index),
+``constrain_activations`` and ``remat`` have no eager twin;
+``forward_train`` comes with the training slice (ROADMAP queue 1, item
+9).
+
+Two reference behaviours the port refuses with ``ValueError``
+(ROADMAP queue 3): prefill over ``frames`` of another length than
+``encoder_seq`` (the reference's cross cache then holds fewer rows, which
+its ``_grow_cache`` pads with zero keys that decode attends to), and a
+prompt longer than ``pos_dec`` (the reference broadcasts a one-row
+table over every token).  Decode keeps the reference's clamp: a position
+past the table reads its last row.
 """
 from __future__ import annotations
 
@@ -71,14 +90,8 @@ from repro_torch.models.layers import (
     torch_dtype,
 )
 
-_SLICE = "is not ported yet: ROADMAP queue 1, item 9, the {} slice"
-
-
 def unsupported(cfg: ModelConfig):
     """The reason the stack cannot run ``cfg``, or None."""
-    if cfg.is_encoder_decoder or cfg.frontend == "audio":
-        return "the encoder-decoder stack " + _SLICE.format(
-            "encoder-decoder")
     scanned = cfg.layer_kinds()[_num_dense(cfg):]
     if len({k.startswith("mamba") for k in scanned}) > 1:
         return ("a stack that mixes mamba and attention layers has no "
@@ -138,19 +151,30 @@ def _kv_cache_init(cfg: ModelConfig):
     return attn.mla_cache_init if cfg.use_mla else attn.gqa_cache_init
 
 
-class DecoderLayer(_Indexed, nn.Module):
-    """Pre-norm attention then a pre-norm MLP, or the MoE layer where the
-    config has experts and the layer is not one of the dense leading
-    ones; norms start at zero (the gemma convention: an offset from 1)."""
+def _attn_params(shapes: Dict[str, tuple], device) -> nn.ParameterDict:
+    """A parameter per ``(shape, fan_in)`` leaf; those of fan_in 0 (the
+    biases, the latent norms) start at zero."""
+    return nn.ParameterDict({
+        name: (_zeros(shape, device) if not fan else _empty(shape, device))
+        for name, (shape, fan) in shapes.items()})
 
-    def __init__(self, cfg: ModelConfig, device=None, dense: bool = False):
+
+class DecoderLayer(_Indexed, nn.Module):
+    """Pre-norm attention, then with ``cross`` a pre-norm cross attention
+    over the encoder's output (``ln_x``, ``cross``), then a pre-norm MLP,
+    or the MoE layer where the config has experts and the layer is not
+    one of the dense leading ones; norms start at zero (the gemma
+    convention: an offset from 1)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, dense: bool = False,
+                 cross: bool = False):
         super().__init__()
         d = cfg.d_model
         self.ln1 = _zeros((d,), device)
-        self.attn = nn.ParameterDict({
-            name: (_zeros(shape, device) if not fan else
-                   _empty(shape, device))
-            for name, (shape, fan) in _attn_shapes(cfg).items()})
+        self.attn = _attn_params(_attn_shapes(cfg), device)
+        if cross:
+            self.ln_x = _zeros((d,), device)
+            self.cross = _attn_params(attn.gqa_shapes(cfg), device)
         self.ln2 = _zeros((d,), device)
         if cfg.is_moe and not dense:
             self.moe = _Tree(moe_lib.moe_shapes(cfg), device)
@@ -171,12 +195,24 @@ class MambaLayer(_Indexed, nn.Module):
         self.mamba = _Tree(ssm_lib.mamba_shapes(cfg), device)
 
 
-class Transformer(_Indexed, nn.Module):
-    """The decoder's parameters (uninitialised until
-    :func:`init_params` or ``repro_torch.convert.lm_params_to_torch``
-    fills them)."""
+class Encoder(_Indexed, nn.Module):
+    """Whisper's bidirectional encoder: ``layers`` (dense layers without a
+    cross block) and ``final_norm``."""
 
     def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(DecoderLayer(cfg, device, dense=True)
+                                    for _ in range(cfg.num_encoder_layers))
+        self.final_norm = _zeros((cfg.d_model,), device)
+
+
+class Transformer(_Indexed, nn.Module):
+    """The model's parameters (uninitialised until :func:`init_params` or
+    ``repro_torch.convert.lm_params_to_torch`` fills them).  ``max_seq``
+    sizes an encoder-decoder's ``pos_dec`` (max(max_seq, 1) rows), as the
+    reference's ``init_params`` does."""
+
+    def __init__(self, cfg: ModelConfig, device=None, max_seq: int = 0):
         super().__init__()
         _require_supported(cfg)
         self.cfg = cfg
@@ -186,16 +222,25 @@ class Transformer(_Indexed, nn.Module):
         if not cfg.tie_embeddings:
             self.head = _empty((d, V), device)
         n_dense = _num_dense(cfg)
+        cross = cfg.is_encoder_decoder
         if n_dense:
             self.dense_layers = nn.ModuleList(
-                DecoderLayer(cfg, device, dense=True)
+                DecoderLayer(cfg, device, dense=True, cross=cross)
                 for _ in range(n_dense))
-        layer = MambaLayer if _is_mamba(cfg) else DecoderLayer
-        self.layers = nn.ModuleList(layer(cfg, device)
+        if _is_mamba(cfg):
+            layer = functools.partial(MambaLayer, cfg, device)
+        else:
+            layer = functools.partial(DecoderLayer, cfg, device, cross=cross)
+        self.layers = nn.ModuleList(layer()
                                     for _ in range(cfg.num_layers - n_dense))
         if _is_hybrid(cfg):
             # one tied block, reused at every flagged layer
             self.shared_attn = DecoderLayer(cfg, device, dense=True)
+        if cfg.is_encoder_decoder:
+            self.encoder = Encoder(cfg, device)
+            # whisper: learned absolute positions
+            self.pos_dec = _empty((max(max_seq, 1), d), device)
+            self.pos_enc = _empty((cfg.encoder_seq, d), device)
 
 
 def _num_dense(cfg: ModelConfig) -> int:
@@ -273,55 +318,95 @@ def required_cache_len(cfg: ModelConfig, seq_len: int, long_mode: bool) -> int:
 # ===========================================================================
 # parameter init
 # ===========================================================================
-def init_params(cfg: ModelConfig, rng=None, device=None) -> Transformer:
+def _init_fans(params, shapes: Dict[str, tuple], rng) -> None:
+    for name, (_, fan) in shapes.items():
+        if fan:
+            dense_init(params[name], fan, rng)
+
+
+def init_params(cfg: ModelConfig, rng=None, device=None,
+                max_seq: int = 0) -> Transformer:
     """A ``Transformer`` with the reference's init scheme, drawn from the
     ``torch.Generator`` ``rng`` (on ``device``; ``None`` draws from the
-    default generator).  ``device="meta"`` allocates nothing.  The draws
-    are the port's own: to compute with the reference's weights, carry
-    them across with ``repro_torch.convert.lm_params_to_torch``."""
+    default generator); ``max_seq`` sizes an encoder-decoder's
+    ``pos_dec``.  ``device="meta"`` allocates nothing.  The draws are the
+    port's own: to compute with the reference's weights, carry them
+    across with ``repro_torch.convert.lm_params_to_torch``."""
     dev = torch.device("meta") if str(device) == "meta" else \
         device_lib.resolve(device)
-    model = Transformer(cfg, dev)
+    model = Transformer(cfg, dev, max_seq=max_seq)
     embed_init(model.embed, rng)
     if "head" in model:
         dense_init(model.head, cfg.d_model, rng)
     mlp_fans = mlp_shapes(cfg.d_model, cfg.d_ff, cfg.gated_mlp)
+    encoder = model.encoder.layers if "encoder" in model else ()
     for layer in (*getattr(model, "dense_layers", ()), *model.layers,
-                  *([model.shared_attn] if "shared_attn" in model else ())):
+                  *([model.shared_attn] if "shared_attn" in model else ()),
+                  *encoder):
         if "mamba" in layer:
             ssm_lib.mamba_init(layer.mamba, cfg, rng)
             continue
-        for name, (_, fan) in _attn_shapes(cfg).items():
-            if fan:
-                dense_init(layer.attn[name], fan, rng)
+        _init_fans(layer.attn, _attn_shapes(cfg), rng)
+        if "cross" in layer:
+            _init_fans(layer.cross, attn.gqa_shapes(cfg), rng)
         if "moe" in layer:
             moe_lib.moe_init(layer.moe, cfg, rng)
         else:
-            for name, (_, fan) in mlp_fans.items():
-                dense_init(layer.mlp[name], fan, rng)
+            _init_fans(layer.mlp, mlp_fans, rng)
+    if "encoder" in model:
+        embed_init(model.pos_dec, rng)
+        embed_init(model.pos_enc, rng)
     return model
 
 
 # ===========================================================================
-# embedding
+# the encoder and the embedding
 # ===========================================================================
+def _encode(params, frames, cfg: ModelConfig):
+    """Whisper's encoder over stub frame embeddings (B, S_enc, d): the
+    learned positions, then bidirectional layers without RoPE."""
+    S = frames.shape[1]
+    x = frames + params["pos_enc"][:S].to(frames.dtype)
+    positions = torch.arange(S, device=x.device)
+    encoder = params["encoder"]
+    for lp in encoder["layers"]:
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        a = attn.gqa_apply(lp["attn"], h, positions=positions, window=0,
+                           cfg=cfg, use_rope=False, causal=False)
+        x = _mlp_block(lp, x + a, cfg)
+    return rms_norm(x, encoder["final_norm"], cfg.norm_eps)
+
+
 def _embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                   dtype):
-    """Token embedding + the vision prefix.  Returns (x, n_prefix,
-    enc_out); ``enc_out`` is always None (the audio encoder comes with the
-    encoder-decoder slice)."""
+    """Token embedding + the vision prefix, or the encoder's output and
+    the decoder's learned positions.  Returns (x, n_prefix, enc_out).
+    ``frames`` must be (B, encoder_seq, d_model) and the prompt no longer
+    than ``pos_dec``: either raises ``ValueError`` (module doc)."""
     tokens = batch["tokens"]
     scale = cfg.final_softcap > 0  # gemma-style embedding scaling
     x = embed_tokens(params["embed"], tokens, scale, dtype)
+    enc_out = None
     n_prefix = 0
     if cfg.frontend == "vision":
         vis = batch["vision_embeds"].to(dtype)           # (B, P, d)
         x = torch.cat([vis, x], dim=1)
         n_prefix = vis.shape[1]
     elif cfg.frontend == "audio":
-        raise NotImplementedError(f"{cfg.name}: the audio encoder "
-                                  + _SLICE.format("encoder-decoder"))
-    return x, n_prefix, None
+        frames = batch["frames"]
+        want = (x.shape[0], cfg.encoder_seq, cfg.d_model)
+        if tuple(frames.shape) != want:
+            raise ValueError(f"{cfg.name}: frames of shape "
+                             f"{tuple(frames.shape)}, the encoder takes "
+                             f"{want}")
+        enc_out = _encode(params, frames.to(dtype), cfg)
+    if cfg.is_encoder_decoder:
+        S, rows = x.shape[1], params["pos_dec"].shape[0]
+        if S > rows:
+            raise ValueError(f"{cfg.name}: a {S}-token prompt, the decoder's "
+                             f"position table holds {rows} rows")
+        x = x + params["pos_dec"][:S].to(dtype)
+    return x, n_prefix, enc_out
 
 
 def _head(params) -> torch.Tensor:
@@ -351,6 +436,12 @@ def cache_build(cfg: ModelConfig, batch: int, seq_len: int, dtype,
     else:
         per_layer = kv_init(cfg, batch, cache_len, torch_dtype(dtype),
                             device=dev)
+    if cfg.is_encoder_decoder:
+        # the cross block's K/V over the encoder's output, set at prefill
+        kv = (batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+        for name in ("xk", "xv"):
+            per_layer[name] = torch.zeros(kv, dtype=torch_dtype(dtype),
+                                          device=dev)
     n_dense = _num_dense(cfg)
     L = cfg.num_layers - n_dense
     cache = {"layers": {k: v[None].expand((L,) + v.shape).clone()
@@ -369,7 +460,7 @@ cache_init = functools.partial(cache_build, make="init")
 # prefill
 # ===========================================================================
 def _attn_block_prefill(lp, x, *, positions, window: int, cfg: ModelConfig,
-                        cache_len: int):
+                        cache_len: int, enc_out=None):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.use_mla:
         a, cache = attn.mla_prefill(lp["attn"], h, positions=positions,
@@ -377,8 +468,24 @@ def _attn_block_prefill(lp, x, *, positions, window: int, cfg: ModelConfig,
     else:
         a, cache = attn.gqa_prefill(lp["attn"], h, positions=positions,
                                     window=window, cfg=cfg,
-                                    cache_len=cache_len)
-    return _mlp_block(lp, x + a, cfg), cache
+                                    cache_len=cache_len,
+                                    use_rope=not cfg.is_encoder_decoder)
+    x = x + a
+    if enc_out is not None:
+        # the cross K/V projected once: attended to here, cached for decode
+        k, v = attn.project_kv(lp["cross"], enc_out, cfg.num_kv_heads,
+                               cfg.head_dim)
+        x = _cross_block(lp, x, k, v, positions, cfg, cfg.attn_softcap)
+        cache["xk"], cache["xv"] = k, v
+    return _mlp_block(lp, x, cfg), cache
+
+
+def _cross_block(lp, x, k, v, positions, cfg: ModelConfig, cap: float):
+    """The pre-norm cross attention over the encoder's K/V and its
+    residual."""
+    h = rms_norm(x, lp["ln_x"], cfg.norm_eps)
+    return x + attn.gqa_cross(lp["cross"], h, k, v, positions=positions,
+                              cfg=cfg, cap=cap)
 
 
 def _mamba_block(lp, x, cfg: ModelConfig, cache=None):
@@ -416,7 +523,7 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     cache."""
     _require_supported(cfg)
     dtype = torch_dtype(cfg.compute_dtype)
-    x, _, _ = _embed_inputs(params, batch, cfg, dtype)
+    x, _, enc_out = _embed_inputs(params, batch, cfg, dtype)
     S = x.shape[1]
     cache_len = max(required_cache_len(cfg, S, long_mode), min_cache_len)
     positions = torch.arange(S, device=x.device)
@@ -429,7 +536,8 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         cache["dense"] = []
         for lp in params["dense_layers"]:
             x, c = _attn_block_prefill(lp, x, positions=positions, window=0,
-                                       cfg=cfg, cache_len=cache_len)
+                                       cfg=cfg, cache_len=cache_len,
+                                       enc_out=enc_out)
             cache["dense"].append(c)
     shared, flagged, shared_w = _shared_block(params, cfg, long_mode)
     L = cfg.num_layers - n_dense
@@ -440,7 +548,7 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         else:
             x, c = _attn_block_prefill(lp, x, positions=positions,
                                        window=windows[i], cfg=cfg,
-                                       cache_len=cache_len)
+                                       cache_len=cache_len, enc_out=enc_out)
         if shared is not None:
             if i in flagged:
                 x, kv = _attn_block_prefill(shared, x, positions=positions,
@@ -471,8 +579,14 @@ def _attn_block_decode(lp, x, cache, cache_index: int, *, window: int,
                                    cfg=cfg)
     else:
         a, cache = attn.gqa_decode(lp["attn"], h, cache, cache_index,
-                                   window=window, cfg=cfg)
-    return _mlp_block(lp, x + a, cfg), cache
+                                   window=window, cfg=cfg,
+                                   use_rope=not cfg.is_encoder_decoder)
+    x = x + a
+    if "xk" in cache:
+        # over the cached encoder K/V, uncapped as the reference's decode is
+        pos = torch.full((1,), int(cache_index), device=x.device)
+        x = _cross_block(lp, x, cache["xk"], cache["xv"], pos, cfg, 0.0)
+    return _mlp_block(lp, x, cfg), cache
 
 
 @torch.no_grad()
@@ -485,6 +599,10 @@ def decode(params, batch: Dict[str, torch.Tensor], cache: Dict,
     dtype = torch_dtype(cfg.compute_dtype)
     scale = cfg.final_softcap > 0
     x = embed_tokens(params["embed"], batch["tokens"], scale, dtype)
+    if cfg.is_encoder_decoder:
+        # past the table, its last row (the reference's clamp)
+        rows = params["pos_dec"].shape[0]
+        x = x + params["pos_dec"][min(int(cache_index), rows - 1)].to(dtype)
     n_dense = _num_dense(cfg)
     if n_dense:
         for lp, c in zip(params["dense_layers"], cache["dense"],

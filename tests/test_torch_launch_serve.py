@@ -199,9 +199,11 @@ def test_device_defaults_to_cuda_and_raises_without_a_card(capsys):
 
 
 # the module's CLI in a fresh interpreter: (arch, prompt length, tokens
-# generated) for the vision-prefix, MLA, mamba and hybrid stacks
+# generated) for the vision-prefix, MLA, mamba, hybrid and encoder-decoder
+# stacks
 CLI = (("internvl2-2b", 8, 3), ("deepseek-v2-236b", 16, 4),
-       ("mamba2-130m", 40, 4), ("zamba2-1.2b", 40, 4))
+       ("mamba2-130m", 40, 4), ("zamba2-1.2b", 40, 4),
+       ("whisper-small", 12, 4))
 
 
 @pytest.mark.parametrize("arch,prompt_len,gen", CLI,
