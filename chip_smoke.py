@@ -168,9 +168,16 @@ any failure raises and exits non-zero:
    1 s by 4 closed-loop clients (``benchmarks/bench_serve.py``'s load) at
    a 1 ms window, then held to the bucket contract (rows 0-7 through
    ``gemm_rows`` bitwise ``decide_rows`` in buckets 8 to 1024, at row
-   offsets 0 and 3), with ``gemm_rows`` against its plain version at 1024
-   rows and timed beside ``torch.addmm``, and whether ``addmm`` keeps the
-   contract printed; then a Fig. 7 session's model served for 3 s at
+   offsets 0 and 3, in batches of 1, 7, 33 and 1000 rows, in a view
+   X[3:] of a larger tensor and where X starts 4 bytes past 16), with
+   ``gemm_rows`` against its plain version at 1024 rows and timed there
+   and at 8 rows (the launch floor; CUDA events and a CUDA graph) beside
+   ``torch.addmm``, and whether ``addmm`` keeps the contract printed; the
+   same holds and times at the paper's MNIST width (K = 20 hyperplanes,
+   the quickstart's V*T, over p = 784 = 28 x 28 features, seeded random
+   weights), and at rows past the 1024 features a lane group holds
+   (K = 20 over p = 2000, float4 loads; K = 2 over p = 1027, scalar);
+   then a Fig. 7 session's model served for 3 s at
    each window of 0 and 1 ms, its next stage run and published
    (``publish_session``) mid-stream; every answer is checked bitwise
    against ``decide_rows`` of the model that answered it, with p50/p99
@@ -536,6 +543,14 @@ QUANTIZED_STORE_CONFIGS = ("async-lossy", "async-stale-ef")
 # and the large fit's models; rows 0-7 held bitwise across these buckets
 SERVE = dict(clients=4, max_rows=16, stream_s=3.0, model_s=1.0,
              windows=(0.0, 1.0), buckets=(8, 16, 32, 256, 1024))
+# the serving product's contract over batches that are no bucket, and the
+# paper's MNIST width (V, T, p): the quickstart's V*T = 20 hyperplanes over
+# 28 x 28 features
+SERVE_ROWS_BATCHES = (1, 7, 33, 1000)
+SERVE_MNIST = (10, 2, 784)
+# (V, T, p) of models whose rows run past the 1024 features that a lane
+# group of rows.cu holds in registers: float4 loads (p % 4 == 0) and scalar
+SERVE_WIDE = ((10, 2, 2000), (1, 2, 1027))
 # the obs phase: the quickstart's DTSVM per engine with telemetry on and
 # off; the card's streams against the same fit's on the CPU port: the
 # residual streams within OBS_RTOL of each value plus OBS_ATOL of the
@@ -692,6 +707,15 @@ def device_ms(fn) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end)
+
+
+def burst_ms(fn, reps: int = 100) -> float:
+    """Mean device time of one of ``reps`` back-to-back calls of ``fn``,
+    all enqueued while a spin kernel holds the card (``device_ms``): the
+    call's device time and the card's own gap between launches, without
+    the host's enqueue or a graph replay's launch."""
+    fn()
+    return device_ms(lambda: [fn() for _ in range(reps)]) / reps
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -2603,9 +2627,14 @@ def store_large(by_path: dict, tmp: str) -> None:
 def hold_rows(label: str, regime: str, model, cases: dict) -> None:
     """The bucket contract on the card: rows 0-7 through ``gemm_rows`` in
     every bucket of SERVE, at offsets 0 and 3 with random rows beside
-    them, bitwise ``decide_rows``; whether ``torch.addmm`` keeps it too
-    (printed, never used); and the kernel against its plain version at
-    the largest bucket, with its times."""
+    them, in batches of SERVE_ROWS_BATCHES rows (the first min(M, 8)), in
+    rows [3, 11) of a view X[3:] of a larger tensor and where X starts 4
+    bytes past 16, bitwise ``decide_rows``; whether ``torch.addmm`` keeps
+    it in the buckets (printed, never used); and the kernel against its
+    plain version at the largest bucket, timed there and at the smallest
+    (the launch floor) beside ``addmm``, with its bound at each: ``ms``
+    over wrapper calls, ``graph_ms`` over graph replays, ``device_ms``
+    over a burst of launches the card runs back to back."""
     from repro_torch.kernels import ops, ref
 
     Wf, bf = model.flat()
@@ -2626,16 +2655,37 @@ def hold_rows(label: str, regime: str, model, cases: dict) -> None:
                                     want))
             lib_same.append(torch.equal(
                 torch.addmm(bf, X, Wf.T)[off:off + 8], lib_want))
+    batches = []
+    for M in SERVE_ROWS_BATCHES:
+        n = min(M, 8)
+        X = torch.randn(M, p, generator=gen, device=dev)
+        X[:n] = x[:n]
+        batches.append(torch.equal(ops.gemm_rows(Wf, bf, X)[:n], want[:n]))
+    big = torch.randn(SERVE["buckets"][-1] + 3, p, generator=gen,
+                      device=dev)
+    big[3:11] = x
+    view = torch.equal(ops.gemm_rows(Wf, bf, big[3:])[:8], want)
+    flat = torch.randn(1 + 64 * p, generator=gen, device=dev)
+    shifted = flat[1:].view(64, p)
+    shifted[:8] = x
+    off16 = torch.equal(ops.gemm_rows(Wf, bf, shifted)[:8], want)
     M = SERVE["buckets"][-1]
     X = torch.randn(M, p, generator=gen, device=dev)
     got, plain = ops.gemm_rows(Wf, bf, X), ref.gemm_rows(Wf, bf, X)
     torch.cuda.synchronize()
     err, scale, ok = max_err(got, plain, RTOL["f32"])
     b_ms, b_by = bound(4 * (M * p + K * p + K + M * K), 2 * M * K * p)
+    m8 = SERVE["buckets"][0]
+    X8 = X[:m8].clone()
+    b8_ms, _ = bound(4 * (m8 * p + K * p + K + m8 * K), 2 * m8 * K * p)
     rec = {"regime": regime, "model": label, "M": M, "K": K, "p": p,
            "max_abs_err": err,
            "max_abs_plain": scale, "rtol": RTOL["f32"],
-           "bucket_contract": all(same), "cases": len(same),
+           "bucket_contract": all(same) and all(batches) and view and off16,
+           "cases": len(same) + len(batches) + 2,
+           "contract_buckets": all(same),
+           "contract_batches": dict(zip(SERVE_ROWS_BATCHES, batches)),
+           "contract_view": view, "contract_off16": off16,
            "addmm_keeps_contract": all(lib_same),
            "addmm_max_abs_diff": float(
                (torch.addmm(bf, X, Wf.T) - got).abs().max()),
@@ -2643,11 +2693,38 @@ def hold_rows(label: str, regime: str, model, cases: dict) -> None:
            "graph_ms": graph_ms(lambda: ops.gemm_rows(Wf, bf, X), 200),
            "plain_ms": cuda_ms(lambda: ref.gemm_rows(Wf, bf, X), 10),
            "library_ms": cuda_ms(lambda: torch.addmm(bf, X, Wf.T), 200),
-           "bound_ms": b_ms, "bound_by": b_by}
+           "library_graph_ms": graph_ms(lambda: torch.addmm(bf, X, Wf.T),
+                                        200),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "m8_ms": cuda_ms(lambda: ops.gemm_rows(Wf, bf, X8), 200),
+           "m8_graph_ms": graph_ms(lambda: ops.gemm_rows(Wf, bf, X8), 200),
+           "m8_library_ms": cuda_ms(lambda: torch.addmm(bf, X8, Wf.T), 200),
+           "m8_library_graph_ms": graph_ms(
+               lambda: torch.addmm(bf, X8, Wf.T), 200),
+           "m8_bound_ms": b8_ms,
+           "device_ms": burst_ms(lambda: ops.gemm_rows(Wf, bf, X)),
+           "library_device_ms": burst_ms(lambda: torch.addmm(bf, X, Wf.T)),
+           "m8_device_ms": burst_ms(lambda: ops.gemm_rows(Wf, bf, X8)),
+           "m8_library_device_ms": burst_ms(
+               lambda: torch.addmm(bf, X8, Wf.T))}
     emit({"kernel_check": "gemm_rows", **rec})
     if not (ok and rec["bucket_contract"]):
         raise AssertionError(f"gemm_rows at {label}: {rec}")
     cases["gemm_rows"].append(rec)
+
+
+def rows_model(dev, shape):
+    """A served model of V x T hyperplanes over P features, weights and
+    biases from a generator on the card seeded with P: SERVE_MNIST is the
+    paper's MNIST width, the quickstart's V*T = 20 hyperplanes over p = 784
+    = 28 x 28 features."""
+    from repro_torch.serve import PredictModel
+
+    V, T, P = shape
+    gen = torch.Generator(device=dev).manual_seed(P)
+    return PredictModel(
+        W=torch.randn(V, T, P, generator=gen, device=dev) / P ** 0.5,
+        b=torch.randn(V, T, generator=gen, device=dev))
 
 
 def _serve_load(srv, shape, duration_s: float, seed: int, swap=None):
@@ -2786,6 +2863,11 @@ def serve(by_path: dict, seen: dict, cases: dict) -> None:
             _serve_record(label, 1.0, srv, launches, responses, counts,
                           SERVE["model_s"])
         hold_rows(label, regime, model, cases)
+    hold_rows("mnist", "mnist", rows_model(torch.device("cuda"),
+                                           SERVE_MNIST), cases)
+    for shape in SERVE_WIDE:
+        hold_rows(f"wide_p{shape[2]}", "wide",
+                  rows_model(torch.device("cuda"), shape), cases)
 
     r = dict(STORE_FIG7)
     iters = r.pop("stage_iters")

@@ -52,7 +52,7 @@ KERNELS = {
     "qp_step_kernel": "qp_step.cu",
     "qp_multi_block_kernel": "qp_multi.cu",
     "qp_multi_grid_kernel": "qp_multi.cu",
-    "rows_kernel": "rows.cu",
+    "rows_group_kernel": "rows.cu",
 }
 
 #: each key of ``kernels.ops.launch_counts()`` -> its plain twin in
@@ -103,10 +103,15 @@ QP_SHAPES = ((("paper", 20, 60), ("fig3_sweep", 320, 40),
              + (("edge", _EDGE_B, 60), ("edge", _EDGE_B, 20000)))
 #: (label, M, K, p) of the serving product: the server's row buckets 8 to
 #: 1024 at the large fit's (K, p) = (2, 256) and the quickstart's
-#: (20, 10), and the bindings' M*K guard
+#: (20, 10), the paper's MNIST width (K = 20 = the quickstart's V*T, p =
+#: 784 = 28 x 28) at the smallest and the largest bucket, rows past the
+#: 1024 features a lane group holds (float4 and scalar loads), and the
+#: bindings' M*K guard
 ROWS_SHAPES = (tuple(("serve", m, k, p) for k, p in ((2, 256), (20, 10))
                      for m in (8, 16, 32, 64, 128, 256, 512, 1024))
-               + (("edge", (2 ** 31 - 1) // 20, 20, 10),))
+               + (("mnist", 8, 20, 784), ("mnist", 1024, 20, 784),
+                  ("wide", 64, 20, 2000), ("wide", 33, 2, 1027),
+                  ("edge", (2 ** 31 - 1) // 20, 20, 10)))
 
 
 def audited_launches(*, sms: int = L.H100_SMS,

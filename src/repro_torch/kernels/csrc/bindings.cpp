@@ -251,8 +251,9 @@ std::tuple<int, int, int, int> qp_multi_shape(bool k_bf16, bool fold,
   return {path, blocks, slots, smem};
 }
 
-// Wf (K, p), bf (K,), X (M, p) -> G (M, K), each element one fixed-order
-// fmaf chain (rows.cu)
+// Wf (K, p), bf (K,), X (M, p) -> G (M, K), each element summed in an
+// order that depends on p alone: a lane group per row, each lane's fmaf
+// chain over its chunks of four features, a fixed xor butterfly (rows.cu)
 torch::Tensor gemm_rows(torch::Tensor Wf, torch::Tensor bf, torch::Tensor X) {
   check(Wf, "Wf", at::kFloat, 2);
   check(bf, "bf", at::kFloat, 1);

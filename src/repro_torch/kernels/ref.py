@@ -90,8 +90,12 @@ def gemm_rows(Wf: torch.Tensor, bf: torch.Tensor,
     bf (K,), X (M, p) -> (M, K), ``bf + X @ Wf.T`` summed over the
     features one at a time, in order.  Every element is its own chain of
     elementwise operations, so a row's values are bitwise the same in any
-    batch (a matrix product promises no such thing).  Each step rounds
-    twice where the kernel's ``fmaf`` rounds once."""
+    batch (a matrix product promises no such thing).  The kernel's order
+    differs: it splits each sum over a group of lanes, each lane's
+    features chained with ``fmaf`` (one rounding a step where this rounds
+    twice), and meets the partial sums in a fixed butterfly, with the bias
+    added last where this starts from it.  So the two agree within a
+    tolerance, not bitwise."""
     acc = bf.expand(X.shape[0], bf.shape[0]).clone()
     for j in range(X.shape[1]):
         acc = acc + X[:, j:j + 1] * Wf[:, j]

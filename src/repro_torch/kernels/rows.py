@@ -3,9 +3,12 @@ rows against every hyperplane of a fitted network,
 
     G[i, k] = bf[k] + sum_j X[i, j] Wf[k, j],
 
-each element one fixed-order chain of fused multiply-adds over j, so a
-row's values are bitwise the same whatever rows share its launch.  It is
-no TPU kernel: the reference leaves ``X @ Wf.T + bf`` to XLA
+each element summed in an order that depends on p alone: a group of
+lanes per row, each lane a chain of fused multiply-adds over its chunks
+of four features in ascending order, the lanes' sums met in a fixed xor
+butterfly, the bias added last.  So a row's values are bitwise the same
+whatever rows share its launch, wherever it lies in the batch and
+wherever X starts.  It is no TPU kernel: the reference leaves ``X @ Wf.T + bf`` to XLA
 (``repro/serve/model.py:gemm_rows``); the port needs the fixed order for
 the reference's serving contract (``repro_torch.serve``).
 

@@ -19,8 +19,10 @@ bitwise the same whatever bucket it was padded to and whatever rows
 shared its batch; the padded-bucket batching of the server relies on it
 (tests/test_torch_serve.py).  A library matrix product does not promise
 that (its sum may be split another way for another number of rows), so
-``gemm_rows`` sums each element in a fixed order: on the card the hand
-kernel ``kernels/csrc/rows.cu``, on the CPU its plain version.
+``gemm_rows`` sums each element in an order that depends on the width p
+alone: on the card the hand kernel ``kernels/csrc/rows.cu`` (a lane group
+per row, a fixed butterfly over the lanes' fmaf chains), on the CPU its
+plain version (one sequential sum).
 """
 from __future__ import annotations
 

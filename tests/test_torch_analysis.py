@@ -420,7 +420,7 @@ def test_launch_audit_flags_bad_geometry():
                            dynamic_smem=228 * 1024, opt_in=True)) == \
         {"launch-dynamic-smem"}
     # above 48 KB without raising the limit
-    assert _rules(L.Launch("rows_kernel<staged>", (1, 1, 1), 256,
+    assert _rules(L.Launch("rows_group_kernel<vec>", (1, 1, 1), 256,
                            dynamic_smem=48 * 1024 + 4)) == \
         {"launch-dynamic-smem"}
     # static shared memory above 48 KB
@@ -467,15 +467,84 @@ def test_multi_shape_paths_match_the_card_tests(precision, B, N, path):
 
 
 def test_rows_staging_holds_48kb_without_the_opt_in():
-    """rows.cu stages K(p+1) floats up to exactly 48 KB without raising
-    the dynamic limit: the largest staged launch is within it."""
+    """rows.cu stages nothing in shared memory (the hyperplanes are read
+    through the L1), so K(p+1) floats at 48 KB and past it, up to the
+    tested (16, 60, 784), launch with no dynamic shared bytes and without
+    raising the limit."""
     K = 12
-    p = L.ROWS_STAGED_FLOATS // K - 1
-    staged = L.rows_launch(1024, K, p)
-    assert staged.kernel == "rows_kernel<staged>"
-    assert staged.dynamic_smem == 48 * 1024 and not staged.opt_in
-    assert launch_audit.check_launch(staged, "rows") == []
-    assert L.rows_launch(1024, K, p + 1).kernel == "rows_kernel<global>"
+    p = 48 * 1024 // 4 // K - 1
+    for M, k, q in ((1024, K, p), (1024, K, p + 1), (16, 60, 784),
+                    (1024, 20, 784)):
+        launch = L.rows_launch(M, k, q)
+        assert launch.kernel in L.STATIC_SMEM
+        assert launch.kernel.startswith("rows_group_kernel<")
+        assert launch.dynamic_smem == 0 and launch.static_smem == 0
+        assert not launch.opt_in
+        assert launch_audit.check_launch(launch, "rows") == []
+
+
+@pytest.mark.parametrize("label,M,K,p", launch_audit.ROWS_SHAPES)
+def test_rows_launch_at_every_audited_shape_is_within_the_limits(label, M,
+                                                                 K, p):
+    """``rows_launch`` at every ``ROWS_SHAPES`` entry, the MNIST width and
+    the M*K guard's edge included, passes the launch check, and its CTAs
+    cover every row's lane group."""
+    launch = L.rows_launch(M, K, p)
+    assert launch_audit.check_launch(launch, label) == []
+    g = L.rows_lanes(p)
+    assert launch.grid[0] * launch.threads >= M * g
+    assert (launch.grid[0] - 1) * launch.threads < M * g
+
+
+@pytest.mark.parametrize("p,lanes", [(0, 1), (1, 1), (4, 1), (5, 2),
+                                     (10, 4), (16, 4), (17, 8), (128, 32),
+                                     (256, 32), (257, 32), (784, 32),
+                                     (4096, 32)])
+def test_rows_lane_group_is_a_function_of_p(p, lanes):
+    """A row's lane group (and so the order of its sum) is min(32, the
+    power of two at or above ceil(p / 4)), whatever M or K."""
+    assert L.rows_lanes(p) == lanes
+
+
+@pytest.mark.parametrize("p,vec,kernel", [
+    (1, None, "rows_group_kernel<scalar>"),
+    (10, None, "rows_group_kernel<scalar>"),
+    (12, None, "rows_group_kernel<vec>"),
+    (256, None, "rows_group_kernel<vec>"),
+    (256, False, "rows_group_kernel<scalar>"),
+    (257, None, "rows_group_kernel<scalar>"),
+    (512, None, "rows_group_kernel<vec>"),
+    (784, None, "rows_group_kernel<vec>"),
+    (1027, None, "rows_group_kernel<scalar>"),
+    (4096, None, "rows_group_kernel<vec>")])
+def test_rows_instance_is_picked_by_p_and_alignment(p, vec, kernel):
+    """The load width alone picks one of the two instances that
+    ``kernel_info`` reports (float4 where p % 4 == 0 and the operands lie
+    on 16 bytes, else scalar, the same for rows past the held 1024
+    features); it does not change the order of the sum."""
+    launch = L.rows_launch(64, 20, p, vec=vec)
+    assert launch.kernel == kernel
+    assert launch.kernel in L.STATIC_SMEM and launch.kernel in L.LAUNCH_BOUNDS
+
+
+@pytest.mark.parametrize("M,K,p,grid,threads", [
+    (8, 2, 256, (1, 1), 256), (8, 20, 784, (1, 5), 256),
+    (8, 20, 10, (1, 5), 32), (1, 1, 1, (1, 1), 32),
+    (1024, 2, 256, (256, 1), 128), (1024, 20, 784, (256, 1), 128),
+    (1000, 2, 256, (250, 1), 128), (1024, 20, 10, (128, 5), 32),
+    (64, 2, 256, (64, 1), 32), (4096, 2, 256, (512, 1), 256),
+    (256, 20, 784, (256, 4), 32), (16, 60, 784, (16, 15), 32)])
+def test_rows_grid_is_one_cta_at_the_smallest_bucket_and_fills_the_card(
+        M, K, p, grid, threads):
+    """The smallest bucket is one CTA along x; 1024 rows at p = 256 or 784
+    are at least an H100's 132 SMs of CTAs; the passes of 4 hyperplanes
+    are dealt out along y only while the grid stays within one wave of
+    132 x 8 warps, at most one CTA a pass; K moves only y."""
+    launch = L.rows_launch(M, K, p)
+    assert (launch.grid[:2], launch.threads) == (grid, threads)
+    assert launch.grid[1] <= -(-K // L.ROWS_K_TILE)
+    wide = L.rows_launch(M, 4 * K, p)
+    assert (wide.grid[0], wide.threads) == (grid[0], threads)
 
 
 # ----------------------------------------------------------------------

@@ -894,21 +894,28 @@ def test_async_refuses_the_bf16_and_factored_modes_on_the_card(cuda):
 
 
 
-GEMM_ROWS_SHAPES = [(1, 1, 1), (8, 20, 10), (1024, 2, 256), (37, 20, 257),
-                    (1024, 20, 784), (16, 60, 784)]
+#: (M, K, p, offset): offset > 0 takes X as rows [offset, offset + M) of a
+#: larger tensor (a view whose start may be off 16 bytes)
+GEMM_ROWS_SHAPES = [(1, 1, 1, 0), (8, 20, 10, 0), (1024, 2, 256, 0),
+                    (37, 20, 257, 0), (1024, 20, 784, 0), (16, 60, 784, 0),
+                    (8, 20, 784, 0), (1024, 20, 784, 3), (33, 2, 257, 0),
+                    (7, 20, 10, 0), (64, 20, 2000, 0), (33, 2, 1027, 0)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M,K,p", GEMM_ROWS_SHAPES)
-def test_gemm_rows_kernel_matches_plain(cuda, M, K, p):
-    """The serving product against its plain version (the kernel's fmaf
-    rounds once a step where the plain sum rounds twice); the last two
-    shapes do not fit the shared-memory stage (K (p + 1) floats over
-    48 KB), so their hyperplanes are read from device memory."""
-    rng = np.random.default_rng(M * 7 + K * 3 + p)
-    Wf, bf, X = _on(cuda, rng.normal(size=(K, p)).astype(np.float32),
-                    rng.normal(size=(K,)).astype(np.float32),
-                    rng.normal(size=(M, p)).astype(np.float32))
+@pytest.mark.parametrize("M,K,p,offset", GEMM_ROWS_SHAPES)
+def test_gemm_rows_kernel_matches_plain(cuda, M, K, p, offset):
+    """The serving product against its plain version (the kernel splits
+    each sum over a lane group and chains with fmaf, the plain version
+    sums in order and rounds twice a step); (16, 60, 784) has K (p + 1)
+    floats past 48 KB, (1024, 20, 784) at offset 3 reads X from a view of
+    a larger tensor, p = 2000 (float4) and 1027 (scalar) run past the
+    1024 features a lane group holds in registers."""
+    rng = np.random.default_rng(M * 7 + K * 3 + p + offset)
+    Wf, bf, Xs = _on(cuda, rng.normal(size=(K, p)).astype(np.float32),
+                     rng.normal(size=(K,)).astype(np.float32),
+                     rng.normal(size=(M + offset, p)).astype(np.float32))
+    X = Xs[offset:]
     before = ops.launch_counts()["gemm_rows"]
     got = ops.gemm_rows(Wf, bf, X)
     torch.cuda.synchronize()
@@ -918,10 +925,16 @@ def test_gemm_rows_kernel_matches_plain(cuda, M, K, p):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K,p", [(20, 10), (2, 256), (20, 784)])
+@pytest.mark.parametrize("K,p", [(20, 10), (2, 256), (20, 784), (60, 784),
+                                 (2, 257), (20, 2000), (2, 1027)])
 def test_gemm_rows_bucket_contract_on_the_card(cuda, K, p):
     """Rows 0-7 give the same bits in buckets 8 to 1024, at row offset 0
-    and 3, with other rows beside them, and on a second launch."""
+    and 3, with other rows beside them, and on a second launch; in
+    batches of 1, 7, 33 and 1000 rows; in rows [3, 11) of a view X[3:] of
+    a larger tensor; and where X starts 4 bytes past a 16-byte boundary
+    (the kernel's scalar loads, where p % 4 == 0 would take float4 ones).
+    (60, 784) has K (p + 1) floats past 48 KB; (20, 2000) and (2, 1027)
+    run past the 1024 features a lane group holds in registers."""
     rng = np.random.default_rng(K + p)
     Wf, bf, x = _on(cuda, rng.normal(size=(K, p)).astype(np.float32),
                     rng.normal(size=(K,)).astype(np.float32),
@@ -935,6 +948,19 @@ def test_gemm_rows_bucket_contract_on_the_card(cuda, K, p):
             X[off:off + 8] = x
             assert torch.equal(ops.gemm_rows(Wf, bf, X)[off:off + 8],
                                want), (bucket, off)
+    for M in (1, 7, 33, 1000):
+        n = min(M, 8)
+        X = torch.randn(M, p, device=cuda)
+        X[:n] = x[:n]
+        assert torch.equal(ops.gemm_rows(Wf, bf, X)[:n], want[:n]), M
+    big = torch.randn(1027, p, device=cuda)
+    big[3:11] = x
+    assert torch.equal(ops.gemm_rows(Wf, bf, big[3:])[:8], want)
+    flat = torch.randn(1 + 64 * p, device=cuda)
+    shifted = flat[1:].view(64, p)
+    assert shifted.data_ptr() % 16 == 4
+    shifted[:8] = x
+    assert torch.equal(ops.gemm_rows(Wf, bf, shifted)[:8], want)
     assert torch.equal(ops.gemm_rows(Wf, bf, x), want)
 
 
