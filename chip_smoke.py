@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--out FILE] [--only large_fit|multi_mid|figures|
                                                sessions|fabric|store|serve|
                                                obs|dist|shard|lm|moe|mla|
-                                               ssm|hybrid|encdec]
+                                               ssm|hybrid|encdec|train]
 
 Runs from the root of a checkout, on a machine with one CUDA card, the
 CUDA toolkit and ninja; it builds the hand kernels itself into
@@ -391,7 +391,25 @@ any failure raises and exits non-zero:
    ``--device``, at full size: its tokens on the card; (d) the model's
    parameter count at the 448-row table equal to 239,562,240, the
    reference's leaf count;
-21. the ``kernels`` line (with ``launches_by_path["shard"]``, phase 14's
+21. the allreduce train step (``repro_torch.train.steps.
+   make_train_step``: ``forward_train``, the loss, AdamW) at qwen2-0.5b's
+   full published size (24 layers, d_model 896, 14 heads over 2 KV heads
+   of 64, d_ff 4864, vocab 151936, tied head, QKV bias), fp32 weights
+   from ``make_train_state`` with a seeded generator, bf16 compute, the
+   config's ``remat``: (a) train_4k's 4096 tokens at batch 8 (the
+   reference's 256 cut to 8) in 4 microbatches, on one fixed batch of
+   next-token targets, 1 warm-up and 3 timed steps: every step's loss
+   (finite, and the fourth below the first) and grad_norm, the median
+   step ms (CUDA events), tokens/s, 6 N tokens / time as model TFLOP/s
+   with N the parameter count printed, the peak; one more step traced
+   (busy share, launches); no hand kernel launched (its
+   ``launches_by_path["lm_train"]`` is zeros); (b) fp32, full width cut
+   to 2 layers, batch 1 x 256 tokens: the loss, every gradient leaf,
+   ``grad_norm`` and the parameters after one step on the card against
+   the same on the CPU (the bounds at TRAIN_RTOL); (c) (a)'s first step
+   again from the same seed with ``chunked_ce``: its loss within
+   TRAIN_CHUNKED_RTOL of (a)'s, its peak beside (a)'s;
+22. the ``kernels`` line (with ``launches_by_path["shard"]``, phase 14's
    launches counted in the ranks), the card line, and the result line.
 
 ``--only`` runs one part and prints no result line, to compare two
@@ -403,7 +421,7 @@ its plain version and timed, ``figures`` phase 7, ``sessions`` phase 8,
 ``fabric`` phase 9, ``store`` phase 10, ``serve`` phase 11, ``obs``
 phase 12, ``dist`` phase 13, ``shard`` phase 14, ``lm`` phase 15,
 ``moe`` phase 16, ``mla`` phase 17, ``ssm`` phase 18, ``hybrid`` phase
-19, ``encdec`` phase 20.
+19, ``encdec`` phase 20, ``train`` phase 21.
 
 Without a CUDA device, or without the rest of the repository beside it,
 it exits non-zero and prints no result.
@@ -669,6 +687,29 @@ ENCDEC_ARCH = "whisper-small"
 ENCDEC_ROWS = 448
 ENCDEC_SERVE = dict(batch=4, prompt=224, gen=224)
 ENCDEC_PARAMS = 239_562_240
+# phase 21: the allreduce train step at qwen2-0.5b's full published size,
+# nothing cut but the batch: train_4k's 4096 tokens a row at a batch of 8
+# (the reference's global batch of 256 cut to 8, which one card steps
+# through in seconds) in 4 microbatches, the config's remat, bf16
+# compute.  (a) 1 warm-up and 3 timed steps on one fixed batch; (b) fp32
+# parity at full width cut to 2 layers, batch 1 x 256 tokens, one step on
+# the card against the same step on the CPU; (c) (a)'s first step with
+# the chunked loss, its loss within TRAIN_CHUNKED_RTOL of (a)'s
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN = dict(batch=8, seq=4096, microbatch=4, warmup=1, steps=3)
+TRAIN_PARITY = dict(layers=2, batch=1, seq=256)
+TRAIN_LR = 3e-4
+# card against CPU, fp32: the loss and grad_norm within rtol 1e-5, each
+# gradient leaf within 1e-4 of its largest magnitude (the bounds of
+# tests/test_torch_train.py), the parameters after the step within 2 lr
+# (Adam's first step divides each gradient by its own magnitude: an
+# element whose gradient lies within the two devices' noise steps by
+# +lr or -lr in either) and at most 1e-3 of them past lr / 100
+TRAIN_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_FAR_FRACTION = 1e-3
+# (c): one bf16 rounding of the loss (2 ** -8 of it)
+TRAIN_CHUNKED_RTOL = 2.0 ** -8
 
 RECORDS = []
 
@@ -5010,6 +5051,232 @@ def lm_encdec(by_path: dict) -> None:
     emit({"phase": "lm_encdec", "seconds": time.perf_counter() - phase_t0})
 
 
+def _trace_device(label: str, fn) -> dict:
+    """Trace one call of ``fn`` with torch.profiler's CUDA activity alone
+    and sum its device records from the raw events: the busy share and
+    the launches, as ``_profile`` prints them, and each hand kernel's
+    launches (``_profile``'s ``key_averages`` over the quarter of a
+    million launches of a train step took 233 s)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    busy_ns, launches = 0, 0
+    per_kernel = {k: 0 for k in PROFILED}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA or \
+                ev.is_user_annotation():
+            continue
+        busy_ns += ev.duration_ns()
+        launches += 1
+        for k, frag in PROFILED.items():
+            if frag in ev.name():
+                per_kernel[k] += 1
+    emit({"profile": label, "traced_wall_s": wall,
+          "summary_s": time.perf_counter() - t0,
+          "device_busy_s": busy_ns / 1e9,
+          "device_busy_share": busy_ns / 1e9 / wall,
+          "device_launches": launches, "our_kernels": per_kernel})
+    return per_kernel
+
+
+def _train_batch(vocab: int, B: int, S: int, gen) -> dict:
+    """B rows of S tokens and their next-token targets, cut from one
+    seeded stream of S + 1 (the reference's ``token_batch`` layout), on
+    the generator's device."""
+    stream = torch.randint(0, vocab, (B, S + 1), generator=gen,
+                           dtype=torch.int32, device=gen.device)
+    return {"tokens": stream[:, :-1], "targets": stream[:, 1:]}
+
+
+def _train_parity(cfg) -> dict:
+    """Phase 21 (b): one fp32 train step at full width cut to
+    TRAIN_PARITY's layers, on the card and on the CPU from the same
+    weights and batch: the loss and every gradient leaf (a forward and
+    backward before the step), then the step's loss, grad_norm and
+    parameters."""
+    import copy
+
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer
+    from repro_torch.train import steps
+
+    p = TRAIN_PARITY
+    cfg32 = cfg.replace(num_layers=p["layers"], compute_dtype="float32")
+    nets = {"cpu": model_lib.init_params(cfg32, 1, device="cpu")}
+    nets["cuda"] = copy.deepcopy(nets["cpu"]).to("cuda")
+    batch = _train_batch(cfg.vocab_size, p["batch"], p["seq"],
+                         torch.Generator().manual_seed(2))
+    batches = {"cpu": batch, "cuda": {k: v.to("cuda")
+                                      for k, v in batch.items()}}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        net = nets[dev]
+        _, loss = transformer.forward_train(net, batches[dev], cfg32)
+        loss.backward()
+        grads = {n: q.grad.detach().cpu()
+                 for n, q in transformer.named_leaves(net).items()}
+        net.zero_grad(set_to_none=True)
+        state = {"params": net, "opt": steps.make_optimizer(TRAIN_LR).init(
+            transformer.named_leaves(net))}
+        _, m = steps.make_train_step(cfg32, lr=TRAIN_LR)(state,
+                                                         batches[dev])
+        out[dev] = (float(loss.detach()), grads, float(m["loss"]),
+                    float(m["grad_norm"]))
+    (loss_c, g_c, sl_c, gn_c), (loss_g, g_g, sl_g, gn_g) = (
+        out["cpu"], out["cuda"])
+    grad_errs = {n: float((g_g[n] - g).abs().max()
+                          / max(float(g.abs().max()), 1e-30))
+                 for n, g in g_c.items()}
+    worst = max(grad_errs, key=grad_errs.get)
+    d = torch.cat([(a.detach().cpu() - b.detach()).abs().reshape(-1)
+                   for a, b in zip(nets["cuda"].parameters(),
+                                   nets["cpu"].parameters(), strict=True)])
+    rec = {"layers": p["layers"], "batch": p["batch"], "seq": p["seq"],
+           "loss": {"cuda": loss_g, "cpu": loss_c},
+           "step_loss": {"cuda": sl_g, "cpu": sl_c},
+           "grad_norm": {"cuda": gn_g, "cpu": gn_c},
+           "grad_leaves": len(grad_errs),
+           "grad_max_rel_err": grad_errs[worst], "grad_worst_leaf": worst,
+           "param_max_diff_lr": float(d.max()) / TRAIN_LR,
+           "param_frac_past_lr_100": float((d > TRAIN_LR / 100).double()
+                                           .mean()),
+           "tol": {"rtol": TRAIN_RTOL, "grad": TRAIN_GRAD_TOL,
+                   "param_lr": 2, "far_fraction": TRAIN_FAR_FRACTION}}
+    ok = (abs(loss_g - loss_c) <= TRAIN_RTOL * abs(loss_c)
+          and abs(sl_g - sl_c) <= TRAIN_RTOL * abs(sl_c)
+          and abs(gn_g - gn_c) <= TRAIN_RTOL * abs(gn_c)
+          and grad_errs[worst] <= TRAIN_GRAD_TOL
+          and rec["param_max_diff_lr"] <= 2
+          and rec["param_frac_past_lr_100"] <= TRAIN_FAR_FRACTION)
+    rec["ok"] = ok
+    if not ok:
+        emit({"lm_train": "parity/fp32", **rec})
+        raise AssertionError(f"lm_train: the fp32 step on the card is out "
+                             f"of bounds of the CPU's: {rec}")
+    return rec
+
+
+def lm_train(by_path: dict) -> None:
+    """Phase 21: qwen2-0.5b at full size through the allreduce train step
+    (bf16, remat, microbatches) on one fixed batch, then fp32 parity with
+    the CPU at 2 layers, then the chunked loss."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.train import steps
+
+    phase_t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    a = TRAIN
+    B, S, mb = a["batch"], a["seq"], a["microbatch"]
+    tokens = B * S
+
+    def fresh(c):
+        """The train state and the batch, drawn from seed 0 in order."""
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        state = steps.make_train_state(c, gen, lr=TRAIN_LR, device="cuda")
+        return state, _train_batch(c.vocab_size, B, S, gen)
+
+    def timed(step, state, batch):
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        state, m = step(state, batch)
+        ev1.record()
+        ev1.synchronize()
+        return state, m, ev0.elapsed_time(ev1)
+
+    # (a) the full-size step on one fixed batch
+    t0 = time.perf_counter()
+    state, batch = fresh(cfg)
+    torch.cuda.synchronize()
+    net = state["params"]
+    n_params = sum(q.numel() for q in net.parameters())
+    emit({"lm_train": "init", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "heads": cfg.num_heads,
+          "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+          "tied": cfg.tie_embeddings, "qkv_bias": cfg.qkv_bias,
+          "remat": cfg.remat, "compute_dtype": cfg.compute_dtype,
+          "params": n_params, "param_count_cfg": cfg.param_count(),
+          "init_s": time.perf_counter() - t0,
+          "state_gb": torch.cuda.memory_allocated() / 1e9})
+    if not cfg.remat:
+        raise AssertionError("lm_train: the config's remat is off")
+    step = steps.make_train_step(cfg, lr=TRAIN_LR, microbatch=mb)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, norms, ms = [], [], []
+    for _ in range(a["warmup"] + a["steps"]):
+        state, m, t = timed(step, state, batch)
+        ms.append(t)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    by_path["lm_train"] = launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = sorted(ms[a["warmup"]:])[a["steps"] // 2]
+    seen = _trace_device("lm_train step", lambda: step(state, batch))
+    traced = RECORDS[-1]
+    falls = losses[-1] < losses[0]
+    finite = all(np.isfinite(losses)) and all(np.isfinite(norms))
+    emit({"lm_train": "steps/bf16", "batch": B, "seq": S,
+          "microbatch": mb, "global_batch_reference": 256,
+          "tokens_per_step": tokens, "losses": losses, "grad_norms": norms,
+          "first_step_ms": ms[0], "step_ms": step_ms,
+          "step_ms_timed": ms[a["warmup"]:],
+          "tokens_per_s": tokens / (step_ms / 1e3),
+          "model_tflop_s": tflop_s(6 * n_params * tokens, step_ms),
+          "model_flops_per_step": 6 * n_params * tokens,
+          "params": n_params, "peak_gb": peak,
+          "device_busy_share": traced["device_busy_share"],
+          "device_launches": traced["device_launches"],
+          "device_busy_ms": traced["device_busy_s"] * 1e3,
+          "launches": launches, "loss_falls": falls})
+    if not finite or not falls:
+        raise AssertionError(f"lm_train: losses {losses}, grad norms "
+                             f"{norms}")
+    if any(launches.values()) or any(seen.values()):
+        raise AssertionError(f"lm_train launched hand kernels: {launches} "
+                             f"{seen}")
+    first_batch = batch["tokens"].clone()
+    # no empty_cache before (c): its step reuses the blocks (a)'s steps
+    # left in the allocator's cache
+    del state, net, step, batch, m
+
+    # (b) fp32 parity with the CPU at full width, 2 layers
+    t0 = time.perf_counter()
+    rec = _train_parity(cfg)
+    emit({"lm_train": "parity/fp32", **rec,
+          "seconds": time.perf_counter() - t0})
+
+    # (c) (a)'s first step with the chunked loss
+    cfgc = cfg.replace(chunked_ce=True)
+    state, batch = fresh(cfgc)
+    if not torch.equal(batch["tokens"], first_batch):
+        raise AssertionError("lm_train: (c) drew another batch than (a)")
+    torch.cuda.reset_peak_memory_stats()
+    stepc = steps.make_train_step(cfgc, lr=TRAIN_LR, microbatch=mb)
+    state, m, t = timed(stepc, state, batch)
+    loss_c = float(m["loss"])
+    gap = abs(loss_c - losses[0])
+    emit({"lm_train": "chunked_ce/bf16", "loss": loss_c,
+          "loss_unchunked": losses[0], "abs_diff": gap,
+          "rtol": TRAIN_CHUNKED_RTOL, "grad_norm": float(m["grad_norm"]),
+          "grad_norm_unchunked": norms[0], "first_step_ms": t,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "peak_gb_unchunked": peak})
+    if not gap <= TRAIN_CHUNKED_RTOL * abs(losses[0]):
+        raise AssertionError(f"lm_train: the chunked loss {loss_c} is "
+                             f"{gap} off the full loss {losses[0]}")
+    del state, batch, m, stepc
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_train", "seconds": time.perf_counter() - phase_t0})
+
+
 # ---------------------------------------------------------------------------
 # phase 2 (continued): the analysis gate on the card
 def analysis_gate(ext, dev) -> None:
@@ -5063,7 +5330,7 @@ def main() -> int:
                                        "sessions", "fabric", "store",
                                        "serve", "obs", "dist", "shard",
                                        "lm", "moe", "mla", "ssm",
-                                       "hybrid", "encdec"),
+                                       "hybrid", "encdec", "train"),
                     help="run only this part, and print no result line")
     args = ap.parse_args()
     script_t0 = time.perf_counter()
@@ -5104,6 +5371,8 @@ def main() -> int:
             lm_hybrid({})
         elif args.only == "encdec":
             lm_encdec({})
+        elif args.only == "train":
+            lm_train({})
         elif args.only in ("figures", "sessions", "fabric", "store",
                            "serve", "obs"):
             run = {"figures": figures, "sessions": sessions,
@@ -5147,6 +5416,7 @@ def main() -> int:
     lm_ssm(by_path)
     lm_hybrid(by_path)
     lm_encdec(by_path)
+    lm_train(by_path)
     if not all(traced.values()):
         raise AssertionError(f"the profiler saw none of some kernels: "
                              f"{traced}")

@@ -82,14 +82,17 @@ HOT_ROOTS = frozenset({
 })
 
 #: the port's own per-iteration roots, scoped by path (``_step``,
-#: ``timed`` and ``nbr_reduce`` are common names): a shard_map rank's
-#: neighbor sums, a sample rank's ADMM iteration, the rank backends'
-#: collectives, and the staging helper they run inside.
+#: ``timed``, ``nbr_reduce``, ``train_step`` and ``update`` are common
+#: names): a shard_map rank's neighbor sums, a sample rank's ADMM
+#: iteration, the rank backends' collectives, and the staging helper they
+#: run inside; the allreduce train step and the optimizers' update.
 PATH_ROOTS: Dict[str, frozenset] = {
     "core/dtsvm_dist.py": frozenset({"nbr_reduce"}),
     "dist/sample.py": frozenset({"_step"}),
     "dist/collectives.py": frozenset({"all_gather", "all_reduce",
                                       "timed"}),
+    "train/steps.py": frozenset({"train_step"}),
+    "optim/adamw.py": frozenset({"update"}),
 }
 
 
@@ -142,16 +145,18 @@ def _hot_calls(mod: SourceModule) -> Iterator[ast.Call]:
 # ----------------------------------------------------------------------
 
 
-#: the seed substrate's packages (ROADMAP queue 1, item 9): none is
-#: ported yet; once they are, the lint rules skip them, as the
-#: reference's do
-SUBSTRATE_PATHS = ("models/", "configs/", "optim/", "train/", "launch/")
+#: the seed substrate's packages (ROADMAP queue 1, item 9) the lint
+#: rules skip, as the reference's do: the models, configs and the
+#: serving launcher.  ``optim/`` and ``train/`` hold the train step, a
+#: per-iteration path, so the rules run there
+SUBSTRATE_PATHS = ("models/", "configs/", "launch/")
 
 #: where the hot-path rules run: the reference's scope plus ``dist/``,
-#: which holds the port's rank backends (their per-iteration roots are
+#: which holds the port's rank backends, and ``train/`` and ``optim/``,
+#: which hold the train step (their per-iteration roots are
 #: :data:`PATH_ROOTS`)
 HOT_PATHS = ("engine/", "net/", "core/", "kernels/", "api/", "serve/",
-             "obs/", "dist/")
+             "obs/", "dist/", "train/", "optim/")
 
 
 class Rule:

@@ -13,7 +13,9 @@ decoder's weights: the reference's parameter pytree (numpy leaves,
 ``layers`` stacked along a leading L axis, an MoE config's
 ``dense_layers`` a list, a hybrid config's ``shared_attn`` one layer's
 tree, an encoder-decoder's ``encoder.layers`` stacked too) to the port's
-``Transformer`` and back, each leaf bitwise.
+``Transformer`` and back, each leaf bitwise; ``lm_grads_to_numpy`` lays
+the gradients of a port model out in the same tree, to compare with
+``jax.grad``'s leaf by leaf.
 """
 from __future__ import annotations
 
@@ -55,35 +57,42 @@ def _put(node: dict, path, leaf) -> None:
     node[path[-1]] = leaf
 
 
-# the reference's stacked subtrees, by path: the layers each leaf of which
-# holds every layer's array along a leading axis
-_STACKED = (("layers",), ("encoder", "layers"))
-
-
-def _stack_of(parts):
-    """The stacked subtree a parameter name's ``parts`` lie in, or None."""
-    for stack in _STACKED:
-        if tuple(parts[:len(stack)]) == stack:
-            return stack
-    return None
+def _lists(node):
+    """Each dict keyed 0..n-1 (a list index of ``reference_path``) as a
+    list, recursively."""
+    if not isinstance(node, dict):
+        return node
+    if node and all(isinstance(k, int) for k in node):
+        return [_lists(node[i]) for i in range(len(node))]
+    return {k: _lists(v) for k, v in node.items()}
 
 
 def _leaf(params, name: str) -> np.ndarray:
-    """The reference tree's array for the port's parameter ``name``:
-    ``layers.<i>.<path>`` (and ``encoder.layers.<i>.<path>``) is row i of
-    a leaf stacked over L, and ``dense_layers.<i>.<path>`` a leaf of the
-    i-th entry of a list."""
-    parts = name.split(".")
-    row = None
-    stack = _stack_of(parts)
-    if stack:
-        n = len(stack)
-        row, parts = int(parts[n]), list(stack) + parts[n + 1:]
+    """The reference tree's array for the port's parameter ``name``
+    (``transformer.reference_path``)."""
+    path, row = transformer.reference_path(name)
     src = params
-    for key in parts:
-        src = src[int(key)] if isinstance(src, (list, tuple)) else src[key]
+    for key in path:
+        src = src[key]
     src = np.asarray(src)
     return src if row is None else src[row]
+
+
+def _tree(named) -> dict:
+    """The reference's tree of ``(parameter name, tensor)`` pairs in the
+    model's order: numpy leaves, the stacked ones stacked along L."""
+    tree: dict = {}
+    per_layer: dict = {}
+    for name, t in named:
+        path, row = transformer.reference_path(name)
+        leaf = t.detach().cpu().numpy()
+        if row is None:
+            _put(tree, path, leaf)
+        else:
+            per_layer.setdefault(path, []).append(leaf)
+    for path, leaves in per_layer.items():
+        _put(tree, path, np.stack(leaves))
+    return _lists(tree)
 
 
 def lm_params_to_torch(params, cfg, device=None) -> "transformer.Transformer":
@@ -120,22 +129,16 @@ def lm_params_to_numpy(model) -> dict:
     leaves, ``layers`` (and ``encoder.layers``) stacked along a leading L
     axis, ``dense_layers`` a list of per-layer trees, and every other
     subtree (a hybrid stack's ``shared_attn``) nested as it is."""
-    tree: dict = {}
-    per_layer: dict = {}
-    for name, t in model.named_parameters():
-        parts = name.split(".")
-        leaf = t.detach().cpu().numpy()
-        stack = _stack_of(parts)
-        if stack:
-            path = stack + tuple(parts[len(stack) + 1:])
-            per_layer.setdefault(path, []).append(leaf)
-        elif parts[0] == "dense_layers":
-            dense = tree.setdefault("dense_layers", [])
-            i = int(parts[1])
-            dense.extend({} for _ in range(i + 1 - len(dense)))
-            _put(dense[i], parts[2:], leaf)
-        else:
-            _put(tree, parts, leaf)
-    for path, leaves in per_layer.items():
-        _put(tree, path, np.stack(leaves))
-    return tree
+    return _tree(model.named_parameters())
+
+
+def lm_grads_to_numpy(model, grads=None) -> dict:
+    """The same tree of one tensor per parameter of ``model``:
+    ``grads[name]`` where a mapping by parameter name is given (the
+    gradients a train step takes, an optimizer state's ``mu`` or
+    ``nu``), else each parameter's ``.grad``; a parameter without one
+    gets zeros, as ``jax.grad`` gives an unused leaf."""
+    def grad(name, p):
+        g = p.grad if grads is None else grads.get(name)
+        return torch.zeros_like(p) if g is None else g
+    return _tree((n, grad(n, p)) for n, p in model.named_parameters())

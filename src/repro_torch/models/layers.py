@@ -8,8 +8,7 @@ every function casts a weight to the activations' dtype where it uses it,
 as the reference does.
 
 The reference's ``mesh_axis_sizes`` and ``shard_hint`` have no twin: one
-card has no mesh.  ``cross_entropy`` and ``chunked_cross_entropy`` come
-with the training slice (ROADMAP queue 1, item 9).
+card has no mesh.
 """
 from __future__ import annotations
 
@@ -18,6 +17,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -154,3 +154,46 @@ def lm_head(x: torch.Tensor, table: torch.Tensor, cap: float) -> torch.Tensor:
     embedding's transpose, or the untied head)."""
     logits = x @ table.to(x.dtype)
     return softcap(logits.float(), cap)
+
+
+def cross_entropy(logits: torch.Tensor,
+                  targets: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy; logits (B,S,V) fp32, targets (B,S) int."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
+
+
+def _chunk_ce_sum(xc: torch.Tensor, head: torch.Tensor, tc: torch.Tensor,
+                  cap: float) -> torch.Tensor:
+    logits = lm_head(xc, head, cap)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, tc[..., None].long())[..., 0]
+    return torch.sum(logz - gold)
+
+
+def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
+                          targets: torch.Tensor, cap: float,
+                          seq_chunk: int = 256) -> torch.Tensor:
+    """CE without materializing the full (B,S,V) fp32 logits: a loop over
+    sequence chunks, each chunk's logits recomputed in the backward
+    (non-reentrant checkpoint, the reference's ``jax.checkpoint``).  The
+    chunk halves until it divides S; at 1 or less the full loss is taken,
+    as the reference's does."""
+    B, S, d = x.shape
+    C = seq_chunk
+    while S % C != 0:
+        C //= 2
+        if C <= 1:
+            return cross_entropy(lm_head(x, head, cap), targets)
+    # the head cast once, not per chunk: the same bits the reference's
+    # per-chunk cast gives
+    head = head.to(x.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S, C):
+        total = total + checkpoint(_chunk_ce_sum, x[:, i:i + C], head,
+                                   targets[:, i:i + C], cap,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+    return total / (B * S)

@@ -11,8 +11,9 @@ dropless factor, ``moe_capacity_factor = E / K`` or more).
 
 Kept exactly as the reference has them, since each decides which
 assignments survive: ``_NUM_GROUPS`` and its halving loop, the capacity
-by Python's ``round`` (half to even), the router product in the compute
-dtype then the softmax in fp32, top-k with ties broken by the lower index
+by Python's ``round`` (half to even), the router product of the
+compute-dtype operands kept in fp32 (``route``) then the softmax in
+fp32, top-k with ties broken by the lower index
 (a stable descending sort: ``torch.topk`` does not promise that order),
 and the exclusive cumsum over the token-major, k-minor flattening.
 
@@ -67,8 +68,11 @@ def moe_init(p, cfg: ModelConfig, rng=None):
 def route(p, xt: torch.Tensor, cfg: ModelConfig):
     """xt: (T, d) -> (probs (T, E) fp32, gate_w (T, K) renormalised,
     gate_i (T, K) int64).  Ties go to the lower expert index, as
-    ``jax.lax.top_k`` breaks them."""
-    logits = (xt @ p["router"].to(xt.dtype)).float()
+    ``jax.lax.top_k`` breaks them.  The logits are the product of the
+    compute-dtype operands summed in fp32 and never rounded: XLA folds
+    the reference's ``.astype(float32)`` into the dot, so in bf16 its
+    logits are not the rounded bf16 product's."""
+    logits = xt.float() @ p["router"].to(xt.dtype).float()
     probs = torch.softmax(logits, dim=-1)
     gate_w, gate_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     K = cfg.moe_top_k

@@ -29,9 +29,11 @@ either.
 
 Public API (mirroring the reference's):
     init_params(cfg, rng, device, max_seq)         -> Transformer
+    forward_train(params, batch, cfg, long_mode)    -> (logits, loss)
     prefill(params, batch, cfg, long_mode, ...)     -> (logits, cache)
     decode(params, batch, cache, idx, cfg, ...)     -> (logits, cache)
     cache_spec / cache_init(cfg, batch, ...)        -> cache (stacked)
+    named_leaves(model)                             -> {name: parameter}
 
 Caches are tensors stacked over the ``layers``, as the reference's scan
 stacks them: ``k``/``v`` (L, B, Sc, K, hd), or under MLA the latent
@@ -45,13 +47,15 @@ an encoder-decoder layer's ``k``/``v``/``pos`` and the cross block's
 read, never written, by decode; and ``cache["dense"]``, a list of one
 per-layer dict of the same names per dense leading layer; ``decode``
 writes the new key (or latent, or state and window) of every layer in
-place.  Prefill and
-decode discard the MoE layers' aux loss, as the reference's serving path
-does.  The reference's scan over layers, ``lax.cond`` on the shared
-block's flag (here a branch on the layer index),
-``constrain_activations`` and ``remat`` have no eager twin;
-``forward_train`` comes with the training slice (ROADMAP queue 1, item
-9).
+place.  Prefill and decode discard the MoE layers' aux loss, as the
+reference's serving path does; ``forward_train`` adds every MoE layer's
+to the loss.  ``forward_train`` runs the same blocks without a cache and
+under autograd; ``cfg.remat`` (the reference's ``jax.checkpoint`` of
+its scan's body) checkpoints each stacked layer, the shared block it
+runs included, with a non-reentrant ``torch.utils.checkpoint``.  The
+reference's scan over layers, ``lax.cond`` on the shared block's flag
+(here a branch on the layer index) and ``constrain_activations`` have no
+eager twin.
 
 Two reference behaviours the port refuses with ``ValueError``
 (ROADMAP queue 3): prefill over ``frames`` of another length than
@@ -68,6 +72,7 @@ from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch.configs.base import (
@@ -80,6 +85,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
+    chunked_cross_entropy,
+    cross_entropy,
     dense_init,
     embed_init,
     embed_tokens,
@@ -241,6 +248,35 @@ class Transformer(_Indexed, nn.Module):
             # whisper: learned absolute positions
             self.pos_dec = _empty((max(max_seq, 1), d), device)
             self.pos_enc = _empty((cfg.encoder_seq, d), device)
+
+
+#: the reference's subtrees whose leaves stack every layer's array along a
+#: leading L axis
+STACKED = (("layers",), ("encoder", "layers"))
+
+
+def reference_path(name: str):
+    """Where the port's parameter ``name`` sits in the reference's tree:
+    its path (a list index in it an int) and the row of a stacked leaf,
+    or None.  ``layers.<i>.<rest>`` (and ``encoder.layers.<i>.<rest>``) is
+    row i of the stacked leaf ``layers.<rest>``; ``dense_layers.<i>`` is
+    entry i of a list."""
+    parts = name.split(".")
+    for stack in STACKED:
+        n = len(stack)
+        if tuple(parts[:n]) == stack:
+            return stack + tuple(parts[n + 1:]), int(parts[n])
+    return tuple(int(p) if p.isdigit() else p for p in parts), None
+
+
+def named_leaves(model) -> Dict[str, nn.Parameter]:
+    """The model's parameters by name in the order of the reference's
+    leaves (``jax.tree.leaves``: dict keys sorted, list entries in order),
+    a stacked leaf's rows in layer order."""
+    def key(item):
+        path, row = reference_path(item[0])
+        return path, -1 if row is None else row
+    return dict(sorted(model.named_parameters(), key=key))
 
 
 def _num_dense(cfg: ModelConfig) -> int:
@@ -457,6 +493,95 @@ cache_init = functools.partial(cache_build, make="init")
 
 
 # ===========================================================================
+# training: the full-sequence forward and the loss
+# ===========================================================================
+def _attn_block_train(lp, x, *, positions, window: int, cfg: ModelConfig,
+                      enc_out=None):
+    """A layer's attention (and cross attention) and its MLP or MoE half
+    over the whole sequence, without a cache: (x, aux)."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if cfg.use_mla:
+        a, _ = attn.mla_apply(lp["attn"], h, positions=positions, cfg=cfg)
+    else:
+        a = attn.gqa_apply(lp["attn"], h, positions=positions, window=window,
+                           cfg=cfg, use_rope=not cfg.is_encoder_decoder)
+    x = x + a
+    if enc_out is not None:
+        k, v = attn.project_kv(lp["cross"], enc_out, cfg.num_kv_heads,
+                               cfg.head_dim)
+        x = _cross_block(lp, x, k, v, positions, cfg, cfg.attn_softcap)
+    return _mlp_aux(lp, x, cfg)
+
+
+def _layer_train(lp, x, shared, *, positions, window: int, shared_w: int,
+                 cfg: ModelConfig, enc_out=None):
+    """One stacked layer, then the shared block where ``shared`` is given
+    (the layer is flagged): (x, aux), the reference's scan body."""
+    if "mamba" in lp:
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        x, aux = x + ssm_lib.mamba_apply(lp["mamba"], h, cfg), 0.0
+    else:
+        x, aux = _attn_block_train(lp, x, positions=positions,
+                                   window=window, cfg=cfg, enc_out=enc_out)
+    if shared is not None:
+        x, a2 = _attn_block_train(shared, x, positions=positions,
+                                  window=shared_w, cfg=cfg)
+        aux = aux + a2
+    return x, aux
+
+
+def _trunk(params, x, cfg: ModelConfig, long_mode: bool, enc_out=None):
+    """Every layer over the hidden states x (the whole sequence): (x, the
+    MoE layers' summed aux loss).  With ``cfg.remat`` each stacked layer
+    is checkpointed; the dense leading layers are not, as in the
+    reference, whose ``jax.checkpoint`` wraps the scan's body only."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    aux = 0.0
+    # the dense leading layers attend globally, as in prefill
+    for lp in params["dense_layers"] if "dense_layers" in params else ():
+        x, a = _attn_block_train(lp, x, positions=positions, window=0,
+                                 cfg=cfg, enc_out=enc_out)
+        aux = aux + a
+    windows = layer_windows(cfg, long_mode)[_num_dense(cfg):]
+    shared, flagged, shared_w = _shared_block(params, cfg, long_mode)
+    layer = _layer_train
+    if cfg.remat:
+        # the layers draw no random numbers: no RNG state to replay
+        layer = functools.partial(checkpoint, _layer_train,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+    for i, lp in enumerate(params["layers"]):
+        x, a = layer(lp, x, shared if i in flagged else None,
+                     positions=positions, window=windows[i],
+                     shared_w=shared_w, cfg=cfg, enc_out=enc_out)
+        aux = aux + a
+    return x, aux
+
+
+def forward_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                  long_mode: bool = False):
+    """Full forward + loss.  batch: tokens (B,S), targets (B,S), optional
+    vision_embeds / frames.  Returns (logits (B, S, V) fp32, or with
+    ``cfg.chunked_ce`` the last position's (B, 1, V) only, and the mean
+    token cross entropy plus the MoE layers' aux loss)."""
+    _require_supported(cfg)
+    dtype = torch_dtype(cfg.compute_dtype)
+    x, n_prefix, enc_out = _embed_inputs(params, batch, cfg, dtype)
+    x, aux = _trunk(params, x, cfg, long_mode, enc_out=enc_out)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if n_prefix:
+        x = x[:, n_prefix:]
+    head = _head(params)
+    if cfg.chunked_ce:
+        # never materialize the full (B,S,V) fp32 logits
+        loss = chunked_cross_entropy(x, head, batch["targets"],
+                                     cfg.final_softcap) + aux
+        return lm_head(x[:, -1:], head, cfg.final_softcap), loss
+    logits = lm_head(x, head, cfg.final_softcap)
+    return logits, cross_entropy(logits, batch["targets"]) + aux
+
+
+# ===========================================================================
 # prefill
 # ===========================================================================
 def _attn_block_prefill(lp, x, *, positions, window: int, cfg: ModelConfig,
@@ -501,15 +626,20 @@ def _mamba_block(lp, x, cfg: ModelConfig, cache=None):
     return x + out, cache
 
 
-def _mlp_block(lp, x, cfg: ModelConfig):
-    """The pre-norm MLP or MoE half of a layer; the MoE aux loss is
-    discarded, as the reference's serving path does."""
+def _mlp_aux(lp, x, cfg: ModelConfig):
+    """The pre-norm MLP or MoE half of a layer and its residual, with the
+    MoE layer's aux loss (0.0 for a dense MLP)."""
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if "moe" in lp:
-        m, _ = moe_lib.moe_apply(lp["moe"], h, cfg)
-    else:
-        m = mlp_apply(lp["mlp"], h, cfg.act, cfg.gated_mlp)
-    return x + m
+        m, aux = moe_lib.moe_apply(lp["moe"], h, cfg)
+        return x + m, aux
+    return x + mlp_apply(lp["mlp"], h, cfg.act, cfg.gated_mlp), 0.0
+
+
+def _mlp_block(lp, x, cfg: ModelConfig):
+    """``_mlp_aux`` with the aux loss discarded, as the reference's serving
+    path does."""
+    return _mlp_aux(lp, x, cfg)[0]
 
 
 @torch.no_grad()

@@ -1,1 +1,2 @@
-"""Step functions (twin of ``repro/train/``): the serving half so far."""
+"""Step functions (twin of ``repro/train/``): the allreduce train step,
+prefill and decode."""

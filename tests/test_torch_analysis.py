@@ -229,6 +229,34 @@ def test_rule_path_scoping():
     assert not tel.applies("engine/plan.py")          # the step MAY collect
 
 
+@pytest.mark.parametrize("rel,src", [
+    ("train/steps.py",
+     "def make_train_step():\n"
+     "    def train_step(state, batch):\n"
+     "        return float(batch['loss'])\n"
+     "    return train_step\n"),
+    ("optim/adamw.py",
+     "def adamw():\n"
+     "    def update(grads, state, params):\n"
+     "        return grads.item()\n"
+     "    return update\n"),
+])
+def test_the_train_step_and_the_update_are_hot_roots(tmp_path, rel, src):
+    """A host sync inside the train step or an optimizer's update is a
+    finding (``PATH_ROOTS``): both run once per training iteration.  The
+    same code elsewhere in the package is not a root."""
+    path = tmp_path / "repro_torch" / rel
+    path.parent.mkdir(parents=True)
+    path.write_text(src)
+    found = [f for f in lint_paths([str(path)])
+             if f.rule == "host-sync-in-hot-path"]
+    assert [f.line for f in found] == [3]
+    other = tmp_path / "repro_torch" / "launch" / "train.py"
+    other.parent.mkdir(parents=True)
+    other.write_text(src)
+    assert lint_paths([str(other)]) == []
+
+
 def test_src_tree_has_no_unsuppressed_findings():
     """The acceptance gate: the linter runs clean over src/repro_torch,
     every suppression carries an attested reason, and the deliberate

@@ -143,8 +143,14 @@ def test_decode_after_a_long_prompt_equals_prefill(arch):
 def test_make_step_kinds():
     cfg = configs.get_reduced_config("gemma2-2b")
     net = model.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        steps.make_step(cfg, SHAPES["train_4k"])
+    # train_4k's kind gives the allreduce train step; it takes a step
+    train = steps.make_step(cfg, SHAPES["train_4k"])
+    state = steps.make_train_state(cfg, 0, device="cpu")
+    tb = model.make_inputs(cfg, InputShape("t", 16, 2, "train"), 0,
+                           device="cpu")
+    state, metrics = train(state, tb)
+    assert int(state["opt"].step) == 1
+    assert bool(torch.isfinite(metrics["loss"]))
     pre = steps.make_step(cfg, InputShape("p", 16, 2, "prefill"))
     batch = model.make_inputs(cfg, InputShape("p", 16, 2, "prefill"), 0,
                               device="cpu")

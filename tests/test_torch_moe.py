@@ -206,6 +206,31 @@ def test_dispatch_keeps_the_first_assignments_of_each_expert():
         assert torch.equal(buf[g], want)
 
 
+@pytest.mark.parametrize("arch", [PHI, DSV2])
+def test_bf16_router_logits_are_not_rounded(arch):
+    """In bf16 the router's logits are the fp32 sum of the bf16 operands'
+    products, never rounded to bf16: XLA folds the reference's
+    ``.astype(float32)`` into the dot.  The port's probabilities equal
+    the compiled reference's within fp32 summation order (1e-6); logits
+    rounded to bf16 first would sit ~1e-3 away, enough to move a
+    near-tied pick."""
+    jcfg, cfg = _cfgs(arch, "bfloat16")
+    p = _moe_params(arch)
+    B, S = TOKENS[64]
+    x = np.random.default_rng(7).normal(
+        size=(B, S, cfg.d_model)).astype(np.float32)
+    jx, tx = _pair(x, "bfloat16")
+    tp = _as(p, lambda a: torch.from_numpy(np.array(a)))
+    _, G, cap, probs, *_ = _port_routing(tp, tx, cfg, 8.0)
+    jprobs = np.asarray(_jrouting(_as(p, jnp.asarray),
+                                  jx.reshape(B * S, -1), jcfg, G, cap)[0])
+    np.testing.assert_allclose(probs.numpy(), jprobs, rtol=0, atol=1e-6)
+    rounded = torch.softmax(
+        (tx.reshape(B * S, -1) @ tp["router"].to(torch.bfloat16)).float(),
+        dim=-1)
+    assert np.abs(rounded.numpy() - jprobs).max() > 1e-4
+
+
 def test_top_k_breaks_ties_by_the_lower_index():
     """Exact ties among the router's probabilities go to the lower expert
     index, as ``jax.lax.top_k`` breaks them (``[0.1, 0.3, 0.3, 0.3, 0.01]``
