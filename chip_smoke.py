@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--out FILE] [--only large_fit|multi_mid|figures|
                                                sessions|fabric|store|serve|
                                                obs|dist|shard|lm|moe|mla|
-                                               ssm|hybrid|encdec|train]
+                                               ssm|hybrid|encdec|train|
+                                               consensus]
 
 Runs from the root of a checkout, on a machine with one CUDA card, the
 CUDA toolkit and ninja; it builds the hand kernels itself into
@@ -67,9 +68,10 @@ any failure raises and exits non-zero:
    node's coupling off rebuilds 2 of 4 K slices), its peak device memory
    printed and the rebuilt slices ``torch.equal`` to a fresh build;
 6. a torch.profiler trace of each quickstart engine and of one budgeted
-   run, at PROFILE_ITERS of the quickstart's 60 ADMM iterations (the
-   trace's summary costs ~0.5 s per traced ADMM iteration of fista or
-   pg): device busy share and kernel launches;
+   run, at PROFILE_ITERS of the quickstart's 60 ADMM iterations: device
+   busy share and kernel launches (a trace without ``record_function``
+   blocks records the CUDA activity alone and sums its raw events, here
+   and in every later phase);
 7. the paper's figures through ``repro_torch.figures``: the five golden
    regimes of ``tests/golden/fig{2..6}.json`` (within the fixtures'
    ATOL = 0.015), then each figure once at its paper regime (the widths
@@ -409,7 +411,33 @@ any failure raises and exits non-zero:
    the same on the CPU (the bounds at TRAIN_RTOL); (c) (a)'s first step
    again from the same seed with ``chunked_ce``: its loss within
    TRAIN_CHUNKED_RTOL of (a)'s, its peak beside (a)'s;
-22. the ``kernels`` line (with ``launches_by_path["shard"]``, phase 14's
+22. the ADMM-consensus trainer (``repro_torch.train.steps.
+   make_consensus_train_step`` over ``repro_torch.core.consensus``: R
+   replicas on the card as a leading axis of every state leaf, each
+   replica's forward and backward on its rows of the batch, its clip,
+   the ring exchange by two rolls of the replica axis, the dual, AdamW)
+   at qwen2-0.5b's full published size, fp32 weights from
+   ``make_consensus_train_state`` with a seeded generator, bf16 compute,
+   remat: (a) R = 4, eta 0.05, every step, the chunked loss (CONS), 8 x
+   4096 tokens (2 rows a replica), the replicas desynchronized by a
+   seeded (1 + 0.05 N(0, 1))
+   factor, 1 warm-up and 3 timed steps: every step's loss (finite, the
+   fourth below the first), replica 0's grad_norm and gap (the step's,
+   which must equal the per-replica gaps' first) and the gaps' max over
+   the replicas, the median step ms (CUDA events), tokens/s, model
+   TFLOP/s (6 N tokens / time, N one replica's parameters), the state's
+   and the peak GB; the round (``consensus_exchange``, inside its
+   ``consensus_round`` profiler range) timed alone on the live stacks
+   with CUDA events beside its bytes' bound; no hand kernel launched
+   (``launches_by_path["lm_consensus"]`` is zeros); (b) fp32, full width
+   cut to 2 layers, R = 2, batch 2 x 256: one step on the card and the
+   CPU from the same state, the loss, grad_norm and gap within
+   TRAIN_RTOL, the dual and both moments per leaf within
+   TRAIN_GRAD_TOL, the parameters in lr units; (c) tests/test_dist.py's
+   regime on reduced qwen2: 10 steps at eta 0.1, lr 3e-3 (the loss and
+   replica 0's gap fall), then every=4 for 3 steps (``step == 3``);
+   every phase prints its seconds;
+23. the ``kernels`` line (with ``launches_by_path["shard"]``, phase 14's
    launches counted in the ranks), the card line, and the result line.
 
 ``--only`` runs one part and prints no result line, to compare two
@@ -421,7 +449,7 @@ its plain version and timed, ``figures`` phase 7, ``sessions`` phase 8,
 ``fabric`` phase 9, ``store`` phase 10, ``serve`` phase 11, ``obs``
 phase 12, ``dist`` phase 13, ``shard`` phase 14, ``lm`` phase 15,
 ``moe`` phase 16, ``mla`` phase 17, ``ssm`` phase 18, ``hybrid`` phase
-19, ``encdec`` phase 20, ``train`` phase 21.
+19, ``encdec`` phase 20, ``train`` phase 21, ``consensus`` phase 22.
 
 Without a CUDA device, or without the rest of the repository beside it,
 it exits non-zero and prints no result.
@@ -710,6 +738,29 @@ TRAIN_GRAD_TOL = 1e-4
 TRAIN_FAR_FRACTION = 1e-3
 # (c): one bf16 rounding of the loss (2 ** -8 of it)
 TRAIN_CHUNKED_RTOL = 2.0 ** -8
+# phase 22: the ADMM-consensus trainer at qwen2-0.5b's full published
+# size, R = 4 replicas on the card (the reference's data mesh axis as a
+# leading replica axis), bf16 compute, the config's remat.  (a) one fixed
+# batch of 8 x 4096 tokens, 2 rows a replica (phase 21's microbatch), the
+# replicas desynchronized by a seeded (1 + 0.05 N(0, 1)) factor (the
+# reference's tests/test_dist.py:68-72), 1 warm-up and 3 timed steps;
+# (b) fp32 parity at full width cut to 2 layers, R = 2, batch 2 x 256, one
+# step on the card against the same step on the CPU from the same state
+# (phase 21's bounds; the dual and the moments, gradient-derived, to the
+# gradients'); (c) tests/test_dist.py:48-113's regime on reduced qwen2
+# (its bf16 compute): R = 4, eta 0.1, lr 3e-3, 8 x 64 tokens, 10 steps
+# (the loss and replica 0's gap fall), then every=4 for 3 steps at lr
+# 1e-3 on 4 x 32 (``step == 3``)
+# (a) runs with the chunked loss: unchunked it peaks at 65.2 GB allocated
+# alone, and inside the whole script the allocator's cache (17.4 GiB
+# reserved but free) left no room for the logits' 4.64 GiB gradient
+CONS = dict(replicas=4, batch=8, seq=4096, warmup=1, steps=3, eta=0.05,
+            every=1, chunked_ce=True)
+CONS_PARITY = dict(layers=2, replicas=2, batch=2, seq=256, eta=0.05)
+CONS_REGIME = dict(replicas=4, eta=0.1, lr=3e-3, batch=8, seq=64, steps=10,
+                   every=4, every_lr=1e-3, every_batch=4, every_seq=32,
+                   every_steps=3)
+CONS_ROUND_REPS = 3
 
 RECORDS = []
 
@@ -1420,13 +1471,55 @@ PROFILED = {"weighted_gram": "gram_kernel",
             "qp_pg_step": "qp_step_kernel", "qp_pg_multi": "qp_multi_"}
 
 
+def _trace_device(label: str, fn) -> dict:
+    """Trace one call of ``fn`` with torch.profiler's CUDA activity alone
+    and sum its device records from the raw events: the busy share, the
+    launches, the five kernels of most device time and each hand
+    kernel's launches.  ``key_averages`` over the CPU and CUDA activity
+    took 233 s for the quarter of a million launches of a train step and
+    up to 31 s for a fista sweep; the raw events take seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    by_name = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA or \
+                ev.is_user_annotation():
+            continue
+        ns, n = by_name.get(ev.name(), (0, 0))
+        by_name[ev.name()] = (ns + ev.duration_ns(), n + 1)
+    per_kernel = {k: sum(n for name, (_, n) in by_name.items()
+                         if frag in name) for k, frag in PROFILED.items()}
+    top = sorted(((ns, name[:80], n) for name, (ns, n) in by_name.items()),
+                 reverse=True)
+    busy_ns = sum(ns for ns, _ in by_name.values())
+    emit({"profile": label, "traced_wall_s": wall,
+          "summary_s": time.perf_counter() - t0,
+          "device_busy_s": busy_ns / 1e9,
+          "device_busy_share": busy_ns / 1e9 / wall,
+          "device_launches": sum(n for _, n in by_name.values()),
+          "our_kernels": per_kernel,
+          "top": [{"name": name, "calls": n, "device_ms": ns / 1e6}
+                  for ns, name, n in top[:5]]})
+    return per_kernel
+
+
 def _profile(label: str, fn, blocks=()) -> dict:
     """Trace one call of ``fn`` with torch.profiler: print its device busy
     share and launches, and where ``blocks`` names ``record_function``
     ranges that ``fn`` opens, the device ms of the kernels launched inside
-    each; return the launches of each hand kernel."""
+    each; return the launches of each hand kernel.  Without ``blocks``
+    the CUDA activity alone is traced (:func:`_trace_device`)."""
     from torch.profiler import ProfilerActivity, profile
 
+    if not blocks:
+        return _trace_device(label, fn)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -5051,40 +5144,6 @@ def lm_encdec(by_path: dict) -> None:
     emit({"phase": "lm_encdec", "seconds": time.perf_counter() - phase_t0})
 
 
-def _trace_device(label: str, fn) -> dict:
-    """Trace one call of ``fn`` with torch.profiler's CUDA activity alone
-    and sum its device records from the raw events: the busy share and
-    the launches, as ``_profile`` prints them, and each hand kernel's
-    launches (``_profile``'s ``key_averages`` over the quarter of a
-    million launches of a train step took 233 s)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    busy_ns, launches = 0, 0
-    per_kernel = {k: 0 for k in PROFILED}
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() != torch.autograd.DeviceType.CUDA or \
-                ev.is_user_annotation():
-            continue
-        busy_ns += ev.duration_ns()
-        launches += 1
-        for k, frag in PROFILED.items():
-            if frag in ev.name():
-                per_kernel[k] += 1
-    emit({"profile": label, "traced_wall_s": wall,
-          "summary_s": time.perf_counter() - t0,
-          "device_busy_s": busy_ns / 1e9,
-          "device_busy_share": busy_ns / 1e9 / wall,
-          "device_launches": launches, "our_kernels": per_kernel})
-    return per_kernel
-
-
 def _train_batch(vocab: int, B: int, S: int, gen) -> dict:
     """B rows of S tokens and their next-token targets, cut from one
     seeded stream of S + 1 (the reference's ``token_batch`` layout), on
@@ -5277,6 +5336,254 @@ def lm_train(by_path: dict) -> None:
     emit({"phase": "lm_train", "seconds": time.perf_counter() - phase_t0})
 
 
+def _desync(state, gen) -> None:
+    """Scale every replica's parameters by (1 + 0.05 N(0, 1)), drawn per
+    element from ``gen`` in leaf order (tests/test_dist.py:68-72)."""
+    with torch.no_grad():
+        for p in state.params.values():
+            p.mul_(torch.randn(p.shape, generator=gen, device=p.device)
+                   .mul_(0.05).add_(1.0))
+
+
+def _cons_parity(cfg) -> dict:
+    """Phase 22 (b): one fp32 consensus step at full width cut to
+    CONS_PARITY's layers on the card and on the CPU from the same stacked
+    state and batch: the loss, grad_norm and gap, the dual, both moments
+    (mu is (1 - b1) x the augmented gradient after one step) per leaf and
+    the parameters."""
+    from repro_torch.core.consensus import ConsensusConfig
+    from repro_torch.train import steps
+
+    p = CONS_PARITY
+    R = p["replicas"]
+    cfg32 = cfg.replace(num_layers=p["layers"], compute_dtype="float32")
+    # drawn on the card and copied to the host: the CPU's share of the
+    # phase is its step alone
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    card = steps.make_consensus_train_state(cfg32, gen, R, lr=TRAIN_LR,
+                                            device="cuda")
+    _desync(card, gen)
+    move = lambda m: {n: t.cpu() for n, t in m.items()}
+    cpu = card._replace(params=move(card.params), dual=move(card.dual),
+                        opt=card.opt._replace(step=card.opt.step.cpu(),
+                                              mu=move(card.opt.mu),
+                                              nu=move(card.opt.nu)),
+                        step=card.step.clone())
+    batch = _train_batch(cfg.vocab_size, p["batch"], p["seq"], gen)
+    step = steps.make_consensus_train_step(
+        cfg32, R, ConsensusConfig(eta=p["eta"]), lr=TRAIN_LR)
+    out = {}
+    for dev, st in (("cuda", card), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        st, m = step(st, {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = (st, {k: float(v) for k, v in m.items()},
+                    time.perf_counter() - t0)
+    (sg, mg, sec_g), (sc, mc, sec_c) = out["cuda"], out["cpu"]
+
+    def leaf_err(a, b):
+        # the CPU's leaves copied to the card, compared there
+        errs = {}
+        for n, t in b.items():
+            t = t.to(a[n].device)
+            errs[n] = float((a[n] - t).abs().max()
+                            / max(float(t.abs().max()), 1e-30))
+        worst = max(errs, key=errs.get)
+        return errs[worst], worst
+    d = torch.cat([(sg.params[n] - t.to(sg.params[n].device)).abs()
+                   .reshape(-1) for n, t in sc.params.items()])
+    rec = {"layers": p["layers"], "replicas": R, "batch": p["batch"],
+           "seq": p["seq"], "eta": p["eta"],
+           "metrics": {"cuda": mg, "cpu": mc},
+           "step_s": {"cuda": sec_g, "cpu": sec_c},
+           "param_max_diff_lr": float(d.max()) / TRAIN_LR,
+           "param_frac_past_lr_100": float((d > TRAIN_LR / 100).double()
+                                           .mean()),
+           "tol": {"rtol": TRAIN_RTOL, "grad": TRAIN_GRAD_TOL,
+                   "param_lr": 2, "far_fraction": TRAIN_FAR_FRACTION}}
+    for part, a, b in (("dual", sg.dual, sc.dual),
+                       ("mu", sg.opt.mu, sc.opt.mu),
+                       ("nu", sg.opt.nu, sc.opt.nu)):
+        rec[part + "_max_rel_err"], rec[part + "_worst_leaf"] = leaf_err(a, b)
+    ok = (all(abs(mg[k] - mc[k]) <= TRAIN_RTOL * abs(mc[k]) for k in mc)
+          and all(rec[part + "_max_rel_err"] <= TRAIN_GRAD_TOL
+                  for part in ("dual", "mu", "nu"))
+          and rec["param_max_diff_lr"] <= 2
+          and rec["param_frac_past_lr_100"] <= TRAIN_FAR_FRACTION
+          and torch.equal(sg.opt.step.cpu(), sc.opt.step)
+          and int(sg.step) == int(sc.step) == 1)
+    rec["ok"] = ok
+    if not ok:
+        emit({"lm_consensus": "parity/fp32", **rec})
+        raise AssertionError(f"lm_consensus: the fp32 step on the card is "
+                             f"out of bounds of the CPU's: {rec}")
+    return rec
+
+
+def _cons_regime() -> dict:
+    """Phase 22 (c): tests/test_dist.py:48-113 on the card."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core import consensus as consensus_lib
+    from repro_torch.train import steps
+
+    c = CONS_REGIME
+    R = c["replicas"]
+    rcfg = get_reduced_config(TRAIN_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    state = steps.make_consensus_train_state(rcfg, gen, R, lr=c["lr"],
+                                             device="cuda")
+    _desync(state, gen)
+    batch = _train_batch(rcfg.vocab_size, c["batch"], c["seq"], gen)
+    step = steps.make_consensus_train_step(
+        rcfg, R, consensus_lib.ConsensusConfig(eta=c["eta"], every=1),
+        lr=c["lr"])
+    losses, gaps = [], []
+    for _ in range(c["steps"]):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        gaps.append(float(m["consensus_gap"]))
+    state = steps.make_consensus_train_state(rcfg, gen, R, lr=c["every_lr"],
+                                             device="cuda")
+    batch = _train_batch(rcfg.vocab_size, c["every_batch"], c["every_seq"],
+                         gen)
+    step = steps.make_consensus_train_step(
+        rcfg, R, consensus_lib.ConsensusConfig(eta=c["eta"],
+                                               every=c["every"]),
+        lr=c["every_lr"])
+    for _ in range(c["every_steps"]):
+        state, _ = step(state, batch)
+    rec = {"arch": rcfg.name, "layers": rcfg.num_layers,
+           "d_model": rcfg.d_model, "compute_dtype": rcfg.compute_dtype,
+           "losses": losses, "gaps": gaps, "every": c["every"],
+           "every_final_step": int(state.step),
+           "every_opt_steps": state.opt.step.tolist()}
+    if not (losses[-1] < losses[0] and gaps[-1] < gaps[0]
+            and all(np.isfinite(losses + gaps))
+            and int(state.step) == c["every_steps"]):
+        emit({"lm_consensus": "regime", **rec})
+        raise AssertionError(f"lm_consensus: the reference's regime "
+                             f"failed: {rec}")
+    return rec
+
+
+def lm_consensus(by_path: dict) -> None:
+    """Phase 22: qwen2-0.5b at full size through the ADMM-consensus train
+    step (R = 4 replicas on the card, bf16, remat) on one fixed batch,
+    the round timed alone, then fp32 parity with the CPU at 2 layers,
+    then the reference's test regime."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import consensus as consensus_lib
+    from repro_torch.kernels import ops
+    from repro_torch.train import steps
+
+    phase_t0 = time.perf_counter()
+    a = CONS
+    cfg = get_config(TRAIN_ARCH).replace(chunked_ce=a["chunked_ce"])
+    R, B, S = a["replicas"], a["batch"], a["seq"]
+    tokens = B * S
+    if not cfg.remat:
+        raise AssertionError("lm_consensus: the config's remat is off")
+
+    # (a) the full-size step on one fixed batch
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = steps.make_consensus_train_state(cfg, gen, R, lr=TRAIN_LR,
+                                             device="cuda")
+    _desync(state, gen)
+    batch = _train_batch(cfg.vocab_size, B, S, gen)
+    torch.cuda.synchronize()
+    n_params = sum(p[0].numel() for p in state.params.values())
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    gaps0 = consensus_lib.consensus_gap(state.params)
+    emit({"lm_consensus": "init", "arch": cfg.name, "replicas": R,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "params_per_replica": n_params,
+          "state_leaves": len(state.params),
+          "init_s": time.perf_counter() - t0, "state_gb": state_gb,
+          "gap_max_init": float(gaps0.max())})
+    ccfg = consensus_lib.ConsensusConfig(eta=a["eta"], every=a["every"])
+    step = steps.make_consensus_train_step(cfg, R, ccfg, lr=TRAIN_LR)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, norms, gaps, gap_max, ms = [], [], [], [], []
+    for _ in range(a["warmup"] + a["steps"]):
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        state, m = step(state, batch)
+        ev1.record()
+        ev1.synchronize()
+        ms.append(ev0.elapsed_time(ev1))
+        per_replica = consensus_lib.consensus_gap(state.params)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        gaps.append(float(m["consensus_gap"]))
+        gap_max.append(float(per_replica.max()))
+        if gaps[-1] != float(per_replica[0]):
+            raise AssertionError("lm_consensus: the step's gap is not "
+                                 "replica 0's")
+    by_path["lm_consensus"] = launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # the round alone, as the step runs it, on the live stacks and a
+    # gradient stack (the dual's entries are replaced, not written)
+    grads = {n: torch.randn(p.shape, generator=gen, device="cuda")
+             for n, p in state.params.items()}
+    round_ms = []
+    for _ in range(CONS_ROUND_REPS):
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        steps.consensus_exchange(dict(grads), state.params,
+                                 dict(state.dual), state.step, ccfg)
+        ev1.record()
+        ev1.synchronize()
+        round_ms.append(ev0.elapsed_time(ev1))
+    # each leaf of p, g and beta read once, g and beta written once
+    round_bytes = 5 * 4 * R * n_params
+    del grads
+    step_ms = sorted(ms[a["warmup"]:])[a["steps"] // 2]
+    falls = losses[-1] < losses[0]
+    finite = all(np.isfinite(losses + norms + gaps + gap_max))
+    emit({"lm_consensus": "steps/bf16", "replicas": R, "batch": B,
+          "seq": S, "rows_per_replica": B // R, "eta": a["eta"],
+          "every": a["every"], "lr": TRAIN_LR, "tokens_per_step": tokens,
+          "losses": losses, "grad_norms_replica0": norms,
+          "gaps_replica0": gaps, "gaps_max_v": gap_max,
+          "first_step_ms": ms[0], "step_ms": step_ms,
+          "step_ms_timed": ms[a["warmup"]:],
+          "tokens_per_s": tokens / (step_ms / 1e3),
+          "model_tflop_s": tflop_s(6 * n_params * tokens, step_ms),
+          "params_per_replica": n_params, "state_gb": state_gb,
+          "peak_gb": peak, "chunked_ce": cfg.chunked_ce,
+          "round_device_ms": sorted(round_ms)[CONS_ROUND_REPS // 2],
+          "round_device_ms_all": round_ms,
+          "round_bytes": round_bytes,
+          "round_bound_ms": 1e3 * round_bytes / HBM_BYTES_S,
+          "launches": launches, "loss_falls": falls})
+    if not finite or not falls:
+        raise AssertionError(f"lm_consensus: losses {losses}, grad norms "
+                             f"{norms}, gaps {gaps} / {gap_max}")
+    if any(launches.values()):
+        raise AssertionError(f"lm_consensus launched hand kernels: "
+                             f"{launches}")
+    del state, step, batch, m, per_replica
+    torch.cuda.empty_cache()
+
+    # (b) fp32 parity with the CPU at full width, 2 layers
+    t0 = time.perf_counter()
+    rec = _cons_parity(get_config(TRAIN_ARCH))
+    emit({"lm_consensus": "parity/fp32", **rec,
+          "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+
+    # (c) the reference's test regime
+    t0 = time.perf_counter()
+    rec = _cons_regime()
+    emit({"lm_consensus": "regime", **rec,
+          "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_consensus",
+          "seconds": time.perf_counter() - phase_t0})
+
+
 # ---------------------------------------------------------------------------
 # phase 2 (continued): the analysis gate on the card
 def analysis_gate(ext, dev) -> None:
@@ -5308,6 +5615,15 @@ def analysis_gate(ext, dev) -> None:
                              f"finding(s): {findings[:5]}")
 
 
+def _timed_phase(name: str, fn, *args):
+    """``fn(*args)`` and a ``phase`` record of its seconds, for the phases
+    that print none of their own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit({"phase": name, "seconds": time.perf_counter() - t0})
+    return out
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5330,9 +5646,17 @@ def main() -> int:
                                        "sessions", "fabric", "store",
                                        "serve", "obs", "dist", "shard",
                                        "lm", "moe", "mla", "ssm",
-                                       "hybrid", "encdec", "train"),
+                                       "hybrid", "encdec", "train",
+                                       "consensus"),
                     help="run only this part, and print no result line")
     args = ap.parse_args()
+    try:
+        return run(args)
+    finally:
+        write_records(args.out)     # a failed phase's records too
+
+
+def run(args) -> int:
     script_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -5373,6 +5697,8 @@ def main() -> int:
             lm_encdec({})
         elif args.only == "train":
             lm_train({})
+        elif args.only == "consensus":
+            lm_consensus({})
         elif args.only in ("figures", "sessions", "fabric", "store",
                            "serve", "obs"):
             run = {"figures": figures, "sessions": sessions,
@@ -5381,7 +5707,6 @@ def main() -> int:
             run({}, {k: 0 for k in PROFILED}, {k: [] for k in KERNELS})
         else:
             multi_mid(dev)
-        write_records(args.out)
         return 0
 
     ext = build.extension()
@@ -5395,14 +5720,14 @@ def main() -> int:
         raise AssertionError(f"Gram kernels with local memory: {spills}")
     analysis_gate(ext, dev)
 
-    cases = check_kernels(dev)
+    cases = _timed_phase("kernels", check_kernels, dev)
     by_path = {}
-    main_path(by_path)
-    large_fit(by_path)
-    large_replan(by_path)
+    _timed_phase("main_path", main_path, by_path)
+    _timed_phase("large_fit", large_fit, by_path)
+    _timed_phase("large_replan", large_replan, by_path)
     traced = {k: 0 for k in PROFILED}
-    profile_engines(traced)
-    figures(by_path, traced, cases)
+    _timed_phase("profile_engines", profile_engines, traced)
+    _timed_phase("figures", figures, by_path, traced, cases)
     sessions(by_path, traced, cases)
     fabric(by_path, traced, cases)
     store(by_path, traced, cases)
@@ -5417,6 +5742,7 @@ def main() -> int:
     lm_hybrid(by_path)
     lm_encdec(by_path)
     lm_train(by_path)
+    lm_consensus(by_path)
     if not all(traced.values()):
         raise AssertionError(f"the profiler saw none of some kernels: "
                              f"{traced}")
@@ -5442,7 +5768,6 @@ def main() -> int:
             "library_ms": large["library_ms"], "cases": cases[kname]})
     emit({"script": "wall", "seconds": time.perf_counter() - script_t0})
     emit({"kernels": kernels})
-    write_records(args.out)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -85,13 +85,15 @@ HOT_ROOTS = frozenset({
 #: ``timed``, ``nbr_reduce``, ``train_step`` and ``update`` are common
 #: names): a shard_map rank's neighbor sums, a sample rank's ADMM
 #: iteration, the rank backends' collectives, and the staging helper they
-#: run inside; the allreduce train step and the optimizers' update.
+#: run inside; the allreduce and the consensus train steps, the
+#: consensus round and gap they run, and the optimizers' update.
 PATH_ROOTS: Dict[str, frozenset] = {
     "core/dtsvm_dist.py": frozenset({"nbr_reduce"}),
+    "core/consensus.py": frozenset({"consensus_round", "consensus_gap"}),
     "dist/sample.py": frozenset({"_step"}),
     "dist/collectives.py": frozenset({"all_gather", "all_reduce",
                                       "timed"}),
-    "train/steps.py": frozenset({"train_step"}),
+    "train/steps.py": frozenset({"train_step", "consensus_step"}),
     "optim/adamw.py": frozenset({"update"}),
 }
 

@@ -15,7 +15,10 @@ decoder's weights: the reference's parameter pytree (numpy leaves,
 tree, an encoder-decoder's ``encoder.layers`` stacked too) to the port's
 ``Transformer`` and back, each leaf bitwise; ``lm_grads_to_numpy`` lays
 the gradients of a port model out in the same tree, to compare with
-``jax.grad``'s leaf by leaf.
+``jax.grad``'s leaf by leaf.  ``consensus_state_to_torch`` /
+``consensus_state_to_numpy`` carry the consensus trainer's state (every
+leaf with a leading replica axis R, a stacked layer's leaf (R, L, ...)
+in the reference's tree), so both packages start from the same one.
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ from repro_torch import device as device_lib
 from repro_torch.core import dtsvm as core
 from repro_torch.engine import invariants as inv_lib
 from repro_torch.models import transformer
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.train.steps import ConsensusTrainState
 
 _TWINS = {cls.__name__: cls for cls in (core.DTSVMProblem, core.DTSVMState,
                                         inv_lib.PlanInvariants)}
@@ -67,20 +72,22 @@ def _lists(node):
     return {k: _lists(v) for k, v in node.items()}
 
 
-def _leaf(params, name: str) -> np.ndarray:
+def _leaf(params, name: str, axis: int = 0) -> np.ndarray:
     """The reference tree's array for the port's parameter ``name``
-    (``transformer.reference_path``)."""
+    (``transformer.reference_path``); a stacked leaf's layers lie along
+    ``axis`` (1 behind a replica axis)."""
     path, row = transformer.reference_path(name)
     src = params
     for key in path:
         src = src[key]
     src = np.asarray(src)
-    return src if row is None else src[row]
+    return src if row is None else np.take(src, row, axis=axis)
 
 
-def _tree(named) -> dict:
+def _tree(named, axis: int = 0) -> dict:
     """The reference's tree of ``(parameter name, tensor)`` pairs in the
-    model's order: numpy leaves, the stacked ones stacked along L."""
+    model's order: numpy leaves, the stacked ones stacked along L at
+    ``axis``."""
     tree: dict = {}
     per_layer: dict = {}
     for name, t in named:
@@ -91,7 +98,7 @@ def _tree(named) -> dict:
         else:
             per_layer.setdefault(path, []).append(leaf)
     for path, leaves in per_layer.items():
-        _put(tree, path, np.stack(leaves))
+        _put(tree, path, np.stack(leaves, axis=axis))
     return _lists(tree)
 
 
@@ -142,3 +149,44 @@ def lm_grads_to_numpy(model, grads=None) -> dict:
         g = p.grad if grads is None else grads.get(name)
         return torch.zeros_like(p) if g is None else g
     return _tree((n, grad(n, p)) for n, p in model.named_parameters())
+
+
+def consensus_state_to_torch(ref_state, cfg, device=None):
+    """The port's ``ConsensusTrainState`` of a reference one (its
+    ``params``, ``opt`` (an AdamWState: ``step`` (R,), ``mu``, ``nu``),
+    ``dual`` and ``step``, numpy or anything ``np.asarray`` takes) for
+    ``cfg``, on ``device`` (``None`` means ``"cuda"``): each stacked
+    mapping keyed in ``transformer.named_leaves`` order, every leaf
+    bitwise; ``step`` a 0-d int32 CPU tensor, as the port keeps it."""
+    dev = device_lib.resolve(device)
+    rows = np.shape(ref_state.params["pos_dec"])[1] \
+        if cfg.is_encoder_decoder else 0
+    names = list(transformer.named_leaves(
+        transformer.Transformer(cfg, "meta", max_seq=rows)))
+
+    def stacked(tree):
+        return {n: torch.from_numpy(np.array(_leaf(tree, n, axis=1))).to(dev)
+                for n in names}
+    opt = ref_state.opt
+    return ConsensusTrainState(
+        params=stacked(ref_state.params),
+        opt=AdamWState(step=torch.from_numpy(np.array(opt.step)).to(dev),
+                       mu=stacked(opt.mu), nu=stacked(opt.nu)),
+        dual=stacked(ref_state.dual),
+        step=torch.from_numpy(np.array(ref_state.step)))
+
+
+def consensus_state_to_numpy(state):
+    """The same ``ConsensusTrainState`` with each stacked mapping as the
+    reference's tree (numpy leaves (R, ...), a stacked layer's leaves
+    (R, L, ...)), the optimizer an ``AdamWState`` of numpy leaves and
+    trees, ``step`` numpy: the reference's ``ConsensusTrainState(*out)``
+    with ``AdamWState(*out.opt)`` takes it."""
+    tree = lambda m: _tree(m.items(), axis=1)
+    opt = state.opt
+    return type(state)(
+        params=tree(state.params),
+        opt=type(opt)(step=opt.step.detach().cpu().numpy(),
+                      mu=tree(opt.mu), nu=tree(opt.nu)),
+        dual=tree(state.dual),
+        step=state.step.detach().cpu().numpy())

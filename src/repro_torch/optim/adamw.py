@@ -125,10 +125,26 @@ def global_norm(tree: Tree) -> torch.Tensor:
     return torch.sqrt(sum(leaves))
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp_max(max_norm / (norm + 1e-9), 1.0)
+
+
 def clip_by_global_norm(grads: Tree, max_norm: float
                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """The leaves scaled by min(1, max_norm / (norm + 1e-9)), new tensors,
     and the norm."""
     norm = global_norm(grads)
-    scale = torch.clamp_max(max_norm / (norm + 1e-9), 1.0)
+    scale = _clip_scale(norm, max_norm)
     return {n: g * scale.to(g.dtype) for n, g in grads.items()}, norm
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: Tree, max_norm: float) -> torch.Tensor:
+    """:func:`clip_by_global_norm` in place (the same bits): each leaf
+    scaled where it lies, which may be a view of a larger stack; returns
+    the norm."""
+    norm = global_norm(grads)
+    scale = _clip_scale(norm, max_norm)
+    for g in grads.values():
+        g.mul_(scale.to(g.dtype))
+    return norm

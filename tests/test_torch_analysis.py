@@ -240,11 +240,25 @@ def test_rule_path_scoping():
      "    def update(grads, state, params):\n"
      "        return grads.item()\n"
      "    return update\n"),
+    ("train/steps.py",
+     "def make_consensus_train_step():\n"
+     "    def consensus_step(state, batch):\n"
+     "        return int(state.opt.step[0])\n"
+     "    return consensus_step\n"),
+    ("core/consensus.py",
+     "def consensus_round(grads, params, state, cfg):\n"
+     "    g = dict(grads)\n"
+     "    return g, state.dual['w'].tolist()\n"),
+    ("core/consensus.py",
+     "def consensus_gap(params):\n"
+     "    m = dict(params)\n"
+     "    return float(m['w'].amax())\n"),
 ])
 def test_the_train_step_and_the_update_are_hot_roots(tmp_path, rel, src):
-    """A host sync inside the train step or an optimizer's update is a
-    finding (``PATH_ROOTS``): both run once per training iteration.  The
-    same code elsewhere in the package is not a root."""
+    """A host sync inside a train step (allreduce or consensus), the
+    consensus round or gap, or an optimizer's update is a finding
+    (``PATH_ROOTS``): each runs once per training iteration.  The same
+    code elsewhere in the package is not a root."""
     path = tmp_path / "repro_torch" / rel
     path.parent.mkdir(parents=True)
     path.write_text(src)
@@ -273,7 +287,8 @@ def test_src_tree_has_no_unsuppressed_findings():
                  ("net/fabric.py", "raw-einsum-in-plan"),
                  ("dist/sample.py", "raw-einsum-in-plan"),
                  ("kernels/ref.py", "raw-einsum-in-plan"),
-                 ("dist/collectives.py", "host-sync-in-hot-path")]:
+                 ("dist/collectives.py", "host-sync-in-hot-path"),
+                 ("train/steps.py", "host-sync-in-hot-path")]:
         assert site in sites, site
 
 
