@@ -5,7 +5,7 @@
                                                sessions|fabric|store|serve|
                                                obs|dist|shard|lm|moe|mla|
                                                ssm|hybrid|encdec|train|
-                                               consensus]
+                                               consensus|launch]
 
 Runs from the root of a checkout, on a machine with one CUDA card, the
 CUDA toolkit and ninja; it builds the hand kernels itself into
@@ -77,7 +77,10 @@ any failure raises and exits non-zero:
    ATOL = 0.015), then each figure once at its paper regime (the widths
    of the reference's ``run(fast=False)``, seed 0; Fig. 2 per network
    with ``fista`` and ``pallas_fused_multi``), each run on the card and
-   on the CPU (every network-average risk within one test sample,
+   on the CPU (the CPU runs, and the CPU sweeps below, in one child
+   process started with the phase, beside its card runs; its seconds
+   and the phase's wait for it are printed) (every
+   network-average risk within one test sample,
    1/n_test), its launches counted from 0 just before the card run and
    read just after (one square Gram build per fit, sweep and CSVM fit;
    one multi launch per ADMM iteration of a ``pallas_fused_multi`` fit
@@ -437,7 +440,28 @@ any failure raises and exits non-zero:
    regime on reduced qwen2: 10 steps at eta 0.1, lr 3e-3 (the loss and
    replica 0's gap fall), then every=4 for 3 steps (``step == 3``);
    every phase prints its seconds;
-23. the ``kernels`` line (with ``launches_by_path["shard"]``, phase 14's
+23. the training CLI (``repro_torch.launch.train.main``, the module's
+   ``python -m repro_torch.launch.train``) as the reference's end-to-end
+   example drives it (examples/train_lm_consensus.py): (a) mamba2-130m at
+   its full published size (24 layers, d_model 768, vocab 50288, fp32
+   weights from the CLI's seeded generator, bf16 compute), ``--trainer
+   admm --mesh 4x2`` (R = 4 replicas; the model axis printed as unused),
+   batch 8, seq 256, every step logged, 6 steps with ``--ckpt-every
+   1000`` (one save, the reference's tree), then a resume to 8: every
+   step's line, the median step ms (CUDA events), tokens/s, the state's
+   and the peak GB, the file's bytes, the save's seconds (the host copy
+   and the file) and the restore's (the file and the re-seat), the
+   host's RSS (its peak over the phase, sampled); gates: every number
+   finite, ``latest_step`` 6 then 8, ``resumed from step 6`` printed,
+   the re-seated state ``torch.equal`` to the saved one leaf by leaf,
+   the resumed steps' losses within LAUNCH_LOSS_RTOL of the saved state
+   continued in process over the stream's first two batches, no hand
+   kernel launched (``launches_by_path["lm_launch"]`` is zeros); (b)
+   fp32 (the config patch), reduced mamba2-130m ``--mesh 2x1`` and
+   reduced qwen2-0.5b under allreduce: the card writes step 2, the card
+   and the CPU each resume a copy to step 4, the two files held to phase
+   22(b)'s bounds; the phase prints its seconds;
+24. the ``kernels`` line (with ``launches_by_path["shard"]``, phase 14's
    launches counted in the ranks), the card line, and the result line.
 
 ``--only`` runs one part and prints no result line, to compare two
@@ -449,7 +473,8 @@ its plain version and timed, ``figures`` phase 7, ``sessions`` phase 8,
 ``fabric`` phase 9, ``store`` phase 10, ``serve`` phase 11, ``obs``
 phase 12, ``dist`` phase 13, ``shard`` phase 14, ``lm`` phase 15,
 ``moe`` phase 16, ``mla`` phase 17, ``ssm`` phase 18, ``hybrid`` phase
-19, ``encdec`` phase 20, ``train`` phase 21, ``consensus`` phase 22.
+19, ``encdec`` phase 20, ``train`` phase 21, ``consensus`` phase 22,
+``launch`` phase 23.
 
 Without a CUDA device, or without the rest of the repository beside it,
 it exits non-zero and prints no result.
@@ -761,6 +786,29 @@ CONS_REGIME = dict(replicas=4, eta=0.1, lr=3e-3, batch=8, seq=64, steps=10,
                    every=4, every_lr=1e-3, every_batch=4, every_seq=32,
                    every_steps=3)
 CONS_ROUND_REPS = 3
+# phase 23: the training CLI (``repro_torch.launch.train.main``) as the
+# reference's end-to-end example runs it (examples/train_lm_consensus.py:
+# mamba2-130m at its full published size, ``--trainer admm --mesh 4x2``,
+# batch 8, seq 256): LAUNCH["steps"] steps and one save (ckpt_every past
+# them), then a resume to LAUNCH["resume"]; the resumed steps' losses
+# within LAUNCH_LOSS_RTOL of an in-process continuation of the saved state
+# over the same batches (the stream's first two: a resume restarts the
+# data key).  (b) card against CPU from one card-written file, fp32 (the
+# config patch of tests/test_torch_launch_train.py), for each run of
+# LAUNCH_PARITY_RUNS at LAUNCH_PARITY's sizes: the card writes ``write``,
+# the card and the CPU each resume to ``resume``, the two files held to
+# phase 22(b)'s bounds
+LAUNCH = dict(arch="mamba2-130m", mesh="4x2", replicas=4, batch=8, seq=256,
+              steps=6, resume=8, ckpt_every=1000, eta=0.05, seed=0)
+LAUNCH_LOSS_RTOL = 1e-3
+LAUNCH_PARITY = dict(batch=4, seq=32, write=2, resume=4)
+LAUNCH_PARITY_RUNS = (
+    ("mamba2-130m/admm", ["--arch", "mamba2-130m", "--trainer", "admm",
+                          "--mesh", "2x1"]),
+    ("qwen2-0.5b/allreduce", ["--arch", "qwen2-0.5b"]))
+# the figures phase's CPU runs go to one process started with the phase,
+# with this many torch threads, beside its card runs
+FIGURES_CPU_THREADS = 3
 
 RECORDS = []
 
@@ -1684,15 +1732,115 @@ def figure_runs() -> list:
     return runs
 
 
+def _fig3_sweep_setup():
+    """Fig. 3's paper grid as ``sweep_vs_serial`` runs it: the config
+    keys and dicts, the iterations and the data."""
+    from repro_torch.figures import common, fig3_eps_sweep
+
+    grid = fig3_eps_sweep.EPS_GRID
+    keys = [(e1, e2) for e1 in grid for e2 in grid]
+    cfgs = [dict(eps1=e1, eps2=e2) for e1, e2 in keys]
+    data, A = common.build(10, [50, 400], degree=0.8667, seed=0)
+    return keys, cfgs, fig3_eps_sweep.ITERS, 100, data, A
+
+
+def figures_cpu_main(out: str) -> int:
+    """``--figures-cpu OUT``: the CPU side of the figures phase (each
+    run of ``figure_runs`` and Fig. 3's sweep per engine), pickled to
+    OUT with each one's wall.  The script runs it in a process of its
+    own, without the card, beside the phase's card runs."""
+    import pickle
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.set_num_threads(FIGURES_CPU_THREADS)
+    from repro_torch.figures import common, golden
+
+    t_start = time.perf_counter()
+    res = {"runs": {}, "sweeps": {}}
+    for label, name, regime, _ in figure_runs():
+        t0 = time.perf_counter()
+        got = golden.outputs(name, regime, device="cpu")
+        res["runs"][label] = (got, time.perf_counter() - t0)
+    _, cfgs, iters, qp_iters, data, A = _fig3_sweep_setup()
+    for solver in FIG2_ENGINES:
+        t0 = time.perf_counter()
+        cpu, _ = common.run_sweep(data, A, cfgs, iters, qp_iters=qp_iters,
+                                  qp_solver=solver, device="cpu")
+        res["sweeps"][solver] = ({"states": cpu.states,
+                                  "final_risks": np.asarray(
+                                      cpu.final_risks())},
+                                 time.perf_counter() - t0)
+    res["seconds"] = time.perf_counter() - t_start
+    with open(out + ".part", "wb") as f:
+        pickle.dump(res, f)
+    os.replace(out + ".part", out)
+    return 0
+
+
+class FiguresCpu:
+    """The figures phase's CPU runs in a child process (``--figures-cpu``,
+    no card visible to it), started with the phase so that they run
+    beside its card runs; ``result`` waits for them."""
+
+    live = []
+
+    def __init__(self):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="figures_cpu_")
+        self.out = os.path.join(self.dir, "cpu.pkl")
+        self.err = open(os.path.join(self.dir, "stderr.txt"), "w")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--figures-cpu",
+             self.out], stdout=subprocess.DEVNULL, stderr=self.err, env=env)
+        FiguresCpu.live.append(self)
+
+    def result(self) -> dict:
+        import pickle
+        import shutil
+
+        t0 = time.perf_counter()
+        rc = self.proc.wait(timeout=900)
+        wait_s = time.perf_counter() - t0
+        self.err.close()
+        with open(self.err.name) as f:
+            err = f.read()
+        if rc != 0:
+            raise AssertionError(f"the figures' CPU process exited {rc}: "
+                                 f"{err[-2000:]}")
+        with open(self.out, "rb") as f:
+            res = pickle.load(f)
+        shutil.rmtree(self.dir, ignore_errors=True)
+        FiguresCpu.live.remove(self)
+        res["wait_s"] = wait_s
+        res["since_start_s"] = time.perf_counter() - self.t0
+        return res
+
+    @classmethod
+    def stop_all(cls) -> None:
+        for job in cls.live:
+            if job.proc.poll() is None:
+                job.proc.kill()
+                job.proc.wait()
+        cls.live.clear()
+
+
 def figures(by_path: dict, seen: dict, cases: dict) -> None:
     """Each figure run on the card and on the CPU: the card within one
     test sample (1/n_test) of the CPU in every network-average risk, a
     golden regime within ATOL of its fixture, its launches as
     ``figure_launches`` says.  Then Fig. 3's paper grid as one sweep and
-    as a serial loop of the same fits, per engine."""
+    as a serial loop of the same fits, per engine.  The CPU runs come
+    from a ``FiguresCpu`` child started first, which runs them beside
+    the card runs (not beside phases 2-6: their host-bound readings
+    moved with it there)."""
     from repro_torch.figures import golden
     from repro_torch.kernels import ops
 
+    cpu_job = FiguresCpu()
+    cards = []
     for label, name, regime, golden_run in figure_runs():
         path = f"figures/{label}"
         ops.reset_launch_counts()
@@ -1700,10 +1848,20 @@ def figures(by_path: dict, seen: dict, cases: dict) -> None:
         card = golden.outputs(name, regime, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        by_path[path] = launches = ops.launch_counts()
-        t0 = time.perf_counter()
-        cpu = golden.outputs(name, regime, device="cpu")
-        cpu_wall = time.perf_counter() - t0
+        by_path[path] = ops.launch_counts()
+        cards.append((label, name, regime, golden_run, card, wall))
+    cpu_res = cpu_job.result()
+    emit({"figures_cpu": {
+        "process_s": cpu_res["seconds"],
+        "runs_s": sum(w for _, w in cpu_res["runs"].values()),
+        "sweeps_s": sum(w for _, w in cpu_res["sweeps"].values()),
+        "wait_s": cpu_res["wait_s"],
+        "started_s_before_result": cpu_res["since_start_s"],
+        "threads": FIGURES_CPU_THREADS}})
+    for label, name, regime, golden_run, card, wall in cards:
+        path = f"figures/{label}"
+        launches = by_path[path]
+        cpu, cpu_wall = cpu_res["runs"][label]
         n_test = regime.get("n_test", 1800)
         card_avg, cpu_avg = (network_averages(name, o) for o in (card, cpu))
         gap_cpu = max(float(np.abs(card_avg[k] - cpu_avg[k]).max())
@@ -1732,7 +1890,7 @@ def figures(by_path: dict, seen: dict, cases: dict) -> None:
         if golden_run and not rec["gap_to_fixture"] <= GOLDEN_ATOL:
             raise AssertionError(f"{label}: {rec['gap_to_fixture']} from the "
                                  f"fixture, beyond {GOLDEN_ATOL}")
-    sweep_vs_serial(by_path, seen, cases)
+    sweep_vs_serial(by_path, seen, cases, cpu_res["sweeps"])
 
 
 @contextlib.contextmanager
@@ -1831,7 +1989,8 @@ def hold_multi(label: str, args: tuple, kw: dict, cases: dict) -> None:
     cases["qp_pg_multi"].append(rec)
 
 
-def sweep_vs_serial(by_path: dict, seen: dict, cases: dict) -> None:
+def sweep_vs_serial(by_path: dict, seen: dict, cases: dict,
+                    cpu_sweeps: dict) -> None:
     """Fig. 3's paper grid (16 eps configs, V=10, 60 ADMM iterations of
     100 QP iterations, seed 0) as one sweep and as the serial loop of its
     16 fits, per engine, both on the card: the walls, the launches (the
@@ -1841,15 +2000,12 @@ def sweep_vs_serial(by_path: dict, seen: dict, cases: dict) -> None:
     one test sample; then the kernels at these paths' own operands (the
     sweep's build and its second multi solve, and CSVM's pooled build
     on the same data) against their plain versions, and a torch.profiler
-    trace of each sweep."""
-    from repro_torch.figures import common, fig3_eps_sweep
+    trace of each sweep.  ``cpu_sweeps`` holds the CPU sweep per engine
+    (``figures_cpu_main``)."""
+    from repro_torch.figures import common
     from repro_torch.kernels import ops
 
-    grid = fig3_eps_sweep.EPS_GRID
-    keys = [(e1, e2) for e1 in grid for e2 in grid]
-    cfgs = [dict(eps1=e1, eps2=e2) for e1, e2 in keys]
-    iters, qp_iters = fig3_eps_sweep.ITERS, 100
-    data, A = common.build(10, [50, 400], degree=0.8667, seed=0)
+    keys, cfgs, iters, qp_iters, data, A = _fig3_sweep_setup()
     n_test = data["X_test"].shape[1]
     for solver in FIG2_ENGINES:
         multi = solver == "pallas_fused_multi"
@@ -1872,16 +2028,17 @@ def sweep_vs_serial(by_path: dict, seen: dict, cases: dict) -> None:
             serial.append(hist[-1])
         by_path[f"figures/serial/fig3/{solver}"] = serial_n = \
             ops.launch_counts()
-        cpu, _ = common.run_sweep(data, A, cfgs, iters, qp_iters=qp_iters,
-                                  qp_solver=solver, device="cpu")
-        states = _state_errs(res.states, cpu.states, RTOL_FIT["f32"])
+        cpu, cpu_sweep_s = cpu_sweeps[solver]
+        states = _state_errs(res.states, cpu["states"], RTOL_FIT["f32"])
         gap = float(np.abs(res.final_risks() - np.stack(serial)).max())
-        gap_cpu = float(np.abs(res.final_risks() - cpu.final_risks()).max())
+        gap_cpu = float(np.abs(res.final_risks()
+                               - cpu["final_risks"]).max())
         emit({"sweep_vs_serial": f"fig3/{solver}", "configs": len(cfgs),
               "V": 10, "iters": iters, "qp_iters": qp_iters,
               "sweep_wall_s": sweep_s, "serial_wall_s": sum(serial_s),
               "serial_over_sweep": sum(serial_s) / sweep_s,
               "serial_fit_s_median": float(np.median(serial_s)),
+              "cpu_sweep_wall_s": cpu_sweep_s,
               "risk_gap": gap, "limit": 1.0 / n_test,
               "risk_gap_to_cpu": gap_cpu,
               "state_errs_to_cpu": states, "state_rtol": RTOL_FIT["f32"]})
@@ -5585,6 +5742,374 @@ def lm_consensus(by_path: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 23: the training CLI
+@contextlib.contextmanager
+def _patched(*triples):
+    """``(object, attribute, value)`` set for the block, then restored."""
+    from unittest import mock
+
+    with contextlib.ExitStack() as stack:
+        for obj, name, value in triples:
+            stack.enter_context(mock.patch.object(obj, name, value))
+        yield
+
+
+class _RssPeak:
+    """The process's largest resident set while the block runs, sampled
+    from /proc/self/status every 20 ms by a thread."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self._stop = self.now(), threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def now() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def _sample(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self.now())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.now())
+
+
+def _cli(argv, on_restore=None) -> dict:
+    """``launch.train.main(argv)`` with its stdout caught, each step's
+    metrics and CUDA-event ms (on the card) caught at the step function,
+    and the seconds of each save (the host copy of the state and the
+    file) and of the restore (the file and the re-seat); ``on_restore``
+    sees the state just re-seated."""
+    from repro_torch import convert
+    from repro_torch.launch import train
+
+    rec = {"metrics": [], "step_ms": [], "save_s": [], "to_numpy_s": [],
+           "restore_s": [], "reseat_s": []}
+    real = {k: getattr(train, k) for k in ("save_step", "restore_latest")}
+    to_numpy = convert.train_state_to_numpy
+    make_step = train.steps_lib.make_consensus_train_step
+    make_train = train.steps_lib.make_train_step
+    reseat = convert.restore_train_state_
+
+    def timed(key, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            rec[key].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def wrap(make):
+        def factory(*a, **k):
+            fn = make(*a, **k)
+
+            def step(state, batch):
+                card = batch["tokens"].is_cuda
+                if card:
+                    ev0, ev1 = (torch.cuda.Event(enable_timing=True)
+                                for _ in range(2))
+                    ev0.record()
+                state, m = fn(state, batch)
+                if card:
+                    ev1.record()
+                    ev1.synchronize()
+                    rec["step_ms"].append(ev0.elapsed_time(ev1))
+                rec["metrics"].append({k: float(v) for k, v in m.items()})
+                return state, m
+            return step
+        return factory
+
+    def restore(state, tree):
+        t0 = time.perf_counter()
+        state = reseat(state, tree)
+        rec["reseat_s"].append(time.perf_counter() - t0)
+        if on_restore is not None:
+            on_restore(state)
+        return state
+
+    out = io.StringIO()
+    with _patched((train, "save_step", timed("save_s", real["save_step"])),
+                  (train, "restore_latest",
+                   timed("restore_s", real["restore_latest"])),
+                  (convert, "train_state_to_numpy",
+                   timed("to_numpy_s", to_numpy)),
+                  (train.steps_lib, "make_consensus_train_step",
+                   wrap(make_step)),
+                  (train.steps_lib, "make_train_step", wrap(make_train)),
+                  (convert, "restore_train_state_", restore)), \
+            contextlib.redirect_stdout(out):
+        rec["state"] = train.main(argv)
+    rec["lines"] = out.getvalue().splitlines()
+    return rec
+
+
+def _state_tensors(state):
+    """Every tensor of a train state by a name, allreduce or consensus."""
+    if isinstance(state, dict):
+        from repro_torch.models import transformer
+        params = transformer.named_leaves(state["params"])
+        opt = state["opt"]
+        parts = {"params": params, "mu": opt.mu, "nu": opt.nu}
+        out = {"opt.step": opt.step}
+    else:
+        parts = {"params": state.params, "mu": state.opt.mu,
+                 "nu": state.opt.nu, "dual": state.dual}
+        out = {"opt.step": state.opt.step, "step": state.step}
+    for part, m in parts.items():
+        out.update({f"{part}/{n}": t for n, t in m.items()})
+    return out
+
+
+def _file_bounds(a_path: str, b_path: str, steps_taken: int) -> dict:
+    """Two train-state checkpoint files (the card's ``a``, the CPU's
+    ``b``) held to phase 22(b)'s bounds: the same tree and step counters,
+    the gradient-derived leaves (moments, dual) within TRAIN_GRAD_TOL of
+    each leaf's largest magnitude, the parameters within 2 lr a step and
+    at most TRAIN_FAR_FRACTION of them past lr / 100."""
+    from repro_torch.checkpoint import load
+
+    def walk(tree, path=()):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from walk(tree[k], path + (k,))
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from walk(v, path + (i,))
+        else:
+            yield path, np.asarray(tree)
+
+    a, b = list(walk(load(a_path))), list(walk(load(b_path)))
+    same_tree = [(p, x.dtype, x.shape) for p, x in a] == \
+        [(p, x.dtype, x.shape) for p, x in b]
+    consensus = isinstance(a[0][0][0], int)
+    errs, diffs, steps_equal = {}, [], True
+    for (path, x), (_, y) in zip(a, b):
+        kind = ({0: "params", 2: "dual", 3: "step"}.get(path[0])
+                if consensus else
+                ("params" if path[0] == "params" else None)) \
+            or {0: "step", 1: "mu", 2: "nu"}[path[1]]
+        if kind == "step":
+            steps_equal &= bool(np.array_equal(x, y))
+        elif kind == "params":
+            diffs.append(np.abs(x.astype(np.float64) - y).reshape(-1))
+        else:
+            err = float(np.abs(x.astype(np.float64) - y).max()
+                        / max(float(np.abs(y).max()), 1e-30))
+            errs[kind] = max(errs.get(kind, 0.0), err)
+    d = np.concatenate(diffs)
+    rec = {"same_tree": same_tree, "steps_equal": steps_equal,
+           "leaves": len(a), "max_rel_err": errs,
+           "param_max_diff_lr": float(d.max()) / TRAIN_LR,
+           "param_frac_past_lr_100": float((d > TRAIN_LR / 100).mean())}
+    rec["ok"] = (same_tree and steps_equal
+                 and all(e <= TRAIN_GRAD_TOL for e in errs.values())
+                 and rec["param_max_diff_lr"] <= 2 * steps_taken
+                 and rec["param_frac_past_lr_100"] <= TRAIN_FAR_FRACTION)
+    return rec
+
+
+def _launch_parity(tmp: str) -> None:
+    """Phase 23 (b): per LAUNCH_PARITY_RUNS, fp32, the card writes step
+    ``write``; the card and the CPU each resume a copy to ``resume``."""
+    import shutil
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import train
+
+    p = LAUNCH_PARITY
+    fp32 = lambda arch: get_reduced_config(arch).replace(
+        compute_dtype="float32")
+    for label, args in LAUNCH_PARITY_RUNS:
+        t0 = time.perf_counter()
+        base = [*args, "--reduced", "--batch", str(p["batch"]), "--seq",
+                str(p["seq"]), "--log-every", "1", "--ckpt-every", "1000"]
+        root = os.path.join(tmp, label.replace("/", "_"))
+        runs = {}
+        with _patched((train, "get_reduced_config", fp32)):
+            _cli([*base, "--steps", str(p["write"]), "--ckpt-dir",
+                  os.path.join(root, "written"), "--device", "cuda"])
+            for dev in ("cuda", "cpu"):
+                d = os.path.join(root, dev)
+                shutil.copytree(os.path.join(root, "written"), d)
+                runs[dev] = _cli([*base, "--steps", str(p["resume"]),
+                                  "--ckpt-dir", d, "--device", dev])
+        files = [os.path.join(root, dev, f"ckpt_{p['resume']:08d}.msgpack")
+                 for dev in ("cuda", "cpu")]
+        rec = _file_bounds(*files, p["resume"] - p["write"])
+        mg, mc = runs["cuda"]["metrics"], runs["cpu"]["metrics"]
+        metrics_ok = len(mg) == len(mc) == p["resume"] - p["write"] and all(
+            abs(g[k] - c[k]) <= TRAIN_RTOL * abs(c[k])
+            for g, c in zip(mg, mc) for k in c)
+        resumed = all(f"resumed from step {p['write']}" in runs[dev]["lines"]
+                      for dev in runs)
+        rec.update({"lm_launch": f"parity/fp32/{label}", **p,
+                    "metrics": {"cuda": mg, "cpu": mc},
+                    "metrics_ok": metrics_ok, "resumed": resumed,
+                    "tol": {"rtol": TRAIN_RTOL, "grad": TRAIN_GRAD_TOL,
+                            "param_lr_per_step": 2,
+                            "far_fraction": TRAIN_FAR_FRACTION},
+                    "seconds": time.perf_counter() - t0})
+        emit(rec)
+        if not (rec["ok"] and metrics_ok and resumed):
+            raise AssertionError(f"lm_launch: the card's resume of "
+                                 f"{label} is out of bounds of the CPU's")
+
+
+def lm_launch(by_path: dict) -> None:
+    """Phase 23: the training CLI at the reference example's full size
+    with one save and a resume, then card against CPU from one file."""
+    import resource
+    import shutil
+    import tempfile
+
+    from repro_torch import checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core.consensus import ConsensusConfig
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.kernels import ops
+    from repro_torch.train import steps
+
+    phase_t0 = time.perf_counter()
+    a = LAUNCH
+    cfg = get_config(a["arch"])
+    B, S = a["batch"], a["seq"]
+    tmp = tempfile.mkdtemp(prefix="lm_launch_")
+    try:
+        d = os.path.join(tmp, "ckpt")
+        # the example's argv (examples/train_lm_consensus.py), logging
+        # every step, and a checkpoint directory
+        argv = ["--arch", a["arch"], "--trainer", "admm", "--mesh",
+                a["mesh"], "--batch", str(B), "--seq", str(S),
+                "--log-every", "1", "--ckpt-dir", d, "--ckpt-every",
+                str(a["ckpt_every"]), "--seed", str(a["seed"])]
+        rss0 = _RssPeak.now()
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with _RssPeak() as rss:
+            t0 = time.perf_counter()
+            run1 = _cli([*argv, "--steps", str(a["steps"])])
+            run1_s = time.perf_counter() - t0
+            state1 = run1.pop("state")
+            torch.cuda.synchronize()
+            state_gb = torch.cuda.memory_allocated() / 1e9
+            latest1 = checkpoint.latest_step(d)
+            path6 = os.path.join(d, f"ckpt_{a['steps']:08d}.msgpack")
+            file_bytes = os.path.getsize(path6)
+            saved = _state_tensors(state1)
+            checked = {}
+
+            def same_as_saved(st):
+                got = _state_tensors(st)
+                checked["names"] = sorted(got) == sorted(saved)
+                checked["bitwise"] = checked["names"] and all(
+                    t.dtype == saved[n].dtype
+                    and torch.equal(t, saved[n].to(t.device))
+                    for n, t in got.items())
+
+            t0 = time.perf_counter()
+            run2 = _cli([*argv, "--steps", str(a["resume"])],
+                        on_restore=same_as_saved)
+            run2_s = time.perf_counter() - t0
+            del run2["state"]
+        by_path["lm_launch"] = launches = ops.launch_counts()
+        latest2 = checkpoint.latest_step(d)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        # the saved state continued in process over the stream's first
+        # two batches (the resume restarts the data key at seed + 1)
+        step = steps.make_consensus_train_step(
+            cfg, a["replicas"], ConsensusConfig(eta=a["eta"], every=1),
+            lr=TRAIN_LR)
+        stream = token_stream(a["seed"] + 1, cfg.vocab_size, B, S,
+                              device="cuda")
+        cont = []
+        for _ in range(a["resume"] - a["steps"]):
+            state1, m = step(state1, next(stream))
+            cont.append({k: float(v) for k, v in m.items()})
+        del state1, step, m
+        resumed = [m["loss"] for m in run2["metrics"]]
+        loss_gap = max(abs(r - c["loss"]) / abs(c["loss"])
+                       for r, c in zip(resumed, cont))
+        n_params = sum(t.numel() for n, t in saved.items()
+                       if n.startswith("params/")) // a["replicas"]
+        del saved
+        torch.cuda.empty_cache()
+
+        step_ms = float(np.median(run1["step_ms"]))
+        metrics = [v for r in (run1, run2) for m in r["metrics"]
+                   for v in m.values()]
+        numbers = [step_ms, state_gb, peak_gb, *run1["save_s"],
+                   *run1["to_numpy_s"], *run2["restore_s"],
+                   *run2["reseat_s"], *run2["save_s"]]
+        rec = {"lm_launch": "example/admm", "arch": cfg.name,
+               "argv": argv, "replicas": a["replicas"],
+               "model_axis_unused": any("unused" in line
+                                        for line in run1["lines"]),
+               "params_per_replica": n_params,
+               "param_count_cfg": cfg.param_count(),
+               "steps": a["steps"], "resume_to": a["resume"],
+               "lines_run1": run1["lines"], "lines_run2": run2["lines"],
+               "metrics_run1": run1["metrics"],
+               "metrics_run2": run2["metrics"],
+               "continuation_in_process": cont,
+               "loss_max_rel_gap": loss_gap, "loss_rtol": LAUNCH_LOSS_RTOL,
+               "step_ms": step_ms, "step_ms_all": run1["step_ms"],
+               "step_ms_resumed": run2["step_ms"],
+               "tokens_per_step": B * S,
+               "tokens_per_s": B * S / (step_ms / 1e3),
+               "state_gb": state_gb, "peak_gb": peak_gb,
+               "file_bytes": file_bytes,
+               "save_s": [x + y for x, y in zip(run1["to_numpy_s"],
+                                                run1["save_s"])],
+               "save_host_copy_s": run1["to_numpy_s"],
+               "save_file_s": run1["save_s"],
+               "restore_s": [x + y for x, y in zip(run2["restore_s"],
+                                                   run2["reseat_s"])],
+               "restore_file_s": run2["restore_s"],
+               "restore_reseat_s": run2["reseat_s"],
+               "resume_save_s": run2["save_s"],
+               "run1_s": run1_s, "run2_s": run2_s,
+               "tmp_free_gb_before": free_gb,
+               "host_rss_gb_before": rss0 / 1e9,
+               "host_rss_peak_gb": rss.peak / 1e9,
+               "host_maxrss_gb_process": resource.getrusage(
+                   resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9,
+               "latest_step": [latest1, latest2],
+               "restored_bitwise": checked.get("bitwise", False),
+               "launches": launches}
+        emit(rec)
+        gates = {
+            "finite": bool(np.all(np.isfinite(metrics + numbers))),
+            "latest": [latest1, latest2] == [a["steps"], a["resume"]],
+            "resumed": f"resumed from step {a['steps']}" in run2["lines"],
+            "one_save_then_one": len(run1["save_s"]) == 1
+            and len(run2["save_s"]) == 1,
+            "restored_bitwise": rec["restored_bitwise"],
+            "continuation": loss_gap <= LAUNCH_LOSS_RTOL,
+            "no_hand_kernel": not any(launches.values())}
+        if not all(gates.values()):
+            raise AssertionError(f"lm_launch: gates failed: {gates}")
+
+        # (b) card against CPU from one card-written file, fp32
+        _launch_parity(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "lm_launch", "seconds": time.perf_counter() - phase_t0})
+
+
+# ---------------------------------------------------------------------------
 # phase 2 (continued): the analysis gate on the card
 def analysis_gate(ext, dev) -> None:
     """The launch audit held against the built extension (kernel_info's
@@ -5647,12 +6172,16 @@ def main() -> int:
                                        "serve", "obs", "dist", "shard",
                                        "lm", "moe", "mla", "ssm",
                                        "hybrid", "encdec", "train",
-                                       "consensus"),
+                                       "consensus", "launch"),
                     help="run only this part, and print no result line")
+    ap.add_argument("--figures-cpu", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.figures_cpu:
+        return figures_cpu_main(args.figures_cpu)
     try:
         return run(args)
     finally:
+        FiguresCpu.stop_all()
         write_records(args.out)     # a failed phase's records too
 
 
@@ -5699,6 +6228,8 @@ def run(args) -> int:
             lm_train({})
         elif args.only == "consensus":
             lm_consensus({})
+        elif args.only == "launch":
+            lm_launch({})
         elif args.only in ("figures", "sessions", "fabric", "store",
                            "serve", "obs"):
             run = {"figures": figures, "sessions": sessions,
@@ -5743,6 +6274,7 @@ def run(args) -> int:
     lm_encdec(by_path)
     lm_train(by_path)
     lm_consensus(by_path)
+    lm_launch(by_path)
     if not all(traced.values()):
         raise AssertionError(f"the profiler saw none of some kernels: "
                              f"{traced}")

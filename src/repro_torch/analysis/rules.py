@@ -86,7 +86,11 @@ HOT_ROOTS = frozenset({
 #: names): a shard_map rank's neighbor sums, a sample rank's ADMM
 #: iteration, the rank backends' collectives, and the staging helper they
 #: run inside; the allreduce and the consensus train steps, the
-#: consensus round and gap they run, and the optimizers' update.
+#: consensus round and gap they run, and the optimizers' update.  The
+#: training CLI's loop (``launch/train.py:main``) is not a root: it is
+#: host orchestration (the token draw, the log's ``float()`` reads, which
+#: the reference makes too, the checkpoint codec) in a substrate path the
+#: rules skip, and the steps it calls are the roots above.
 PATH_ROOTS: Dict[str, frozenset] = {
     "core/dtsvm_dist.py": frozenset({"nbr_reduce"}),
     "core/consensus.py": frozenset({"consensus_round", "consensus_gap"}),

@@ -76,7 +76,8 @@ def _pack(obj: Any, out: List[bytes]) -> None:
         out.append(_header(len(raw), 0xA0, 32, (0xD9, 0xDA, 0xDB), "str"))
         out.append(raw)
     elif isinstance(obj, (bytes, bytearray, memoryview)):
-        raw = bytes(obj)
+        # a buffer goes out as it is (no copy): a leaf's raw bytes
+        raw = obj if isinstance(obj, bytes) else memoryview(obj).cast("B")
         out.append(_header(len(raw), 0, 0, (0xC4, 0xC5, 0xC6), "bin"))
         out.append(raw)
     elif isinstance(obj, (list, tuple)):
@@ -100,11 +101,25 @@ def packb(obj: Any) -> bytes:
     return b"".join(out)
 
 
+class _Sink:
+    """``_pack``'s output list as a stream: each piece goes to ``write``."""
+
+    def __init__(self, write):
+        self.append = write
+
+
+def pack_to(obj: Any, write) -> None:
+    """Write ``packb(obj)``'s bytes through ``write``, piece by piece,
+    without joining them: a checkpoint's leaves go to the file from the
+    arrays' own buffers."""
+    _pack(obj, _Sink(write))
+
+
 class _Reader:
     """A cursor over the input; every read past its end raises."""
 
     def __init__(self, data):
-        self.buf = memoryview(data)
+        self.buf = memoryview(data).toreadonly()
         self.pos = 0
 
     def take(self, n: int) -> memoryview:
@@ -157,7 +172,7 @@ def _unpack(r: _Reader) -> Any:
     if kind == "str":
         return str(r.take(n), "utf-8")
     if kind == "bin":
-        return bytes(r.take(n))
+        return r.take(n)
     if kind == "array":
         return [_unpack(r) for _ in range(n)]
     out = {}
@@ -172,7 +187,9 @@ def _unpack(r: _Reader) -> Any:
 
 def unpackb(data) -> Any:
     """The object in ``data``, as ``msgpack.unpackb(data, raw=False)``
-    reads it (arrays as lists).  ``ValueError`` on a truncated input,
+    reads it (arrays as lists), except that a bin is a read-only
+    ``memoryview`` into ``data`` (equal to its ``bytes``), so a large
+    file's leaves are not copied.  ``ValueError`` on a truncated input,
     trailing bytes or a type outside the subset."""
     r = _Reader(data)
     obj = _unpack(r)

@@ -52,7 +52,11 @@ class CheckpointError(RuntimeError):
     """A checkpoint file could not be read (truncated, corrupt, empty)."""
 
 
-def _array_record(dtype: str, shape, data: bytes) -> dict:
+def _array_record(dtype: str, shape, arr: np.ndarray) -> dict:
+    """An array's record; its ``data`` a byte view of ``arr`` in C order
+    (copied only where ``arr`` is not contiguous), which the writer packs
+    without a copy."""
+    data = memoryview(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
     return {_ARR: True, "dtype": dtype, "shape": list(shape), "data": data}
 
 
@@ -60,14 +64,14 @@ def _encode(obj: Any):
     if isinstance(obj, torch.Tensor):
         t = obj.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
-            raw = t.reshape(-1).view(torch.int16).numpy().tobytes()
-            return _array_record(_BF16, t.shape, raw)
+            return _array_record(_BF16, t.shape,
+                                 t.reshape(-1).view(torch.int16).numpy())
         obj = t.numpy()
     # np.generic covers numpy scalars (np.float32(0.), np.bool_(True)),
     # which are not ndarrays: they round-trip as 0-d arrays of their dtype
     if isinstance(obj, (np.ndarray, np.generic)):
         arr = np.asarray(obj)
-        return _array_record(str(arr.dtype), arr.shape, arr.tobytes())
+        return _array_record(str(arr.dtype), arr.shape, arr)
     if isinstance(obj, dict):
         # keys sorted, as the reference's files have them (its encoder
         # reads the tree through jax's pytree flattening, which sorts)
@@ -118,13 +122,15 @@ def decode_tree(payload: Any):
 
 
 def save(path: str, tree: Any) -> None:
-    """Write ``tree`` to ``path`` atomically."""
+    """Write ``tree`` to ``path`` atomically: ``encode_tree(tree)``'s
+    bytes, streamed to the file from the leaves' own buffers (a train
+    state's file is as large as the state; it is never held twice)."""
     folder = os.path.dirname(os.path.abspath(path))
     os.makedirs(folder, exist_ok=True)
-    payload = encode_tree(tree)
+    record = _encode(tree)
     fd, tmp = tempfile.mkstemp(dir=folder)
     with os.fdopen(fd, "wb") as f:
-        f.write(payload)
+        _msgpack.pack_to(record, f.write)
     os.replace(tmp, path)
 
 
@@ -135,6 +141,7 @@ def load(path: str) -> Any:
             raw = f.read()
         if not raw:
             raise ValueError("empty file")
+        # each array a read-only view into ``raw``: no second copy
         return _decode(_msgpack.unpackb(raw))
     except (OSError, ValueError, TypeError, KeyError, RuntimeError) as e:
         raise CheckpointError(

@@ -15,10 +15,15 @@ decoder's weights: the reference's parameter pytree (numpy leaves,
 tree, an encoder-decoder's ``encoder.layers`` stacked too) to the port's
 ``Transformer`` and back, each leaf bitwise; ``lm_grads_to_numpy`` lays
 the gradients of a port model out in the same tree, to compare with
-``jax.grad``'s leaf by leaf.  ``consensus_state_to_torch`` /
-``consensus_state_to_numpy`` carry the consensus trainer's state (every
-leaf with a leading replica axis R, a stacked layer's leaf (R, L, ...)
-in the reference's tree), so both packages start from the same one.
+``jax.grad``'s leaf by leaf.  ``train_state_to_numpy`` lays either
+trainer's state out as the reference's tree: the allreduce state's
+(``mu`` and ``nu`` in the parameters' tree) and the consensus one's
+(every leaf with a leading replica axis R, a stacked layer's leaf
+(R, L, ...)).  ``train_state_to_torch`` and ``consensus_state_to_torch``
+carry the reference's states back, so both packages start from the
+same one.
+``restore_train_state_`` re-seats a checkpoint of either state into a
+live one by the reference's leaf order, as ``launch/train.py`` resumes.
 """
 from __future__ import annotations
 
@@ -84,22 +89,68 @@ def _leaf(params, name: str, axis: int = 0) -> np.ndarray:
     return src if row is None else np.take(src, row, axis=axis)
 
 
+class _Slot:
+    """The port tensors behind one leaf of the reference's tree: one, or
+    a stacked leaf's layers in order along ``axis``."""
+
+    def __init__(self, tensors, axis=None):
+        self.tensors, self.axis = list(tensors), axis
+
+    def numpy(self) -> np.ndarray:
+        """The leaf as one numpy array: a stacked leaf's layers stacked
+        where they live, then copied to the host once."""
+        if self.axis is None:
+            return self.tensors[0].detach().cpu().numpy()
+        with torch.no_grad():
+            return torch.stack(self.tensors, self.axis).cpu().numpy()
+
+
+def _slots(named, axis: int = 0) -> dict:
+    """The reference's tree over ``(parameter name, tensor)`` pairs in
+    the model's order, a ``_Slot`` at each leaf (a stacked leaf's layers
+    along ``axis``)."""
+    tree: dict = {}
+    stacked: dict = {}
+    for name, t in named:
+        path, row = transformer.reference_path(name)
+        if row is None:
+            _put(tree, path, _Slot([t]))
+        elif path in stacked:
+            stacked[path].tensors.append(t)
+        else:
+            stacked[path] = _Slot([t], axis)
+            _put(tree, path, stacked[path])
+    return _lists(tree)
+
+
+def _map(fn, tree):
+    """``fn`` over a tree's leaves, keeping its dicts, lists and tuples
+    (NamedTuples keep their class)."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    if isinstance(tree, tuple):
+        vals = [_map(fn, v) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    return fn(tree)
+
+
+def _flatten(tree) -> list:
+    """The leaves in ``jax.tree.leaves`` order: dict keys sorted, list and
+    tuple entries in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flatten(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _flatten(v)]
+    return [tree]
+
+
 def _tree(named, axis: int = 0) -> dict:
     """The reference's tree of ``(parameter name, tensor)`` pairs in the
     model's order: numpy leaves, the stacked ones stacked along L at
     ``axis``."""
-    tree: dict = {}
-    per_layer: dict = {}
-    for name, t in named:
-        path, row = transformer.reference_path(name)
-        leaf = t.detach().cpu().numpy()
-        if row is None:
-            _put(tree, path, leaf)
-        else:
-            per_layer.setdefault(path, []).append(leaf)
-    for path, leaves in per_layer.items():
-        _put(tree, path, np.stack(leaves, axis=axis))
-    return _lists(tree)
+    return _map(_Slot.numpy, _slots(named, axis))
 
 
 def lm_params_to_torch(params, cfg, device=None) -> "transformer.Transformer":
@@ -176,17 +227,82 @@ def consensus_state_to_torch(ref_state, cfg, device=None):
         step=torch.from_numpy(np.array(ref_state.step)))
 
 
-def consensus_state_to_numpy(state):
-    """The same ``ConsensusTrainState`` with each stacked mapping as the
+def _state_slots(state):
+    """A train state's tree in the reference's layout with a ``_Slot`` at
+    each leaf: ``{"params", "opt": AdamWState}`` for the allreduce state,
+    ``ConsensusTrainState(params, opt, dual, step)`` (every stacked leaf
+    (R, L, ...)) for the consensus one."""
+    opt = state.opt if isinstance(state, ConsensusTrainState) \
+        else state["opt"]
+    axis = 1 if isinstance(state, ConsensusTrainState) else 0
+    tree = lambda m: _slots(m.items(), axis)
+    slots_opt = type(opt)(step=_Slot([opt.step]), mu=tree(opt.mu),
+                          nu=tree(opt.nu))
+    if isinstance(state, ConsensusTrainState):
+        return type(state)(params=tree(state.params), opt=slots_opt,
+                           dual=tree(state.dual), step=_Slot([state.step]))
+    return {"params": _slots(state["params"].named_parameters()),
+            "opt": slots_opt}
+
+
+def train_state_to_numpy(state):
+    """A train state as the reference's tree, what a checkpoint holds:
+    the allreduce state ``{"params": Transformer, "opt": AdamWState(step,
+    mu, nu)}`` with ``params`` as ``lm_params_to_numpy`` lays it out,
+    ``mu`` and ``nu`` in the same shape and ``step`` a 0-d numpy array
+    (the optimizer stays an ``AdamWState``); a ``ConsensusTrainState``
+    the same ``ConsensusTrainState`` with each stacked mapping as the
     reference's tree (numpy leaves (R, ...), a stacked layer's leaves
     (R, L, ...)), the optimizer an ``AdamWState`` of numpy leaves and
     trees, ``step`` numpy: the reference's ``ConsensusTrainState(*out)``
     with ``AdamWState(*out.opt)`` takes it."""
-    tree = lambda m: _tree(m.items(), axis=1)
-    opt = state.opt
-    return type(state)(
-        params=tree(state.params),
-        opt=type(opt)(step=opt.step.detach().cpu().numpy(),
-                      mu=tree(opt.mu), nu=tree(opt.nu)),
-        dual=tree(state.dual),
-        step=state.step.detach().cpu().numpy())
+    return _map(_Slot.numpy, _state_slots(state))
+
+
+def train_state_to_torch(ref_state, cfg, device=None) -> dict:
+    """The port's allreduce train state of a reference one (``params``
+    and ``opt``, an AdamWState or the plain ``(step, mu, nu)`` tuple a
+    checkpoint decodes to, numpy or anything ``np.asarray`` takes) for
+    ``cfg``, on ``device`` (``None`` means ``"cuda"``): the moments keyed
+    in ``transformer.named_leaves`` order, every leaf bitwise."""
+    dev = device_lib.resolve(device)
+    model = lm_params_to_torch(ref_state["params"], cfg, device=dev)
+    step, mu, nu = ref_state["opt"]
+    names = transformer.named_leaves(model)
+    tree = lambda t: {n: torch.from_numpy(np.array(_leaf(t, n))).to(dev)
+                      for n in names}
+    return {"params": model,
+            "opt": AdamWState(step=torch.from_numpy(np.array(step)).to(dev),
+                              mu=tree(mu), nu=tree(nu))}
+
+
+@torch.no_grad()
+def restore_train_state_(state, tree):
+    """Re-seat a restored checkpoint ``tree`` (``checkpoint.
+    restore_latest``'s: dicts, lists, tuples for the NamedTuples, numpy
+    or bf16 tensor leaves) into the live train state ``state``, allreduce
+    or consensus, in place, and return it.  The leaves pair up by the
+    reference's leaf order (``jax.tree.leaves``), and each is cast to the
+    live leaf's dtype, as the reference's ``launch/train.py`` re-seats
+    (``jnp.asarray(b, a.dtype)``); a count or shape that differs raises
+    ``ValueError``."""
+    slots, leaves = _flatten(_state_slots(state)), _flatten(tree)
+    if len(slots) != len(leaves):
+        raise ValueError(f"the checkpoint holds {len(leaves)} leaves, the "
+                         f"train state {len(slots)}")
+    for i, (slot, src) in enumerate(zip(slots, leaves)):
+        want = tuple(slot.tensors[0].shape)
+        if slot.axis is not None:
+            want = want[:slot.axis] + (len(slot.tensors),) + \
+                want[slot.axis:]
+        if tuple(src.shape) != want:
+            raise ValueError(f"leaf {i}: the checkpoint holds "
+                             f"{tuple(src.shape)}, the train state {want}")
+        if not isinstance(src, torch.Tensor):
+            src = torch.from_numpy(np.array(src))
+        # the whole leaf to the live leaf's device and dtype once; a
+        # stacked leaf's layers are then rows of it there
+        src = src.to(slot.tensors[0].device).to(slot.tensors[0].dtype)
+        for r, t in enumerate(slot.tensors):
+            t.copy_(src if slot.axis is None else src.select(slot.axis, r))
+    return state

@@ -1,15 +1,24 @@
-"""The MNIST-proxy multi-task generator (twin of ``repro/data/synthetic.py``).
+"""Synthetic data (twin of ``repro/data/synthetic.py``).
 
-Class-conditional Gaussians in R^p whose class-mean directions are
-shared up to a per-task rotation (``relatedness=1`` identical tasks,
-``0`` independent).  Pure numpy: for the same arguments the arrays are
-exactly the reference's, so both packages fit the same data.
+1. The MNIST-proxy multi-task generator: class-conditional Gaussians in
+   R^p whose class-mean directions are shared up to a per-task rotation
+   (``relatedness=1`` identical tasks, ``0`` independent).  Pure numpy:
+   for the same arguments the arrays are exactly the reference's, so
+   both packages fit the same data.
+2. The LM token stream: ``token_batch`` and ``token_stream`` draw the
+   reference's tokens bit for bit (``repro_torch.net.prng``'s threefry
+   ``split`` and ``randint``) on the host, then copy each batch to the
+   device once.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.net import prng
 
 
 def _task_directions(rng: np.random.Generator, T: int, p: int,
@@ -94,3 +103,29 @@ def split_counts(total: int, V: int) -> np.ndarray:
     out = np.full(V, base, int)
     out[: total - base * V] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# LM token stream
+# ---------------------------------------------------------------------------
+def token_batch(key, vocab_size: int, batch: int, seq: int,
+                device=None) -> Dict[str, torch.Tensor]:
+    """One (tokens, targets) pair of the deterministic synthetic stream
+    for the threefry key ``key`` (``prng.key``/``prng.split``): int32
+    (batch, seq) views of one (batch, seq + 1) draw on ``device``
+    (``None`` means ``"cuda"``), the targets the tokens shifted by one."""
+    dev = device_lib.resolve(device)
+    k1, _ = prng.split(key)
+    toks = torch.from_numpy(
+        prng.randint(k1, (batch, seq + 1), 0, vocab_size)).to(dev)
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def token_stream(seed: int, vocab_size: int, batch: int, seq: int,
+                 device=None) -> Iterator[Dict[str, torch.Tensor]]:
+    """Infinite generator of token batches: the key of ``seed`` split
+    once a batch, as the reference's."""
+    key = prng.key(seed)
+    while True:
+        key, sub = prng.split(key)
+        yield token_batch(sub, vocab_size, batch, seq, device=device)

@@ -1,1 +1,3 @@
-"""Entry points (twin of ``repro/launch/``): serving so far."""
+"""Entry points (twin of ``repro/launch/``): serving (``serve``) and
+training (``train``: the allreduce and the ADMM-consensus trainers on the
+token stream, with checkpoint and resume)."""

@@ -51,8 +51,8 @@ from repro.models import model as jmodel
 from repro.optim.adamw import AdamWState as JAdamWState
 from repro.train import steps as jsteps
 from repro_torch import configs
-from repro_torch.convert import (consensus_state_to_numpy,
-                                 consensus_state_to_torch)
+from repro_torch.convert import (consensus_state_to_torch,
+                                 train_state_to_numpy)
 from repro_torch.core import consensus
 from repro_torch.models import model as model_lib
 from repro_torch.models import transformer
@@ -221,7 +221,7 @@ def _port_steps(ref, case, start, n):
         st, m = step(st, batch)
         out.append(({k: float(v) for k, v in m.items()},
                     consensus.consensus_gap(st.params).numpy(),
-                    consensus_state_to_numpy(st)))
+                    train_state_to_numpy(st)))
     return out
 
 
@@ -331,7 +331,7 @@ def test_state_converter_round_trip_is_bitwise(reference):
     case, arch = CASES[0][0], CASES[0][1]
     want = _ref_state(reference, case + "/init", arch)
     st = consensus_state_to_torch(want, _cfg(arch), device="cpu")
-    back = consensus_state_to_numpy(st)
+    back = train_state_to_numpy(st)
     pairs = [(back.params, want.params), (back.dual, want.dual),
              (back.opt.mu, want.opt.mu), (back.opt.nu, want.opt.nu)]
     for got, ref in pairs:
