@@ -5,7 +5,7 @@
                                                sessions|fabric|store|serve|
                                                obs|dist|shard|lm|moe|mla|
                                                ssm|hybrid|encdec|train|
-                                               consensus|launch]
+                                               consensus|launch|dryrun]
 
 Runs from the root of a checkout, on a machine with one CUDA card, the
 CUDA toolkit and ninja; it builds the hand kernels itself into
@@ -403,9 +403,9 @@ any failure raises and exits non-zero:
    from ``make_train_state`` with a seeded generator, bf16 compute, the
    config's ``remat``: (a) train_4k's 4096 tokens at batch 8 (the
    reference's 256 cut to 8) in 4 microbatches, on one fixed batch of
-   next-token targets, 1 warm-up and 3 timed steps: every step's loss
-   (finite, and the fourth below the first) and grad_norm, the median
-   step ms (CUDA events), tokens/s, 6 N tokens / time as model TFLOP/s
+   next-token targets, 1 warm-up and 2 timed steps: every step's loss
+   (finite, and the third below the first) and grad_norm, the upper
+   median of the timed steps' ms (CUDA events), tokens/s, 6 N tokens / time as model TFLOP/s
    with N the parameter count printed, the peak; one more step traced
    (busy share, launches); no hand kernel launched (its
    ``launches_by_path["lm_train"]`` is zeros); (b) fp32, full width cut
@@ -424,8 +424,8 @@ any failure raises and exits non-zero:
    remat: (a) R = 4, eta 0.05, every step, the chunked loss (CONS), 8 x
    4096 tokens (2 rows a replica), the replicas desynchronized by a
    seeded (1 + 0.05 N(0, 1))
-   factor, 1 warm-up and 3 timed steps: every step's loss (finite, the
-   fourth below the first), replica 0's grad_norm and gap (the step's,
+   factor, 1 warm-up and 2 timed steps: every step's loss (finite, the
+   third below the first), replica 0's grad_norm and gap (the step's,
    which must equal the per-replica gaps' first) and the gaps' max over
    the replicas, the median step ms (CUDA events), tokens/s, model
    TFLOP/s (6 N tokens / time, N one replica's parameters), the state's
@@ -461,7 +461,34 @@ any failure raises and exits non-zero:
    reduced qwen2-0.5b under allreduce: the card writes step 2, the card
    and the CPU each resume a copy to step 4, the two files held to phase
    22(b)'s bounds; the phase prints its seconds;
-24. the ``kernels`` line (with ``launches_by_path["shard"]``, phase 14's
+24. the one-card dry run (``repro_torch.launch.dryrun``: each step run
+   once on fake tensors, no storage and no kernel, for its peak bytes,
+   FLOPs and bytes accessed): (a) two mamba2-130m configurations at full
+   size, phase 18(d)'s bf16 prefill of 1 x 32768 and phase 23's ADMM
+   trainer (R = 4, batch 8, seq 256), each traced on fake ``cuda``
+   tensors, then the same step run once for real from seeded weights
+   (after ``gc.collect()``, ``empty_cache()`` and
+   ``reset_peak_memory_stats()``, nothing else of the phase held) and
+   once more under the dry run's byte tracker on the real tensors: the
+   predicted, the tracked and the measured peak (``max_memory_allocated``
+   above what was held before), the predicted over the measured, the
+   counted and the analytic FLOPs (``launch/costs.py``), ``trace_s``, the
+   step's ms (CUDA events) and the seconds; gate: predicted / measured
+   within DRYRUN_PEAK_BAND; then the budget ``fits`` reads
+   (``dryrun.budget``): the card's memory and what the process holds
+   outside the allocator beside ``mesh``'s constants, and the card's
+   usable bytes beside the CPU's; (b) the module's CLI (``dryrun.main``,
+   no ``--device``) at ``--shape decode_32k --mesh 1x1`` for all ten
+   archs at full size, a line a record (status, argument and peak GB,
+   usable GB, fits on the card and on the CPU's budget, counted over
+   analytic FLOPs, ``trace_s``); gates: no ``error`` record, a skip
+   exactly where ``shape_applicable`` says, ``fits`` false for
+   DRYRUN_OVER_CARD (their fp32 parameters alone pass the card) and
+   true for mamba2-130m, each record's ``fits`` the one the CPU's
+   budget gives; no hand kernel launched
+   (``launches_by_path["lm_dryrun"]`` is zeros); the phase prints its
+   seconds;
+25. the ``kernels`` line (with ``launches_by_path["shard"]``, phase 14's
    launches counted in the ranks), the card line, and the result line.
 
 ``--only`` runs one part and prints no result line, to compare two
@@ -474,7 +501,7 @@ its plain version and timed, ``figures`` phase 7, ``sessions`` phase 8,
 phase 12, ``dist`` phase 13, ``shard`` phase 14, ``lm`` phase 15,
 ``moe`` phase 16, ``mla`` phase 17, ``ssm`` phase 18, ``hybrid`` phase
 19, ``encdec`` phase 20, ``train`` phase 21, ``consensus`` phase 22,
-``launch`` phase 23.
+``launch`` phase 23, ``dryrun`` phase 24.
 
 Without a CUDA device, or without the rest of the repository beside it,
 it exits non-zero and prints no result.
@@ -495,13 +522,16 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
-# fp32 FLOP/s outside the tensor cores (the port's fp32 never uses TF32);
-# and its L2 cache, which a K read every QP iteration must fit to be read
-# from HBM once
-HBM_BYTES_S = 3.35e12
-FP32_FLOP_S = 67e12
+# H100 SXM peaks (repro_torch.launch.mesh: NVIDIA data sheet, at the 700 W
+# limit): HBM3 bytes/s and fp32 FLOP/s outside the tensor cores (the
+# port's fp32 never uses TF32)
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_F32 as FP32_FLOP_S  # noqa: E402,E501
+
+# the H100's L2 cache, which a K read every QP iteration must fit to be
+# read from HBM once
 L2_BYTES = 50e6
 
 # (name in the kernels line, source, the TPU kernel it replaces)
@@ -744,12 +774,13 @@ ENCDEC_PARAMS = 239_562_240
 # nothing cut but the batch: train_4k's 4096 tokens a row at a batch of 8
 # (the reference's global batch of 256 cut to 8, which one card steps
 # through in seconds) in 4 microbatches, the config's remat, bf16
-# compute.  (a) 1 warm-up and 3 timed steps on one fixed batch; (b) fp32
+# compute.  (a) 1 warm-up and 2 timed steps on one fixed batch (a third
+# cost 8-10 s of the script's time budget); (b) fp32
 # parity at full width cut to 2 layers, batch 1 x 256 tokens, one step on
 # the card against the same step on the CPU; (c) (a)'s first step with
 # the chunked loss, its loss within TRAIN_CHUNKED_RTOL of (a)'s
 TRAIN_ARCH = "qwen2-0.5b"
-TRAIN = dict(batch=8, seq=4096, microbatch=4, warmup=1, steps=3)
+TRAIN = dict(batch=8, seq=4096, microbatch=4, warmup=1, steps=2)
 TRAIN_PARITY = dict(layers=2, batch=1, seq=256)
 TRAIN_LR = 3e-4
 # card against CPU, fp32: the loss and grad_norm within rtol 1e-5, each
@@ -768,7 +799,8 @@ TRAIN_CHUNKED_RTOL = 2.0 ** -8
 # leading replica axis), bf16 compute, the config's remat.  (a) one fixed
 # batch of 8 x 4096 tokens, 2 rows a replica (phase 21's microbatch), the
 # replicas desynchronized by a seeded (1 + 0.05 N(0, 1)) factor (the
-# reference's tests/test_dist.py:68-72), 1 warm-up and 3 timed steps;
+# reference's tests/test_dist.py:68-72), 1 warm-up and 2 timed steps (as
+# phase 21's);
 # (b) fp32 parity at full width cut to 2 layers, R = 2, batch 2 x 256, one
 # step on the card against the same step on the CPU from the same state
 # (phase 21's bounds; the dual and the moments, gradient-derived, to the
@@ -779,7 +811,7 @@ TRAIN_CHUNKED_RTOL = 2.0 ** -8
 # (a) runs with the chunked loss: unchunked it peaks at 65.2 GB allocated
 # alone, and inside the whole script the allocator's cache (17.4 GiB
 # reserved but free) left no room for the logits' 4.64 GiB gradient
-CONS = dict(replicas=4, batch=8, seq=4096, warmup=1, steps=3, eta=0.05,
+CONS = dict(replicas=4, batch=8, seq=4096, warmup=1, steps=2, eta=0.05,
             every=1, chunked_ce=True)
 CONS_PARITY = dict(layers=2, replicas=2, batch=2, seq=256, eta=0.05)
 CONS_REGIME = dict(replicas=4, eta=0.1, lr=3e-3, batch=8, seq=64, steps=10,
@@ -806,6 +838,20 @@ LAUNCH_PARITY_RUNS = (
     ("mamba2-130m/admm", ["--arch", "mamba2-130m", "--trainer", "admm",
                           "--mesh", "2x1"]),
     ("qwen2-0.5b/allreduce", ["--arch", "qwen2-0.5b"]))
+# phase 24: the one-card dry run.  (a) mamba2-130m at full size in two
+# configurations, (name, step kind, batch, seq, mode, replicas): phase
+# 18(d)'s bf16 prefill and phase 23's ADMM trainer (the reference
+# example's R = 4, batch 8, seq 256), each traced on fake cuda tensors and
+# run for real; the predicted peak over the measured within
+# DRYRUN_PEAK_BAND.  (b) the module's CLI over every arch at full size at
+# DRYRUN_CLI; DRYRUN_OVER_CARD's fp32 parameters alone pass 80 GB
+DRYRUN_ARCH = "mamba2-130m"
+DRYRUN_CASES = (("prefill/1x32768", "prefill", 1, 32768, "allreduce", 1),
+                ("admm/R4/8x256", "train", 8, 256, "admm", 4))
+DRYRUN_PEAK_BAND = (0.85, 1.05)
+DRYRUN_CLI = ["--arch", "all", "--shape", "decode_32k", "--mesh", "1x1"]
+DRYRUN_OVER_CARD = ("qwen2.5-32b", "deepseek-v2-236b",
+                    "phi3.5-moe-42b-a6.6b")
 # the figures phase's CPU runs go to one process started with the phase,
 # with this many torch threads, beside its card runs
 FIGURES_CPU_THREADS = 3
@@ -1751,7 +1797,6 @@ def figures_cpu_main(out: str) -> int:
     own, without the card, beside the phase's card runs."""
     import pickle
 
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     torch.set_num_threads(FIGURES_CPU_THREADS)
     from repro_torch.figures import common, golden
 
@@ -6110,6 +6155,188 @@ def lm_launch(by_path: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 24: the one-card dry run
+def _dryrun_real(cfg, shape, mode: str, replicas: int) -> dict:
+    """The step ``dryrun.build`` traces, made from seeded weights and
+    inputs on the card and run once for real: its peak above what was
+    held before (``max_memory_allocated``), the state's and inputs' bytes
+    and the step's ms; then once more under the dry run's byte tracker on
+    the real tensors (its peak, from the same arguments again)."""
+    import gc
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import steps
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    long_mode = model_lib.use_long_mode(cfg, shape)
+
+    def fresh():
+        inputs = model_lib.make_inputs(cfg, shape, gen, device="cuda")
+        if mode == "admm":
+            state = steps.make_consensus_train_state(
+                cfg, gen, replicas, shape, device="cuda")
+            return (steps.make_consensus_train_step(
+                cfg, replicas, long_mode=long_mode), (state, inputs))
+        params = model_lib.init_params(cfg, gen, shape, device="cuda")
+        return steps.make_prefill_step(cfg, long_mode), (params, inputs)
+
+    step, args = fresh()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args_bytes = torch.cuda.memory_allocated() - held
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    out = step(*args)
+    ev1.record()
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - held
+    finite = bool(all(torch.isfinite(t).all() for t in (
+        [out[1]["loss"]] if mode == "admm" else [out[0]])))
+    del step, args, out
+    step, args = fresh()
+    gc.collect()
+    torch.cuda.synchronize()
+    tracked = dryrun.measure(step, args, "cuda")
+    del step, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"held_gb": held / 1e9, "real_args_bytes": args_bytes,
+            "measured_peak_bytes": measured, "step_ms": ev0.elapsed_time(ev1),
+            "finite": finite, "tracked_real": tracked}
+
+
+def lm_dryrun(by_path: dict) -> None:
+    """Phase 24: the dry run's peaks held to the card's, then its CLI over
+    every arch at decode_32k."""
+    import tempfile
+
+    from repro_torch.configs import (ARCHS, SHAPES, get_config,
+                                     shape_applicable)
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import costs, dryrun, mesh
+    from repro_torch.models import model as model_lib
+
+    phase_t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    cfg = get_config(DRYRUN_ARCH)
+    ratios = {}
+    for name, kind, B, S, mode, R in DRYRUN_CASES:
+        t0 = time.perf_counter()
+        shape = InputShape(name, S, B, kind)
+        pred = dryrun.trace(cfg, shape, mode, R, "cuda")
+        real = _dryrun_real(cfg, shape, mode, R)
+        ac = costs.step_costs(cfg, shape,
+                              long_mode=model_lib.use_long_mode(cfg, shape))
+        ratio = pred["peak_bytes"] / real["measured_peak_bytes"]
+        ratios[name] = ratio
+        tr = real.pop("tracked_real")
+        emit({"lm_dryrun": name, "arch": cfg.name, "batch": B, "seq": S,
+              "mode": mode, "replicas": R,
+              "predicted_peak_gb": pred["peak_bytes"] / 1e9,
+              "predicted_args_gb": pred["argument_size_in_bytes"] / 1e9,
+              "tracked_real_peak_gb": tr["peak_bytes"] / 1e9,
+              "tracked_real_args_gb": tr["argument_size_in_bytes"] / 1e9,
+              "measured_peak_gb": real["measured_peak_bytes"] / 1e9,
+              "real_args_gb": real["real_args_bytes"] / 1e9,
+              "held_before_gb": real["held_gb"],
+              "predicted_over_measured": ratio,
+              "band": DRYRUN_PEAK_BAND,
+              "flops_counted": pred["flops"],
+              "flops_tracked_real": tr["flops"],
+              "flops_analytic": ac.flops,
+              "counted_over_analytic": pred["flops"] / ac.flops,
+              "bytes_accessed": pred["bytes_accessed"],
+              "trace_s": pred["seconds"],
+              "tracked_real_s": tr["seconds"],
+              "step_ms": real["step_ms"], "finite": real["finite"],
+              "seconds": time.perf_counter() - t0})
+        if not real["finite"]:
+            raise AssertionError(f"lm_dryrun: {name}'s real step is not "
+                                 f"finite")
+    # the budget fits reads, after real steps (the context, cuBLAS loaded)
+    free, total = torch.cuda.mem_get_info()
+    cpu_usable = dryrun.budget(torch.device("cpu"))[1]
+    emit({"lm_dryrun": "budget", "total_bytes": total,
+          "mesh_hbm_bytes": mesh.HBM_BYTES,
+          "outside_allocator_bytes":
+              total - free - torch.cuda.memory_reserved(),
+          "mesh_context_bytes": mesh.CONTEXT_BYTES,
+          "mesh_cublas_workspace_bytes": mesh.CUBLAS_WORKSPACE_BYTES,
+          "usable_bytes": dryrun.budget(torch.device("cuda"))[1],
+          "cpu_usable_bytes": cpu_usable})
+
+    # (b) the CLI at full size, every arch, on the card (no --device)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="lm_dryrun_") as tmp:
+        path = os.path.join(tmp, "dryrun.jsonl")
+        out = io.StringIO()
+        failed = None
+        try:
+            with contextlib.redirect_stdout(out):
+                dryrun.main([*DRYRUN_CLI, "--out", path])
+        except SystemExit as e:
+            failed = str(e)
+        with open(path) as f:
+            recs = [json.loads(line) for line in f]
+    cli_s = time.perf_counter() - t0
+    shape = SHAPES["decode_32k"]
+    wrong = []
+    for rec in recs:
+        line = {"lm_dryrun": "cli", "arch": rec["arch"],
+                "shape": rec["shape"], "mesh": rec["mesh"],
+                "status": rec["status"]}
+        if rec["status"] == "ok":
+            mem = rec["memory"]
+            line.update({
+                "argument_gb": mem["argument_size_in_bytes"] / 1e9,
+                "peak_gb": mem["peak_bytes"] / 1e9,
+                "device_gb": mem["device_bytes"] / 1e9,
+                "usable_gb": mem["usable_bytes"] / 1e9,
+                "fits": mem["fits"],
+                "cpu_fits": mem["peak_bytes"] <= cpu_usable,
+                "counted_over_analytic": rec["flops"]
+                / rec["analytic"]["flops"],
+                "trace_s": rec["trace_s"]})
+        else:
+            line["why"] = rec.get("reason") or rec.get("error")
+        emit(line)
+        applicable = shape_applicable(get_config(rec["arch"]), shape)[0]
+        if rec["status"] != ("ok" if applicable else "skipped"):
+            wrong.append((rec["arch"], rec["status"]))
+        elif rec["status"] == "ok":
+            want = rec["arch"] not in DRYRUN_OVER_CARD
+            mem = rec["memory"]
+            if rec["arch"] in DRYRUN_OVER_CARD + (DRYRUN_ARCH,) and \
+                    mem["fits"] != want:
+                wrong.append((rec["arch"], "fits", mem["fits"]))
+            if mem["fits"] != (mem["peak_bytes"] <= cpu_usable):
+                wrong.append((rec["arch"], "cpu_fits", mem["fits"]))
+    by_path["lm_dryrun"] = launches = ops.launch_counts()
+    emit({"lm_dryrun": "cli/summary", "argv": DRYRUN_CLI,
+          "records": len(recs), "seconds": cli_s, "exit": failed,
+          "lines": out.getvalue().splitlines(), "launches": launches})
+    gates = {
+        "band": all(DRYRUN_PEAK_BAND[0] <= r <= DRYRUN_PEAK_BAND[1]
+                    for r in ratios.values()),
+        "cli_exit": failed is None,
+        "every_arch": sorted(r["arch"] for r in recs) == sorted(ARCHS),
+        "statuses_and_fits": not wrong,
+        "no_hand_kernel": not any(launches.values())}
+    emit({"phase": "lm_dryrun", "seconds": time.perf_counter() - phase_t0})
+    if not all(gates.values()):
+        raise AssertionError(f"lm_dryrun: gates failed: {gates}; "
+                             f"ratios {ratios}; wrong {wrong}; {failed}")
+
+
+# ---------------------------------------------------------------------------
 # phase 2 (continued): the analysis gate on the card
 def analysis_gate(ext, dev) -> None:
     """The launch audit held against the built extension (kernel_info's
@@ -6172,7 +6399,7 @@ def main() -> int:
                                        "serve", "obs", "dist", "shard",
                                        "lm", "moe", "mla", "ssm",
                                        "hybrid", "encdec", "train",
-                                       "consensus", "launch"),
+                                       "consensus", "launch", "dryrun"),
                     help="run only this part, and print no result line")
     ap.add_argument("--figures-cpu", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -6191,7 +6418,6 @@ def run(args) -> int:
         print("chip_smoke.py needs a CUDA device; none is available",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch import device as device_lib
     from repro_torch.kernels import build
 
@@ -6230,6 +6456,8 @@ def run(args) -> int:
             lm_consensus({})
         elif args.only == "launch":
             lm_launch({})
+        elif args.only == "dryrun":
+            lm_dryrun({})
         elif args.only in ("figures", "sessions", "fabric", "store",
                            "serve", "obs"):
             run = {"figures": figures, "sessions": sessions,
@@ -6275,6 +6503,7 @@ def run(args) -> int:
     lm_train(by_path)
     lm_consensus(by_path)
     lm_launch(by_path)
+    lm_dryrun(by_path)
     if not all(traced.values()):
         raise AssertionError(f"the profiler saw none of some kernels: "
                              f"{traced}")

@@ -36,7 +36,12 @@ runs it on the CPU, ``--arch phi3.5-moe-42b-a6.6b`` the MoE path and
 ``--arch deepseek-v2-236b`` the MLA path; ``pytest
 tests/test_torch_moe.py tests/test_torch_mla.py`` holds them to the
 reference, and ``python3 chip_smoke.py --only moe`` / ``--only mla``
-runs Phi-3.5-MoE / DeepSeek-V2 at full width on the card.
+runs Phi-3.5-MoE / DeepSeek-V2 at full width on the card.  The rest of
+the seed substrate is ported too: the SSM, hybrid and encoder-decoder
+stacks, both trainers and the training CLI (``repro_torch.launch.
+train``), and the one-card dry run (``python -m repro_torch.launch.
+dryrun``: each step on fake tensors, its peak bytes and FLOPs against
+the card's memory, ``launch/costs.py``'s model beside them).
 The four TPU kernels (the square and the tiled
 weighted Gram build, the fused QP step and the fused multi-iteration QP
 solve) and the server's fixed-order product (``gemm_rows``) are CUDA C++

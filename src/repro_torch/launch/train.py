@@ -50,24 +50,9 @@ from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.configs.base import InputShape
 from repro_torch.core.consensus import ConsensusConfig
 from repro_torch.data.synthetic import token_batch
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.net import prng
 from repro_torch.train import steps as steps_lib
-
-
-def _replicas(mesh: str, trainer: str):
-    """The consensus replica count of ``--mesh DxM`` (None without a
-    mesh), printing what one card leaves unused."""
-    if not mesh:
-        return None
-    d, m = (int(x) for x in mesh.split("x"))
-    if trainer == "admm":
-        if m != 1:
-            print(f"mesh {mesh}: the model axis ({m}) is unused on one card; "
-                  f"computing {d}x1")
-    else:
-        print(f"mesh {mesh}: unused under allreduce (one card holds the "
-              f"whole batch)")
-    return d
 
 
 def main(argv=None):
@@ -99,7 +84,8 @@ def main(argv=None):
            else get_config(args.arch))
     shape = InputShape("cli", args.seq, args.batch, "train")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    replicas = _replicas(args.mesh, args.trainer)
+    replicas = (mesh_lib.parse_mesh(args.mesh, args.trainer).shape[0]
+                if args.mesh else None)
 
     if args.trainer == "admm":
         if replicas is None:
